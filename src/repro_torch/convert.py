@@ -1,0 +1,33 @@
+"""Carry parameters across from the JAX package.
+
+``repro``'s initialisers draw from ``jax.random``, which torch cannot
+reproduce. A caller that wants both packages to start from the same weights
+converts the JAX tree to numpy (``jax.tree.map(np.asarray, params)``) and
+hands it here; nothing of JAX is imported.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    """Nested dict/list/tuple of numpy arrays -> the same structure of
+    tensors on ``device`` (CUDA unless ``device="cpu"``). Shapes and layout
+    are kept as they are (``w`` stays ``[d_in, d_out]``), so packed views
+    agree element-wise with ``repro.treemath.tree_pack``."""
+    dev = device_lib.resolve(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            kids = [conv(v) for v in node]
+            return kids if isinstance(node, list) else tuple(kids)
+        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+
+    return conv(tree)

@@ -1,0 +1,324 @@
+"""The paper's staleness simulation model (Section 3), port of
+``repro/core/staleness.py``.
+
+Semantics:
+  * ``P`` workers each hold a full model cache ``x_p``.
+  * At iteration ``t`` every worker computes an additive update ``u_p^t``
+    from its own cache.
+  * The update reaches every worker ``p'`` (``p`` included) at the start of
+    iteration ``t + 1 + r_{p,p'}^t``, ``r`` drawn from the delay spec.
+  * Evaluation reads worker 0's cache.
+
+Caches are stacked on a leading worker axis ``[P, ...]``; the JAX package's
+``vmap`` over that axis is written out here as a batch dimension, so
+``update_fn`` sees all P workers at once (see ``optim.value_and_grad``).
+In-flight updates live in a delivery ring, in one of two layouts:
+
+* tree (``kernels=False``): leaves ``[P, B, ...]`` with ``B = bound + 1``;
+  slot ``d`` holds the sum of updates landing in ``d + 1`` iterations. Each
+  step delivers slot 0 and rolls the buffer left.
+* packed (``kernels=True``): ONE ``ring [P, B, D]`` of packed flat rows
+  (``treemath.tree_pack``) addressed by a rotating cursor (slot ``t mod B``
+  holds step ``t``'s arrivals), plus the prefetched ``arrived [P, D]`` row.
+  Delivery runs through ``dispatch.stale_accum`` (the CUDA kernel on the
+  card), then the consumed slot is zeroed, the P^2 new rows are added in,
+  and the next step's row is read.
+
+The packed step updates its ring IN PLACE, as the JAX engine does through
+buffer donation: a state passed to ``step`` is consumed and must not be
+stepped again. The prefetched ``arrived`` row is a copy, never a view of the
+ring, so the slot zeroed at the next step cannot alias it (with ``B = 1``
+every step reuses slot 0). Scattering rows that share a ``(dst, slot)``
+target runs one source at a time in a fixed order, with no float atomics on
+a shared element, so replays are bitwise deterministic.
+
+The step count and the ring cursor are Python ints: ``t mod B`` and the
+Adam bias corrections never force a device sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch import treemath as tm
+from repro_torch.delays.models import DelaySpec, as_spec
+from repro_torch.kernels import dispatch
+from repro_torch.optim.optimizers import lr_at, value_and_grad
+
+Pytree = Any
+# update_fn(params, update_state, batch, gen) -> (update, new_update_state, metrics)
+UpdateFn = Callable[[Pytree, Pytree, Pytree, torch.Generator],
+                    Tuple[Pytree, Pytree, dict]]
+
+
+@dataclasses.dataclass(frozen=True)
+class StalenessConfig:
+    num_workers: int
+    delay: DelaySpec
+    # The server-side ablation is not ported yet (ROADMAP A.2).
+    server_side: bool = False
+    # Packed [P, B, D] ring + kernel delivery (see module docstring).
+    kernels: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "delay", as_spec(self.delay))
+        if self.server_side:
+            raise NotImplementedError(
+                "server_side is not ported yet (ROADMAP A.2, server_side "
+                "ablation of core/staleness.py)")
+
+    @property
+    def buffer_slots(self) -> int:
+        return self.delay.bound + 1
+
+
+@dataclasses.dataclass
+class SimState:
+    caches: Pytree        # [P, ...] per-worker model caches
+    pending: Pytree       # [P, B, ...] ring (packed: {"ring", "arrived"})
+    update_state: Pytree  # per-worker algorithm state ([P, ...] leaves)
+    server_state: Pytree  # always () in this port
+    step: int             # iteration counter
+    key: torch.Generator  # delay (and stochastic-loss) randomness
+
+
+def _packed_width(params: Pytree) -> int:
+    return tm.padded_size(tm.pack_spec(params).total, dispatch.PACK_ALIGN)
+
+
+def _is_packed(state: SimState) -> bool:
+    """Packed states carry one pending dict whose tree shape differs from
+    the caches tree."""
+    return tm.tree_structure(state.pending) != tm.tree_structure(state.caches)
+
+
+def init_sim_state(params: Pytree, update_state: Pytree,
+                   cfg: StalenessConfig, key, server_state: Pytree = ()
+                   ) -> SimState:
+    """All workers start from identical ``params``; buffers start empty.
+
+    ``update_state`` is given per single worker and broadcast across the
+    worker axis. ``key`` is an int seed or a ``torch.Generator`` on the
+    params' device."""
+    if server_state != ():
+        raise NotImplementedError(
+            "server_state is not ported yet (ROADMAP A.2, server_side "
+            "ablation of core/staleness.py)")
+    p = cfg.num_workers
+    dev = tm.tree_leaves(params)[0].device
+    gen = key if isinstance(key, torch.Generator) else device_lib.generator(key, dev)
+    caches = tm.tree_broadcast_leading(params, p)
+    if cfg.kernels:
+        width = _packed_width(params)
+        pending = {
+            "ring": torch.zeros((p, cfg.buffer_slots, width), device=dev),
+            "arrived": torch.zeros((p, width), device=dev),
+        }
+    else:
+        pending = tm.tree_map(
+            lambda x: torch.zeros((p, cfg.buffer_slots) + tuple(x.shape),
+                                  dtype=x.dtype, device=x.device), params)
+    return SimState(caches=caches, pending=pending,
+                    update_state=tm.tree_broadcast_leading(update_state, p),
+                    server_state=(), step=0, key=gen)
+
+
+def _deliver(caches: Pytree, pending: Pytree) -> Tuple[Pytree, Pytree]:
+    new_caches = tm.tree_map(lambda c, b: c + b[:, 0].to(c.dtype),
+                             caches, pending)
+    rolled = tm.tree_map(
+        lambda b: torch.cat([b[:, 1:], torch.zeros_like(b[:, :1])], dim=1),
+        pending)
+    return new_caches, rolled
+
+
+def _dispatch(pending: Pytree, updates: Pytree, delays: torch.Tensor,
+              slots: int) -> Pytree:
+    # onehot[src, dst, slot] routes update[src] into pending[dst, slot]; the
+    # contraction over src is a fixed-order matmul.
+    onehot = (delays.unsqueeze(-1)
+              == torch.arange(slots, device=delays.device)).float()
+
+    def scatter(buf, u):
+        acc = torch.tensordot(onehot, u.float(), dims=([0], [0]))  # [P,B,...]
+        return buf + acc.to(buf.dtype)
+
+    return tm.tree_map(scatter, pending, updates)
+
+
+def _ring_dispatch(ring: torch.Tensor, uvec: torch.Tensor,
+                   delays: torch.Tensor, step: int) -> torch.Tensor:
+    """Packed-layout dispatch, in place on ``ring [P, B, D]``: zero the
+    consumed slot ``step mod B``, add each source's row ``uvec[src]`` into
+    ``(dst, (step + 1 + r[src, dst]) mod B)`` for every dst, and return a
+    copy of the next step's arrivals. One ``index_add_`` per source: within
+    a source the P targets are distinct, so no element takes two adds in one
+    launch, and sources add in a fixed order."""
+    p, slots, width = ring.shape
+    ring[:, step % slots].zero_()
+    slot = torch.remainder(delays + (step + 1), slots)           # [src, dst]
+    rows = ring.view(p * slots, width)
+    base = torch.arange(p, device=ring.device) * slots
+    for src in range(p):
+        rows.index_add_(0, base + slot[src],
+                        uvec[src].unsqueeze(0).expand(p, width))
+    return ring[:, (step + 1) % slots].clone()
+
+
+def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
+                  server_apply=None, compensator=None,
+                  fused: Optional[dict] = None):
+    """Build one engine step: ``step(state, batches, bound=None) ->
+    (state, metrics)``.
+
+    ``batches`` carry a leading worker axis ``P`` on every leaf. ``bound``
+    (an int) clamps the realized delays (the engine's dynamic staleness
+    control).
+
+    ``fused`` (requires ``kernels=True``) replaces ``update_fn`` with the
+    fused compute stage: per-worker gradients of ``fused["loss"]``, then ALL
+    P workers' Adam as ONE ``dispatch.fused_adam`` pass over the flattened
+    [P*D] packed view, with the moments stored packed in
+    ``update_state = {"m": [P, D], "v": [P, D]}``. Keys of ``fused``:
+    ``loss``, ``takes_key``, ``lr``, ``b1``, ``b2``, ``eps``,
+    ``weight_decay``.
+    """
+    if server_apply is not None:
+        raise NotImplementedError(
+            "server_apply is not ported yet (ROADMAP A.2, server_side "
+            "ablation of core/staleness.py)")
+    if compensator is not None:
+        raise NotImplementedError(
+            "compensation is not ported yet (ROADMAP A.6, compensate/)")
+    if fused is not None and not cfg.kernels:
+        raise ValueError("fused simulate step requires kernels=True "
+                         "(it runs over the packed ring)")
+    p = cfg.num_workers
+    slots = cfg.buffer_slots
+    source = cfg.delay.realize(num_workers=p)
+
+    def draw(state: SimState, bound: Optional[int]) -> torch.Tensor:
+        delays = source.delays(state.key, state.step, (p, p))
+        if bound is not None:
+            delays = torch.clamp(delays, max=int(bound))
+        return delays
+
+    def deliver_packed(state: SimState):
+        """Caches plus the prefetched arrivals, through one stale_accum over
+        the flattened packed caches view. Returns (caches tree, [P, D])."""
+        pspec = tm.pack_spec(state.caches, lead_ndim=1)
+        arrived = state.pending["arrived"]                       # [P, D]
+        cvec = tm.tree_pack(state.caches, lead_ndim=1,
+                            pad_to=dispatch.PACK_ALIGN)          # [P, D]
+        flat = dispatch.stale_accum(
+            cvec.reshape(-1), arrived.reshape(1, -1),
+            torch.ones((1,), device=arrived.device))
+        cflat = flat.reshape(p, -1)
+        return tm.tree_unpack(cflat, pspec), cflat
+
+    def finish_packed(state, caches, update_state, uvec, delays, metrics):
+        ring = state.pending["ring"]
+        arrived_next = _ring_dispatch(ring, uvec.to(ring.dtype), delays,
+                                      state.step)
+        new_state = SimState(
+            caches=caches, pending={"ring": ring, "arrived": arrived_next},
+            update_state=update_state, server_state=(),
+            step=state.step + 1, key=state.key)
+        return new_state, metrics
+
+    def packed_step(state: SimState, batches: Pytree,
+                    bound: Optional[int] = None):
+        caches, _ = deliver_packed(state)
+        updates, update_state, metrics = update_fn(
+            caches, state.update_state, batches, state.key)
+        delays = draw(state, bound)
+        uvec = tm.tree_pack(updates, lead_ndim=1, pad_to=dispatch.PACK_ALIGN)
+        return finish_packed(state, caches, update_state, uvec, delays,
+                             metrics)
+
+    def packed_fused_step(state: SimState, batches: Pytree,
+                          bound: Optional[int] = None):
+        caches, cflat = deliver_packed(state)
+        args = (batches, state.key) if fused["takes_key"] else (batches,)
+        losses, grads = value_and_grad(fused["loss"], caches, *args)
+        gvec = tm.tree_pack(grads, lead_ndim=1,
+                            pad_to=dispatch.PACK_ALIGN)          # [P, D]
+        m, v = state.update_state["m"], state.update_state["v"]
+        ostep = state.step + 1      # every worker steps once per iteration
+        eta = lr_at(fused["lr"], ostep)
+        dneg, m2, v2 = dispatch.fused_adam(
+            torch.zeros((m.numel(),), device=m.device), m.reshape(-1),
+            v.reshape(-1), gvec.reshape(-1), eta, fused["b1"], fused["b2"],
+            fused["eps"], ostep)
+        uvec = dneg.reshape(p, -1)                               # [P, D]
+        wd = fused["weight_decay"]
+        if wd:
+            # Decoupled decay against the post-delivery cache each gradient
+            # was computed at: the packed image of the per-leaf AdamW rule.
+            uvec = uvec - eta * wd * cflat
+        update_state = {"m": m2.reshape(p, -1), "v": v2.reshape(p, -1)}
+        delays = draw(state, bound)
+        return finish_packed(state, caches, update_state, uvec, delays,
+                             {"loss": losses})
+
+    def step(state: SimState, batches: Pytree, bound: Optional[int] = None):
+        caches, pending = _deliver(state.caches, state.pending)
+        updates, update_state, metrics = update_fn(
+            caches, state.update_state, batches, state.key)
+        delays = draw(state, bound)
+        pending = _dispatch(pending, updates, delays, slots)
+        new_state = SimState(caches=caches, pending=pending,
+                             update_state=update_state, server_state=(),
+                             step=state.step + 1, key=state.key)
+        return new_state, metrics
+
+    if fused is not None:
+        return packed_fused_step
+    return packed_step if cfg.kernels else step
+
+
+def drain(state: SimState) -> SimState:
+    """Deliver every in-flight update without generating new ones. After
+    draining, every cache equals ``x0 + sum of all generated updates``.
+    Handles both pending layouts."""
+    if _is_packed(state):
+        ring = state.pending["ring"]
+        slots = ring.shape[1]
+        pspec = tm.pack_spec(state.caches, lead_ndim=1)
+
+        def add(caches, row):
+            delivered = tm.tree_unpack(row, pspec)
+            return tm.tree_map(lambda c, d: c + d.to(c.dtype), caches,
+                               delivered)
+
+        # The prefetched row IS ring slot (step mod B); the remaining
+        # in-flight updates sit at the following B-1 cursor positions.
+        caches = add(state.caches, state.pending["arrived"])
+        for i in range(1, slots):
+            caches = add(caches, ring[:, (state.step + i) % slots])
+        return dataclasses.replace(
+            state, caches=caches,
+            pending={"ring": torch.zeros_like(ring),
+                     "arrived": torch.zeros_like(state.pending["arrived"])})
+
+    slots = tm.tree_leaves(state.pending)[0].shape[1]
+    caches, pending = state.caches, state.pending
+    for _ in range(slots):
+        caches, pending = _deliver(caches, pending)
+    return dataclasses.replace(state, caches=caches, pending=pending)
+
+
+def sequential_reference(update_fn: UpdateFn, params: Pytree,
+                         update_state: Pytree, batches_per_step,
+                         keys=None) -> Pytree:
+    """Plain sequential execution (the s=0, P=1 limit) for exactness
+    tests: unstacked params and batches, one update per batch."""
+    x, ust = params, update_state
+    keys = keys if keys is not None else [None] * len(batches_per_step)
+    for batch, key in zip(batches_per_step, keys):
+        u, ust, _ = update_fn(x, ust, batch, key)
+        x = tm.tree_add(x, u)
+    return x

@@ -1,0 +1,2 @@
+"""Model zoo of the port: the paper's DNN/MLR (``mlp``). The other families
+follow in ROADMAP A.4 and A.10."""
