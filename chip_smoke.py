@@ -9,15 +9,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at a ragged D;
-4. the main path: the simulate engine training the full-width Fig. 1(e)(f)
-   DNN (784 -> 256 x 3 -> 10, P = 8 workers, s = 16, batch 32 per worker)
-   through ``build_engine`` + ``Trainer`` with ``kernels="on"``, for Adam
-   (fused step: ``stale_accum`` + ``fused_adam``) and SGD (packed step:
+4. the simulate path: the simulate engine training the full-width Fig.
+   1(e)(f) DNN (784 -> 256 x 3 -> 10, P = 8 workers, s = 16, batch 32 per
+   worker) through ``build_engine`` + ``Trainer`` with ``kernels="on"``, for
+   Adam (fused step: ``stale_accum`` + ``fused_adam``) and SGD (packed step:
    ``stale_accum``), each held against the ``kernels="off"`` tree layout in
    plain torch on the card, with launch counters checked; and the s = 0,
    P = 1 packed engine against the sequential reference on a small input;
-5. timings with CUDA events: ms per engine step, and each kernel's time
-   beside its bound, its plain version and one PyTorch library call.
+5. the ring path: the same DNN in the gradient-ring modes (``stale-psum``,
+   ``ssp``, ``sync``; global batch 256) with the compensation layer, seven
+   legs of 50 steps with ``kernels="on"`` (``fused_update`` in its three
+   variants, ``sparsify_topk`` + ``stale_accum``, ``fused_adam``), each
+   held against the same leg with ``kernels="off", megakernel="off"`` on
+   the card, with launch counters checked;
+6. timings with CUDA events: ms per engine step, and each kernel's time
+   beside its bound, its plain version and one PyTorch library call (where
+   one computes the same function).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -65,6 +72,34 @@ TOL_ENGINE_ADAM = dict(loss=1e-3, param=2e-2, rel=1e-3)
 # s = 0, P = 1 engine vs the sequential reference: the same SGD updates,
 # delivered one step later through stale_accum (exact adds).
 TOL_SEQUENTIAL = dict(rtol=1e-6, atol=1e-7)
+# fused_update, kernel vs plain version: the EF split, the momentum mask and
+# the delivered sum u repeat the plain version's operations in its order,
+# one rounding each, so they are equal bit for bit (checked); p', m', v'
+# are TOL_ADAM's (the plain version divides by a scalar as a multiply by
+# its reciprocal).
+TOL_UPDATE = TOL_ADAM
+# Ring legs, kernels on vs off (tree layout, plain torch, no megakernel):
+# the two sum each step's P delayed rows in another order, so they part at
+# fp32 roundoff; Adam's per-element normalisation can turn roundoff in an
+# element near zero into up to 2 * lr (1e-3) of update, carried on over 50
+# steps, as in the simulate check. Under compress the parting grows: once
+# the accumulators differ by roundoff, elements within roundoff of a row's
+# top-k threshold can be kept by one run and held back by the other; each
+# such flip moves the payload by about the threshold in that element, Adam
+# turns it into a full lr step there, and the changed gradients then flip
+# other elements, so after 50 steps most params of the two Adam runs differ
+# by about one lr step (a relative L2 distance of a few percent; 2.0e-2 at
+# this width on an H100, PERF.md). So each compressed leg is held twice:
+# tightly over its first EARLY_STEPS steps, before flips compound (roundoff
+# of O(1) losses), and loosely over all 50 (the same training, a loss within
+# 2e-2). SGD is linear in the gradient: a flip moves one element by
+# lr * thr / P and nothing amplifies it.
+EARLY_STEPS = 5
+TOL_RING = {
+    "adam": dict(loss=1e-3, param=2e-2, rel=1e-3),
+    "adam_compress": dict(loss=2e-2, param=5e-2, rel=5e-2, early=1e-4),
+    "sgd_compress": dict(loss=1e-4, param=1e-3, rel=1e-3, early=1e-5),
+}
 
 
 def card_line() -> str:
@@ -138,7 +173,83 @@ def kernel_checks(dev, n: int) -> dict:
     return errs
 
 
-# -- phase 4: the main path --------------------------------------------------------
+def update_operands(dev, r: int, d: int, seed: int) -> dict:
+    """Random fused_update / sparsify_topk operands on ``dev``: R rows of
+    width D, a threshold keeping about 10% of a standard normal row, fresh
+    flags on every other row, the LR factor as a device scalar."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return {"p": rnd(d), "m": 0.1 * rnd(d),
+            "v": 0.01 * torch.rand(d, generator=gen, device=dev),
+            "stale": rnd(r, d),
+            "weights": torch.full((r,), 1.0 / r, device=dev),
+            "acc": rnd(r, d), "thr": torch.full((r,), 1.64, device=dev),
+            "fresh": (torch.arange(r, device=dev) % 2 == 0).float(),
+            "mom": 0.1 * rnd(r, d), "scale": torch.full((1,), 0.5, device=dev)}
+
+
+def variant_args(ops: dict, variant: str):
+    """(positional args, keyword args) of one fused_update variant."""
+    args = [ops[k] for k in ("p", "m", "v", "stale", "weights")]
+    kw = {}
+    if variant != "plain":
+        kw = {k: ops[k] for k in ("acc", "thr", "fresh")}
+    if variant == "ef_mom":
+        kw["mom"] = ops["mom"]
+    return args, kw
+
+
+def ring_kernel_checks(dev, d: int) -> dict:
+    """fused_update (three variants) and sparsify_topk against their plain
+    versions on ``dev``: R = 8 and R = 1 at the ring path's packed width D,
+    and R = 3 at a ragged D. Returns the max abs error at R = 8, width D."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_update import VARIANTS, fused_update
+    from repro_torch.kernels.sparsify import sparsify_topk
+
+    def same(name, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"(max abs {max_abs(a, b)!r})")
+
+    errs = {"fused_update": 0.0, "sparsify_topk": 0.0}
+    for r, width in ((8, d), (1, d), (3, 1_000_003)):
+        ops = update_operands(dev, r, width, seed=r)
+        for variant in VARIANTS:
+            args, kw = variant_args(ops, variant)
+            got = fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                               ops["scale"], **kw)
+            want = ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                                    ops["scale"], **kw)
+            name = f"fused_update {variant} R={r} D={width}"
+            err = max(check_close(f"{name} {k}", a, b, **TOL_UPDATE)
+                      for k, a, b in zip("pmv", got, want))
+            for k, a, b in zip(("u", "sent", "resid", "mom"), got[3:],
+                               want[3:]):
+                same(f"{name} {k}", a, b)
+            if variant != "plain":
+                same(f"{name} sent + resid vs acc", got[4] + got[5],
+                     ops["acc"])
+            print(f"{name}: p/m/v max_abs_err={err!r} (tol {TOL_UPDATE}); "
+                  f"u, split and momentum bitwise equal")
+            if r == 8 and width == d:
+                errs["fused_update"] = max(errs["fused_update"], err)
+        sent, resid = sparsify_topk(ops["acc"], ops["thr"])
+        want = ref.sparsify_mask(ops["acc"], ops["thr"])
+        same(f"sparsify_topk R={r} D={width} sent", sent, want[0])
+        same(f"sparsify_topk R={r} D={width} resid", resid, want[1])
+        same(f"sparsify_topk R={r} D={width} sent + resid vs acc",
+             sent + resid, ops["acc"])
+        kept = float((sent != 0).float().mean())
+        print(f"sparsify_topk R={r} D={width}: bitwise equal, "
+              f"sent + resid == acc; kept {kept!r}")
+    torch.cuda.synchronize(dev)
+    return errs
+
+
+# -- phase 4: the simulate path --------------------------------------------
 
 def profile_steps(engine, state, batches, k: int) -> dict:
     """Device busy time per engine step and the top ops by device time,
@@ -164,21 +275,54 @@ def profile_steps(engine, state, batches, k: int) -> dict:
                      e.count / k) for e in top]}
 
 
-def run_engine(algo, kernels, params0, data, table, dev, *, workers, batch,
-               steps, timed_steps, profile=0):
-    """One main-path run: build_engine + Trainer for ``steps`` steps with
-    the launch counters zeroed just before and read just after, then
+def reset_counters() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.sparsify import sparsify_topk
+    from repro_torch.kernels.stale_accum import stale_accum
+    for fn in (stale_accum, fused_adam, sparsify_topk, fused_update):
+        fn.launches = 0
+    fused_update.by_variant = dict.fromkeys(fused_update.by_variant, 0)
+
+
+def counters() -> dict:
+    """Every kernel wrapper's launch count, fused_update by variant."""
+    from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.sparsify import sparsify_topk
+    from repro_torch.kernels.stale_accum import stale_accum
+    out = {"stale_accum": stale_accum.launches,
+           "fused_adam": fused_adam.launches,
+           "sparsify_topk": sparsify_topk.launches}
+    for variant, n in fused_update.by_variant.items():
+        out[f"fused_update.{variant}"] = n
+    return out
+
+
+def expect(steps: int, **per_step) -> dict:
+    """The counters a run of ``steps`` steps should leave: ``per_step``
+    launches each (``fused_update_plain=1`` names ``fused_update.plain``),
+    0 for every other kernel."""
+    out = dict.fromkeys(counters(), 0)
+    for key, n in per_step.items():
+        key = key.replace("fused_update_", "fused_update.")
+        if key not in out:
+            raise KeyError(key)
+        out[key] = n * steps
+    return out
+
+
+def drive(engine, params0, batches, xt, yt, dev, *, steps, timed_steps,
+          profile=0):
+    """One main-path run through ``Trainer``: ``steps`` steps with the
+    launch counters zeroed just before and read just after, then
     ``timed_steps`` more steps timed on the host clock between syncs, then
     ``profile`` steps under the profiler."""
     import torch
-    from repro_torch import delays
     from repro_torch import treemath as tm
-    from repro_torch.data import ShardedBatches
-    from repro_torch.engine import EngineConfig, Hook, Trainer, build_engine
-    from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.stale_accum import stale_accum
+    from repro_torch.engine import Hook, Trainer
     from repro_torch.models import mlp
-    from repro_torch.optim import paper_default
 
     class LossLog(Hook):
         """Keeps each step's loss as a device tensor (no sync in the
@@ -190,25 +334,18 @@ def run_engine(algo, kernels, params0, data, table, dev, *, workers, batch,
         def on_step(self, ctx):
             self.losses.append(ctx.metrics["loss"])
 
-    cfg = EngineConfig(mode="simulate", num_workers=workers, s=STALENESS,
-                       delay=delays.Schedule(table), kernels=kernels)
-    engine = build_engine(mlp.loss_fn, paper_default(algo), cfg, device=dev)
-    batches = iter(ShardedBatches([data.x_train, data.y_train], workers,
-                                  batch, seed=0))
-    xt = torch.as_tensor(data.x_test, device=dev)
-    yt = torch.as_tensor(data.y_test, device=dev)
     state = engine.init(0, params=tm.tree_map(torch.clone, params0))
     log = LossLog()
-
-    stale_accum.launches = 0
-    fused_adam.launches = 0
+    reset_counters()
     res = Trainer(engine, hooks=[log]).run(
         batches, steps, state=state,
         eval_fn=lambda p: mlp.accuracy(p, xt, yt), eval_every=steps)
-    launches = {"stale_accum": stale_accum.launches,
-                "fused_adam": fused_adam.launches}
+    launches = counters()
 
     state = res.state
+    params = tm.tree_map(lambda x: x.detach().cpu(), engine.params(state))
+    comp = ({k: v.detach().cpu() for k, v in state.comp.items()}
+            if state.comp else {})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -219,10 +356,30 @@ def run_engine(algo, kernels, params0, data, table, dev, *, workers, batch,
     ms = (time.perf_counter() - t0) * 1e3 / max(timed_steps, 1)
     prof = profile_steps(engine, state, batches, profile) if profile else None
     return {"profile": prof, "losses": torch.stack(log.losses).cpu(),
-            "params": tm.tree_map(lambda x: x.cpu(),
-                                  engine.params(res.state)),
-            "accuracy": res.curve[-1][1], "launches": launches,
-            "ms_per_step": ms, "meta": engine.meta["kernels"]}
+            "params": params, "comp": comp, "accuracy": res.curve[-1][1],
+            "launches": launches, "ms_per_step": ms,
+            "meta": engine.meta["kernels"]}
+
+
+def run_engine(algo, kernels, params0, data, table, dev, *, workers, batch,
+               steps, timed_steps, profile=0):
+    """One simulate-path run (see ``drive``)."""
+    import torch
+    from repro_torch import delays
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import EngineConfig, build_engine
+    from repro_torch.models import mlp
+    from repro_torch.optim import paper_default
+
+    cfg = EngineConfig(mode="simulate", num_workers=workers, s=STALENESS,
+                       delay=delays.Schedule(table), kernels=kernels)
+    engine = build_engine(mlp.loss_fn, paper_default(algo), cfg, device=dev)
+    batches = iter(ShardedBatches([data.x_train, data.y_train], workers,
+                                  batch, seed=0))
+    xt = torch.as_tensor(data.x_test, device=dev)
+    yt = torch.as_tensor(data.y_test, device=dev)
+    return drive(engine, params0, batches, xt, yt, dev, steps=steps,
+                 timed_steps=timed_steps, profile=profile)
 
 
 def compare_runs(name, on, off, tol) -> None:
@@ -245,18 +402,28 @@ def compare_runs(name, on, off, tol) -> None:
         for leaf in tm.tree_leaves(run["params"]):
             if not torch.isfinite(leaf).all():
                 raise AssertionError(f"{name}: non-finite params")
+    if "early" in tol:
+        early = on["losses"][:EARLY_STEPS] - off["losses"][:EARLY_STEPS]
+        early_err = float(early.double().abs().max())
+        print(f"{name}: on vs off loss by step "
+              f"{[float(x) for x in (on['losses'] - off['losses'])[:10]]}; "
+              f"first {EARLY_STEPS} max_abs_err={early_err!r} "
+              f"(tol {tol['early']})")
+        if early_err > tol["early"]:
+            raise AssertionError(f"{name}: kernels on and off disagree in "
+                                 f"the first {EARLY_STEPS} steps")
     if loss_err > tol["loss"] or param_err > tol["param"]:
         raise AssertionError(f"{name}: kernels on and off disagree")
     if "rel" in tol and rel > tol["rel"]:
         raise AssertionError(f"{name}: kernels on and off disagree (rel)")
 
 
-def check_launches(name, run, expect) -> None:
-    print(f"{name}: launches {run['launches']} (expected {expect}); "
+def check_launches(name, run, want) -> None:
+    print(f"{name}: launches {run['launches']} (expected {want}); "
           f"routing {run['meta']}")
-    if run["launches"] != expect:
+    if run["launches"] != want:
         raise AssertionError(f"{name}: launch counts {run['launches']} != "
-                             f"{expect}")
+                             f"{want}")
 
 
 def sequential_check(dev, steps: int = 6) -> float:
@@ -321,12 +488,11 @@ def main_path(dev, *, depth=DEPTH, in_dim=784, hidden=256, workers=WORKERS,
                  TOL_ENGINE_ADAM)
     compare_runs("sgd", runs["sgd", "on"], runs["sgd", "off"], TOL_ENGINE_SGD)
     check_launches("adam on (fused step)", runs["adam", "on"],
-                   {"stale_accum": steps, "fused_adam": steps})
+                   expect(steps, stale_accum=1, fused_adam=1))
     check_launches("sgd on (packed step)", runs["sgd", "on"],
-                   {"stale_accum": steps, "fused_adam": 0})
+                   expect(steps, stale_accum=1))
     for algo in ("adam", "sgd"):
-        check_launches(f"{algo} off (tree)", runs[algo, "off"],
-                       {"stale_accum": 0, "fused_adam": 0})
+        check_launches(f"{algo} off (tree)", runs[algo, "off"], expect(steps))
     for (algo, kernels), run in runs.items():
         print(f"engine {algo} kernels={kernels}: "
               f"ms_per_step={run['ms_per_step']!r} "
@@ -338,7 +504,83 @@ def main_path(dev, *, depth=DEPTH, in_dim=784, hidden=256, workers=WORKERS,
     return runs
 
 
-# -- phase 5: kernel timings ------------------------------------------------------
+# -- phase 5: the ring path ------------------------------------------------
+
+# (name, mode, optimizer, compensation knobs, TOL_RING key, launches per
+# step with kernels="on").
+RING_LEGS = (
+    ("stale-psum adam dense", "stale-psum", "adam", {}, "adam",
+     dict(fused_update_plain=1)),
+    ("stale-psum adam topk", "stale-psum", "adam",
+     dict(compress="topk:0.1"), "adam_compress", dict(fused_update_ef=1)),
+    ("stale-psum adam topk+ef_momentum", "stale-psum", "adam",
+     dict(compress="topk:0.1", ef_momentum=0.9), "adam_compress",
+     dict(fused_update_ef_mom=1)),
+    ("stale-psum sgd topk+inverse", "stale-psum", "sgd",
+     dict(compress="topk:0.1", lr_scale="inverse"), "sgd_compress",
+     dict(sparsify_topk=1, stale_accum=1)),
+    ("ssp adam dense", "ssp", "adam", {}, "adam",
+     dict(fused_update_plain=1)),
+    ("sync adam topk (R=1)", "sync", "adam", dict(compress="topk:0.1"),
+     "adam_compress", dict(fused_update_ef=1)),
+    ("sync adam dense", "sync", "adam", {}, "adam", dict(fused_adam=1)),
+)
+
+
+def ring_path(dev, params0, data, table, speeds, *, workers=WORKERS,
+              batch=BATCH, steps=STEPS, timed_steps=TIMED_STEPS) -> dict:
+    """Phase 5: every ring leg with kernels="on" (megakernel "auto")
+    against kernels="off", megakernel="off", on ``dev``. Returns the runs
+    by (leg name, "on" | "off")."""
+    import torch
+    from repro_torch import delays
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import EngineConfig, build_engine
+    from repro_torch.models import mlp
+    from repro_torch.optim import paper_default
+
+    xt = torch.as_tensor(data.x_test, device=dev)
+    yt = torch.as_tensor(data.y_test, device=dev)
+    delay_kw = {"stale-psum": dict(delay=delays.Schedule(table)),
+                "ssp": dict(ssp_speeds=speeds), "sync": {}}
+    runs = {}
+    for i, (name, mode, algo, knobs, tol, per_step) in enumerate(RING_LEGS):
+        for kernels, mega in (("on", "auto"), ("off", "off")):
+            cfg = EngineConfig(mode=mode, num_workers=workers, s=STALENESS,
+                               kernels=kernels, megakernel=mega,
+                               **delay_kw[mode], **knobs)
+            engine = build_engine(mlp.loss_fn, paper_default(algo), cfg,
+                                  device=dev)
+            batches = ShardedBatches([data.x_train, data.y_train], workers,
+                                     batch, seed=0).flat_iter()
+            profile = 5 if (i == 0 and kernels == "on"
+                            and dev.type == "cuda") else 0
+            runs[name, kernels] = drive(
+                engine, params0, batches, xt, yt, dev, steps=steps,
+                timed_steps=timed_steps, profile=profile)
+        on, off = runs[name, "on"], runs[name, "off"]
+        compare_runs(name, on, off, TOL_RING[tol])
+        for key in on["comp"]:
+            print(f"{name}: comp[{key!r}] on vs off max_abs_err="
+                  f"{max_abs(on['comp'][key], off['comp'][key])!r}")
+        check_launches(f"{name} on", on, expect(steps, **per_step))
+        # kernels="off" still EF-splits through dispatch.sparsify_topk,
+        # which is the kernel for CUDA tensors.
+        split = dict(sparsify_topk=1) if "compress" in knobs else {}
+        check_launches(f"{name} off", off, expect(steps, **split))
+        for kernels in ("on", "off"):
+            run = runs[name, kernels]
+            print(f"ring {name} kernels={kernels}: "
+                  f"ms_per_step={run['ms_per_step']!r} (mean of "
+                  f"{timed_steps} steps after {steps}, host clock between "
+                  f"syncs); accuracy={run['accuracy']!r}")
+            if run["profile"] is not None:
+                print(f"profile ring {name} kernels={kernels}: "
+                      f"{json.dumps(run['profile'])}")
+    return runs
+
+
+# -- phase 6: kernel timings -----------------------------------------------
 
 def time_ms(fn, arg_sets, reps: int = 60):
     """Mean ms per call with CUDA events, cycling through ``arg_sets``
@@ -418,6 +660,68 @@ def kernel_timings(dev, n: int) -> dict:
     out["fused_adam"] = {key: time_ms(fn, sets) for key, fn in fns.items()}
     out["fused_adam"]["bound"] = bound_ms(7 * n * 4, 16 * n)
 
+    return summarize(out, n)
+
+
+def update_bound(r: int, d: int, variant: str):
+    """Least time of one fused_update call: each input read once, each
+    output written once (fp32), and its operations."""
+    floats = 3 * d + r * d + r + 1 + 4 * d   # p m v stale w scale; p m v u
+    flops = (16 + 2 * r) * d                 # Adam, then u's R terms
+    if variant != "plain":
+        floats += r * d + 2 * r + 2 * r * d  # acc thr fresh; sent resid
+        flops += 3 * r * d                   # |a| >= t, select, a - sent
+    if variant == "ef_mom":
+        floats += 2 * r * d                  # mom in and out
+        flops += r * d
+    return bound_ms(floats * 4, flops)
+
+
+def ring_kernel_timings(dev, width: int) -> dict:
+    """fused_update (each variant) and sparsify_topk at the ring path's
+    shapes: R = 8 rows (the per-worker ring) and R = 1 (sync) of the packed
+    width D. No single PyTorch call computes either function."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.sparsify import sparsify_topk
+
+    def update_fns(variant):
+        def kernel(ops):
+            args, kw = variant_args(ops, variant)
+            return fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                                ops["scale"], **kw)
+
+        def plain(ops):
+            args, kw = variant_args(ops, variant)
+            return ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                                    ops["scale"], **kw)
+        return kernel, plain
+
+    out = {}
+    # Sets sized so each cycle reads past the 50 MB L2 (20-74 MB a call).
+    for label, r, variant, k in (("plain", 8, "plain", 5), ("ef", 8, "ef", 3),
+                                 ("ef_mom", 8, "ef_mom", 3),
+                                 ("ef_r1", 1, "ef", 5)):
+        sets = [(update_operands(dev, r, width, seed=100 + i),)
+                for i in range(k)]
+        kernel, plain = update_fns(variant)
+        out[f"fused_update.{label}"] = {
+            "ms": time_ms(kernel, sets), "plain_ms": time_ms(plain, sets),
+            "library_ms": (None, None),
+            "bound": update_bound(r, width, variant)}
+    sets = [(update_operands(dev, 8, width, seed=200 + i),) for i in range(4)]
+    out["sparsify_topk"] = {
+        "ms": time_ms(lambda ops: sparsify_topk(ops["acc"], ops["thr"]), sets),
+        "plain_ms": time_ms(lambda ops: ref.sparsify_mask(ops["acc"],
+                                                          ops["thr"]), sets),
+        "library_ms": (None, None),
+        "bound": bound_ms(3 * 8 * width * 4 + 8 * 4, 3 * 8 * width)}
+    return summarize(out, width)
+
+
+def summarize(out: dict, n: int) -> dict:
+    """Per kernel: device ms (CUDA graph replay) of the kernel, its plain
+    version and the library call, the eager ms of each, and the bound."""
     rows = {}
     for name, t in out.items():
         (b, why) = t.pop("bound")
@@ -430,6 +734,60 @@ def kernel_timings(dev, n: int) -> dict:
               f"{rows[name]['library_ms']!r} ms; eager calls from Python "
               f"{rows[name]['eager_ms']}")
     return rows
+
+
+def kernel_entries(timings: dict, runs: dict, ring: dict, errs: dict) -> list:
+    """The ``{"kernels": [...]}`` entries: each kernel's launches on its
+    main-path run (and on every run of its path), its max abs error against
+    the plain version at the main path's shapes, and its timings."""
+    replaces = {"stale_accum": "src/repro/kernels/stale_accum.py:38",
+                "fused_adam": "src/repro/kernels/fused_adam.py:48"}
+    ring_on = {name: run["launches"] for (name, k), run in ring.items()
+               if k == "on"}
+    kernels = []
+    for name in ("stale_accum", "fused_adam"):
+        t = timings[name]
+        by_run = {f"simulate {algo}": runs[algo, "on"]["launches"][name]
+                  for algo in ("adam", "sgd")}
+        by_run.update({leg: c[name] for leg, c in ring_on.items()})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": runs["adam", "on"]["launches"][name],
+            "launches_by_run": by_run,
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "eager_ms": t["eager_ms"]})
+    # fused_update's main-path run is the dense stale-psum Adam leg (the
+    # plain variant); sparsify_topk's is the SGD top-k leg.
+    fu_runs = {leg: sum(n for k, n in c.items()
+                        if k.startswith("fused_update."))
+               for leg, c in ring_on.items()}
+    sp_runs = {leg: c["sparsify_topk"] for leg, c in ring_on.items()}
+    for name, source, replaced, t, launches, by_run in (
+            ("fused_update", "fused_update.cu",
+             "src/repro/kernels/fused_update.py:147",
+             timings["fused_update.plain"],
+             ring_on["stale-psum adam dense"]["fused_update.plain"], fu_runs),
+            ("sparsify_topk", "sparsify.cu",
+             "src/repro/kernels/sparsify.py:41", timings["sparsify_topk"],
+             ring_on["stale-psum sgd topk+inverse"]["sparsify_topk"],
+             sp_runs)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaced, "launches": launches,
+            "launches_by_run": by_run, "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "eager_ms": t["eager_ms"]})
+    kernels[2]["variants"] = {
+        label: {key: timings[f"fused_update.{label}"][key]
+                for key in ("ms", "plain_ms", "bound_ms", "eager_ms")}
+        for label in ("plain", "ef", "ef_mom", "ef_r1")}
+    return kernels
 
 
 def main() -> int:
@@ -468,28 +826,32 @@ def main() -> int:
     print(f"packed width D_pad={width}, N=P*D_pad={n}")
     errs = kernel_checks(dev, n)
 
+    ring_errs = ring_kernel_checks(dev, width)
+
     runs = main_path(dev)
     sequential_check(dev)
-    timings = kernel_timings(dev, n)
 
-    replaces = {"stale_accum": "src/repro/kernels/stale_accum.py:38",
-                "fused_adam": "src/repro/kernels/fused_adam.py:48"}
-    kernels = []
-    for name in ("stale_accum", "fused_adam"):
-        t = timings[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": runs["adam", "on"]["launches"][name],
-            "launches_by_run": {algo: runs[algo, "on"]["launches"][name]
-                                for algo in ("adam", "sgd")},
-            "max_abs_err": errs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "eager_ms": t["eager_ms"]})
+    import numpy as np
+    from repro_torch.data import synthetic
+    # The ring path: the same DNN, data and seeds as the simulate path; one
+    # [STEPS, P] delay table in [0, s-1] for stale-psum, and lognormal worker
+    # speeds (numpy, seed 0) for ssp's clock schedule.
+    params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
+    table = np.random.default_rng(0).integers(0, STALENESS, (STEPS, WORKERS))
+    table[0, 0] = STALENESS - 1
+    speeds = np.random.default_rng(0).lognormal(
+        0.0, 0.5, (64, WORKERS)).astype(np.float32)
+    ring = ring_path(dev, params0, synthetic.teacher_classification(seed=0),
+                     table, speeds)
+
+    timings = kernel_timings(dev, n)
+    timings.update(ring_kernel_timings(dev, width))
+
+    kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
+    steps_line.update({f"{name} {k}": run["ms_per_step"]
+                       for (name, k), run in ring.items()})
     print(json.dumps({"engine_ms_per_step": steps_line}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

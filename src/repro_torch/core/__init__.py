@@ -1,5 +1,7 @@
-"""Core: the paper's staleness simulation model (``staleness``). Coherence,
-SSP and the gradient-ring modes follow in ROADMAP A.5 and A.7."""
+"""Core: the paper's staleness simulation model (``staleness``), the
+gradient-ring data-parallel steps (``stale_sync``), SSP clock semantics
+(``ssp``) and the Theorem-1 stepsize (``coherence``). The coherence monitor
+and controller follow in ROADMAP A.7."""
 from repro_torch.core.staleness import (
     SimState,
     StalenessConfig,
@@ -7,4 +9,22 @@ from repro_torch.core.staleness import (
     init_sim_state,
     make_sim_step,
     sequential_reference,
+)
+from repro_torch.core.coherence import theorem1_stepsize
+from repro_torch.core.stale_sync import (
+    StaleSyncConfig,
+    StaleTrainState,
+    SyncTrainState,
+    init_state,
+    init_sync_state,
+    make_stale_train_step,
+    make_sync_train_step,
+    make_sync_train_step_lean,
+)
+from repro_torch.core.ssp import (
+    SSPConfig,
+    sample_worker_durations,
+    simulate_ssp_clocks,
+    ssp_delay_schedule,
+    ssp_throughput_model,
 )

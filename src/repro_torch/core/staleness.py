@@ -178,6 +178,14 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
     (an int) clamps the realized delays (the engine's dynamic staleness
     control).
 
+    ``compensator`` (``compensate.Compensator``) compensates each worker's
+    OUTGOING update before it enters the delivery ring: the update is
+    scaled by the worker's realized mean delay (the per-source 1/tau rule;
+    the delays are drawn in the same step) and then EF-sparsified against a
+    per-worker [P, D] packed residual. The step then takes ``comp=`` and
+    returns ``(state, comp, metrics)``; the tree, packed and fused steps
+    all honour it.
+
     ``fused`` (requires ``kernels=True``) replaces ``update_fn`` with the
     fused compute stage: per-worker gradients of ``fused["loss"]``, then ALL
     P workers' Adam as ONE ``dispatch.fused_adam`` pass over the flattened
@@ -190,9 +198,6 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         raise NotImplementedError(
             "server_apply is not ported yet (ROADMAP A.2, server_side "
             "ablation of core/staleness.py)")
-    if compensator is not None:
-        raise NotImplementedError(
-            "compensation is not ported yet (ROADMAP A.6, compensate/)")
     if fused is not None and not cfg.kernels:
         raise ValueError("fused simulate step requires kernels=True "
                          "(it runs over the packed ring)")
@@ -205,6 +210,32 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         if bound is not None:
             delays = torch.clamp(delays, max=int(bound))
         return delays
+
+    def compensate(comp, updates, delays, step, packed_true_size=None):
+        """Scale-then-sparsify each source worker's update: ``updates`` is
+        the tree (tree layout) or the packed [P, D] view (packed layouts,
+        with ``packed_true_size``)."""
+        lr_metrics = {}
+        if compensator.scales:
+            out_delay = delays.float().mean(dim=1)                # [P]
+            factor = compensator.lr_factor(comp, out_delay, step).expand(p)
+            if packed_true_size is not None:
+                updates = updates * factor[:, None]
+            else:
+                updates = compensator.scale_tree(updates, factor)
+            lr_metrics["lr_scale"] = factor
+        if packed_true_size is not None:
+            updates, comp, cmetrics = compensator.sparsify_packed(
+                comp, updates, packed_true_size)
+        else:
+            updates, comp, cmetrics = compensator.sparsify_tree(
+                comp, updates, lead_ndim=1)
+        return updates, comp, {**cmetrics, **lr_metrics}
+
+    def finish(new_state, comp, metrics):
+        if compensator is not None:
+            return new_state, comp, metrics
+        return new_state, metrics
 
     def deliver_packed(state: SimState):
         """Caches plus the prefetched arrivals, through one stale_accum over
@@ -219,7 +250,13 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         cflat = flat.reshape(p, -1)
         return tm.tree_unpack(cflat, pspec), cflat
 
-    def finish_packed(state, caches, update_state, uvec, delays, metrics):
+    def finish_packed(state, caches, update_state, uvec, delays, metrics,
+                      comp):
+        if compensator is not None:
+            uvec, comp, cmetrics = compensate(
+                comp, uvec, delays, state.step,
+                packed_true_size=tm.pack_spec(caches, lead_ndim=1).total)
+            metrics = {**metrics, **cmetrics}
         ring = state.pending["ring"]
         arrived_next = _ring_dispatch(ring, uvec.to(ring.dtype), delays,
                                       state.step)
@@ -227,20 +264,20 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
             caches=caches, pending={"ring": ring, "arrived": arrived_next},
             update_state=update_state, server_state=(),
             step=state.step + 1, key=state.key)
-        return new_state, metrics
+        return finish(new_state, comp, metrics)
 
     def packed_step(state: SimState, batches: Pytree,
-                    bound: Optional[int] = None):
+                    bound: Optional[int] = None, comp: Pytree = None):
         caches, _ = deliver_packed(state)
         updates, update_state, metrics = update_fn(
             caches, state.update_state, batches, state.key)
         delays = draw(state, bound)
         uvec = tm.tree_pack(updates, lead_ndim=1, pad_to=dispatch.PACK_ALIGN)
         return finish_packed(state, caches, update_state, uvec, delays,
-                             metrics)
+                             metrics, comp)
 
     def packed_fused_step(state: SimState, batches: Pytree,
-                          bound: Optional[int] = None):
+                          bound: Optional[int] = None, comp: Pytree = None):
         caches, cflat = deliver_packed(state)
         args = (batches, state.key) if fused["takes_key"] else (batches,)
         losses, grads = value_and_grad(fused["loss"], caches, *args)
@@ -262,18 +299,23 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         update_state = {"m": m2.reshape(p, -1), "v": v2.reshape(p, -1)}
         delays = draw(state, bound)
         return finish_packed(state, caches, update_state, uvec, delays,
-                             {"loss": losses})
+                             {"loss": losses}, comp)
 
-    def step(state: SimState, batches: Pytree, bound: Optional[int] = None):
+    def step(state: SimState, batches: Pytree, bound: Optional[int] = None,
+             comp: Pytree = None):
         caches, pending = _deliver(state.caches, state.pending)
         updates, update_state, metrics = update_fn(
             caches, state.update_state, batches, state.key)
         delays = draw(state, bound)
+        if compensator is not None:
+            updates, comp, cmetrics = compensate(comp, updates, delays,
+                                                 state.step)
+            metrics = {**metrics, **cmetrics}
         pending = _dispatch(pending, updates, delays, slots)
         new_state = SimState(caches=caches, pending=pending,
                              update_state=update_state, server_state=(),
                              step=state.step + 1, key=state.key)
-        return new_state, metrics
+        return finish(new_state, comp, metrics)
 
     if fused is not None:
         return packed_fused_step

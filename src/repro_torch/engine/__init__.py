@@ -1,10 +1,14 @@
-"""repro_torch.engine: the execution surface of the port.
+"""repro_torch.engine: the execution surface of the port, one
+``EngineConfig(mode=...)`` over ``simulate``, ``stale-psum``, ``ssp`` and
+``sync``.
 
     from repro_torch.engine import EngineConfig, build_engine, Trainer
 
     engine = build_engine(mlp.loss_fn, paper_default("adam"),
-                          EngineConfig(mode="simulate", num_workers=8, s=16,
-                                       kernels="on"))
+                          EngineConfig(mode="stale-psum", num_workers=8,
+                                       s=16, kernels="on",
+                                       compress="topk:0.1",
+                                       lr_scale="inverse"))
     result = Trainer(engine).run(batches, steps=1000, params=params,
                                  eval_fn=acc, eval_every=25, target=0.85)
 """

@@ -1,22 +1,39 @@
-"""Execution surface of the port, ``simulate`` mode (port of
-``repro/engine/api.py``).
+"""Execution surface of the port (port of ``repro/engine/api.py``).
 
-``build_engine(loss, optimizer, EngineConfig(mode="simulate", ...))`` returns
-an :class:`Engine` with the JAX package's object surface:
+``build_engine(loss, optimizer, EngineConfig(mode=..., ...))`` returns an
+:class:`Engine` with the JAX package's object surface:
 ``engine.init(seed, params=...) -> state``,
-``engine.step(state, batch) -> (state, metrics)``, ``engine.params(state)``
-and ``engine.with_staleness(state, s)``. Steps run eagerly (there is no
-``jit``) on the engine's device, CUDA unless ``device="cpu"``.
+``engine.step(state, batch) -> (state, metrics)``, ``engine.params(state)``,
+``engine.with_staleness(state, s)`` and ``engine.with_lr_signals(state, mu,
+lip)``. Steps run eagerly (there is no ``jit``) on the engine's device, CUDA
+unless ``device="cpu"``.
 
-Routing: ``kernels="off"`` keeps the tree layout in plain torch;
-``"auto"`` and ``"on"`` run the packed ring through the CUDA kernels (one
-device, so no placement veto). An Adam-spec optimizer on the packed path
-runs the fused step (``stale_accum`` + one ``fused_adam`` per step) unless
-``megakernel="off"``.
+Modes
+-----
+* ``simulate``   -- the paper's Section-3 per-worker-cache simulator
+                    (``core/staleness.py``); batches carry a leading worker
+                    axis ``[P, b, ...]``.
+* ``stale-psum`` -- Theorem-1 delayed-gradient data parallelism
+                    (``core/stale_sync.py``); batches are flat global
+                    batches reshaped to per-worker shards inside the step.
+* ``ssp``        -- Stale Synchronous Parallel: the ``core/ssp.py`` clock
+                    discipline becomes a per-step delay table fed to the
+                    delayed-gradient step.
+* ``sync``       -- the buffer-free synchronous baseline (s = 0).
 
-Not ported yet, and raising ``NotImplementedError``: the ``stale-psum``,
-``ssp`` and ``sync`` modes (ROADMAP A.5), ``lr_scale`` / ``compress`` /
-``ef_momentum`` (A.6), ``mesh=`` (A.12) and ``server_side`` (A.2).
+Every mode honours the compensation layer (``lr_scale``, ``compress``,
+``ef_momentum``; ``repro_torch.compensate``), whose state rides in
+``EngineState.comp`` (``()`` when both knobs are ``"none"``).
+
+Routing: ``kernels="off"`` keeps the tree layouts in plain torch; ``"auto"``
+and ``"on"`` run the packed ring through the CUDA kernels (one device, so no
+placement veto). An Adam-spec optimizer on the packed path runs the
+megakernel tail (``fused_update`` in the ring modes, ``fused_adam`` in
+simulate and in dense sync) unless ``megakernel="off"``.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
+A.12) and ``server_side`` (A.2). The Trace and MultiPod delay specs (A.8)
+do not exist in the port yet.
 """
 from __future__ import annotations
 
@@ -26,10 +43,13 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import compensate as compensate_lib
 from repro_torch import device as device_lib
 from repro_torch import treemath as tm
-from repro_torch.core import staleness
+from repro_torch.core import ssp as ssp_lib
+from repro_torch.core import stale_sync, staleness
 from repro_torch.delays.models import DelaySpec, UniformDelay, as_spec
+from repro_torch.delays.schedule import Schedule
 from repro_torch.kernels import dispatch
 from repro_torch.optim import optimizers as optlib
 
@@ -41,10 +61,12 @@ MODES = ("simulate", "stale-psum", "ssp", "sync")
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """One config for every staleness regime (same fields and defaults as
-    ``repro.engine.EngineConfig``; this slice runs ``simulate``).
+    ``repro.engine.EngineConfig``).
 
-    ``s`` parameterises ``UniformDelay(s)`` (delays r in [0, s-1]) unless
-    ``delay`` overrides it.
+    ``s`` is the staleness bound: for ``simulate`` it parameterises
+    ``UniformDelay(s)`` (delays r in [0, s-1]) unless ``delay`` overrides
+    it; for ``stale-psum`` it sizes the gradient ring; for ``ssp`` it is the
+    clock-drift bound; ``sync`` ignores it.
     """
     mode: str = "sync"
     num_workers: int = 1
@@ -60,7 +82,7 @@ class EngineConfig:
     buffer_dtype: Any = torch.float32
     server_side: bool = False
     loss_takes_key: bool = False         # loss_fn(params, batch, gen) losses
-    ssp_speeds: Optional[Any] = None
+    ssp_speeds: Optional[Any] = None     # [T, P] durations; sampled if None
     ssp_steps: int = 512
     ssp_mean_dur: float = 1.0
     ssp_cv: float = 0.5
@@ -79,14 +101,29 @@ class EngineConfig:
         if self.megakernel not in ("off", "auto", "on"):
             raise ValueError(f"megakernel must be 'off'|'auto'|'on', "
                              f"got {self.megakernel!r}")
+        # Validates the lr_scale/compress/ef_momentum grammar.
+        compensate_lib.CompensateConfig(lr_scale=self.lr_scale,
+                                        compress=self.compress, s=self.s,
+                                        ef_momentum=self.ef_momentum)
         object.__setattr__(self, "delay", as_spec(self.delay))
+        if self.delay is not None:
+            if self.mode == "sync" and getattr(self.delay, "bound", None) != 0:
+                raise ValueError(
+                    "sync mode is delay-free: only a bound-0 spec "
+                    "(delays.Zero()) is accepted")
+            if self.mode == "ssp" and not isinstance(self.delay, Schedule):
+                raise ValueError(
+                    "ssp derives its delays from a clock schedule: pass "
+                    "delays.Schedule(...) (an explicit table) or delay=None "
+                    "for the lognormal speed model (Trace replays are "
+                    "ROADMAP A.8)")
 
 
 @dataclasses.dataclass
 class EngineState:
     """Mode-specific state plus the dynamic staleness bound (an int: the
-    inclusive max delay currently allowed). ``comp`` stays ``()``: the
-    compensation layer is not ported yet."""
+    inclusive max delay currently allowed) and the compensation state
+    ``comp`` (a dict of device tensors, ``()`` when uncompensated)."""
     inner: Pytree
     bound: int
     comp: Pytree = ()
@@ -114,9 +151,11 @@ class Engine:
     device: torch.device
     meta: dict = dataclasses.field(default_factory=dict)
     _init_inner: Callable = None   # (params, update_state, gen) -> inner
-    _step_inner: Callable = None   # (inner, batch, bound) -> (inner, metrics)
+    _step_inner: Callable = None   # (inner, batch, bound, comp)
+    #                                -> (inner, comp, metrics)
     _params_of: Callable = None    # inner -> params eval view
     _max_bound: int = 0
+    _init_comp: Callable = None    # params -> comp state (None = no comp)
 
     def init(self, seed=0, params: Pytree = None,
              update_state: Pytree = None) -> EngineState:
@@ -124,7 +163,7 @@ class Engine:
         built from a bare loss function). ``seed`` (an int, or a
         ``torch.Generator`` on the engine's device) seeds the engine's
         delay stream; ``update_state`` overrides the per-worker optimizer
-        state (defaults to ``optimizer.init(params)``)."""
+        state in ``simulate`` mode (defaults to ``optimizer.init(params)``)."""
         if params is None:
             raise ValueError("engine built from a bare loss function: pass "
                              "params=")
@@ -133,19 +172,22 @@ class Engine:
         gen = (seed if isinstance(seed, torch.Generator)
                else device_lib.generator(seed, self.device))
         inner = self._init_inner(params, update_state, gen)
-        return EngineState(inner=inner, bound=self._max_bound)
+        comp = self._init_comp(params) if self._init_comp is not None else ()
+        return EngineState(inner=inner, bound=self._max_bound, comp=comp)
 
     def step(self, state: EngineState, batch) -> Tuple[EngineState, dict]:
         """One engine step: ``(state, batch) -> (state, metrics)``. Numpy
-        batches are moved to the engine's device. The packed path updates
-        the input state's ring in place (see ``core/staleness.py``)."""
-        inner, metrics = self._step_inner(
-            state.inner, _to_device(batch, self.device), state.bound)
-        return EngineState(inner=inner, bound=state.bound,
-                           comp=state.comp), metrics
+        batches are moved to the engine's device. The step updates the
+        input state's ring, moments and residuals in place (see
+        ``core/staleness.py`` and ``core/stale_sync.py``)."""
+        inner, comp, metrics = self._step_inner(
+            state.inner, _to_device(batch, self.device), state.bound,
+            state.comp)
+        return EngineState(inner=inner, bound=state.bound, comp=comp), metrics
 
     def params(self, state: EngineState) -> Pytree:
-        """The evaluation view: worker 0's cache."""
+        """The evaluation view: worker 0's cache in ``simulate`` mode, the
+        global params otherwise."""
         return self._params_of(state.inner)
 
     def step_count(self, state: EngineState) -> int:
@@ -164,10 +206,30 @@ class Engine:
         return info
 
     def with_staleness(self, state: EngineState, s: int) -> EngineState:
-        """Clamp the engine to an effective staleness bound ``s`` without
-        rebuilding buffers: delays r <= s-1 (UniformDelay semantics)."""
-        b = max(int(s) - 1, 0)
+        """Clamp the engine to an effective staleness bound ``s`` (0 =
+        synchronous) without rebuilding buffers. In ``simulate`` mode a
+        bound of s means delays r <= s-1 (UniformDelay semantics); in the
+        gradient modes it means gradient age d <= s."""
+        if self.cfg.mode == "simulate":
+            b = max(int(s) - 1, 0)
+        else:
+            b = int(s)
         return dataclasses.replace(state, bound=min(b, self._max_bound))
+
+    def with_lr_signals(self, state: EngineState, mu, lip=None) -> EngineState:
+        """Refresh the theorem1 LR policy's live signals without rebuilding
+        the engine: ``mu`` (the coherence estimate) and, optionally, ``lip``
+        (a Lipschitz estimate) ride in ``EngineState.comp`` as fp32
+        tensors on the engine's device."""
+        if not (isinstance(state.comp, dict) and "mu" in state.comp):
+            raise ValueError(
+                "engine carries no live LR signals: build it with "
+                "EngineConfig(lr_scale='theorem1')")
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        comp = {**state.comp, "mu": f32(mu)}
+        if lip is not None:
+            comp["lip"] = f32(lip)
+        return dataclasses.replace(state, comp=comp)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -177,35 +239,59 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                  cfg: EngineConfig, mesh=None, *, update_fn=None,
                  server_apply=None, device=None) -> Engine:
-    """Build a ``simulate``-mode :class:`Engine` on ``device`` (CUDA unless
+    """Build an :class:`Engine` for any mode on ``device`` (CUDA unless
     ``device="cpu"``; raises without CUDA otherwise).
 
     ``loss_fn(params, batch)`` (or ``(params, batch, gen)`` with
     ``cfg.loss_takes_key``) must accept worker-stacked ``[P, ...]`` params
     and batches and return the ``[P]`` per-worker losses, as
     ``models.mlp.loss_fn`` does. ``update_fn`` bypasses the loss/optimizer
-    adaptation (see ``core.staleness.UpdateFn``).
+    adaptation in ``simulate`` mode (see ``core.staleness.UpdateFn``).
     """
     dev = device_lib.resolve(device)
-    if cfg.mode != "simulate":
-        raise _not_ported(f"mode={cfg.mode!r}", "A.5, gradient-ring modes")
     if mesh is not None:
         raise _not_ported("mesh=", "A.12, multi-GPU placement")
-    if cfg.lr_scale != "none" or cfg.compress != "none" or cfg.ef_momentum:
-        raise _not_ported("lr_scale/compress/ef_momentum", "A.6, compensate/")
     if cfg.server_side or server_apply is not None:
         raise _not_ported("server_side", "A.2, server_side ablation of "
                           "core/staleness.py")
     if loss_fn is not None and not callable(loss_fn):
         raise TypeError(f"loss_fn must be callable, got {type(loss_fn)!r}")
 
+    mode = cfg.mode
+    # One device, so nothing vetoes the packed path: the ring (stale-psum,
+    # ssp) and the simulate pending ring go packed unless kernels="off".
     kernel_delivery = cfg.kernels != "off"
-    meta = {"mode": cfg.mode, "workers": cfg.num_workers, "s": cfg.s,
+    if mode == "sync":
+        delivery = "none"   # sync is buffer-free
+    else:
+        delivery = "packed" if kernel_delivery else "tree"
+    meta = {"mode": mode, "workers": cfg.num_workers, "s": cfg.s,
             "device": str(dev),
-            "kernels": {"config": cfg.kernels,
-                        "delivery": "packed" if kernel_delivery else "tree"}}
+            "kernels": {"config": cfg.kernels, "delivery": delivery}}
     if cfg.delay is not None:
         meta["delay_spec"] = repr(cfg.delay)
+
+    # Compensation: built only when a knob is set, so the default path hands
+    # compensator=None to the core steps (the uncompensated code).
+    ccfg = compensate_lib.CompensateConfig(
+        lr_scale=cfg.lr_scale, compress=cfg.compress, s=cfg.s,
+        ef_momentum=cfg.ef_momentum)
+    compensator = compensate_lib.Compensator(ccfg) if ccfg.active else None
+    init_comp = None
+    if compensator is not None:
+        meta["compensate"] = {"lr_scale": cfg.lr_scale,
+                              "compress": cfg.compress}
+        if cfg.ef_momentum:
+            meta["compensate"]["ef_momentum"] = cfg.ef_momentum
+        # Sparsification runs per SOURCE before transport: [P, D] rows where
+        # each worker emits its own payload, one [D] row for the
+        # aggregate and sync forms.
+        per_source = (mode == "simulate"
+                      or (mode in ("stale-psum", "ssp")
+                          and cfg.per_worker_delays))
+        comp_workers = cfg.num_workers if per_source else None
+        init_comp = lambda params: compensator.init(
+            params, num_workers=comp_workers)
 
     def resolve_mega(supported: bool, why_not: str) -> bool:
         """Resolve the megakernel knob; records the verdict in meta."""
@@ -226,47 +312,141 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         meta["kernels"]["megakernel"] = "fused"
         return True
 
-    custom_update = update_fn is not None
-    if update_fn is None:
-        if loss_fn is None or optimizer is None:
-            raise ValueError("simulate mode needs (loss, optimizer) or an "
-                             "explicit update_fn")
-        make = (optlib.make_stochastic_update_fn if cfg.loss_takes_key
-                else optlib.make_sgd_update_fn)
-        update_fn = make(loss_fn, optimizer)
-    if custom_update:
-        mega = resolve_mega(False, "custom update_fn (opaque update math)")
-    else:
-        mega = resolve_mega(kernel_delivery, "tree delivery")
-    sim_cfg = staleness.StalenessConfig(
-        num_workers=cfg.num_workers, delay=cfg.delay or UniformDelay(cfg.s),
-        kernels=kernel_delivery)
-    fused_kw = None
-    if mega:
-        sp = optimizer.spec
-        fused_kw = dict(loss=loss_fn, takes_key=cfg.loss_takes_key,
-                        lr=sp["lr"], b1=sp["b1"], b2=sp["b2"], eps=sp["eps"],
-                        weight_decay=sp["weight_decay"])
-    raw = staleness.make_sim_step(update_fn, sim_cfg, fused=fused_kw)
+    def engine(init_inner, step_inner, params_of, max_bound) -> Engine:
+        return Engine(cfg=cfg, device=dev, meta=meta, _init_inner=init_inner,
+                      _step_inner=step_inner, _params_of=params_of,
+                      _max_bound=max_bound, _init_comp=init_comp)
 
-    def init_inner(params, update_state, gen):
-        if update_state is None:
-            if mega:
-                # Fused layout: per-worker Adam moments live packed ([P, D]
-                # after the worker broadcast).
-                width = staleness._packed_width(params)
-                update_state = {"m": torch.zeros((width,), device=dev),
-                                "v": torch.zeros((width,), device=dev)}
+    if mode == "simulate":
+        custom_update = update_fn is not None
+        if update_fn is None:
+            if loss_fn is None or optimizer is None:
+                raise ValueError("simulate mode needs (loss, optimizer) or "
+                                 "an explicit update_fn")
+            make = (optlib.make_stochastic_update_fn if cfg.loss_takes_key
+                    else optlib.make_sgd_update_fn)
+            update_fn = make(loss_fn, optimizer)
+        if custom_update:
+            mega = resolve_mega(False, "custom update_fn (opaque update math)")
+        else:
+            mega = resolve_mega(kernel_delivery, "tree delivery")
+        sim_cfg = staleness.StalenessConfig(
+            num_workers=cfg.num_workers, delay=cfg.delay or UniformDelay(cfg.s),
+            kernels=kernel_delivery)
+        fused_kw = None
+        if mega:
+            sp = optimizer.spec
+            fused_kw = dict(loss=loss_fn, takes_key=cfg.loss_takes_key,
+                            lr=sp["lr"], b1=sp["b1"], b2=sp["b2"],
+                            eps=sp["eps"], weight_decay=sp["weight_decay"])
+        raw = staleness.make_sim_step(update_fn, sim_cfg,
+                                      compensator=compensator, fused=fused_kw)
+
+        def sim_init(params, update_state, gen):
+            if update_state is None:
+                if mega:
+                    # Fused layout: per-worker Adam moments live packed
+                    # ([P, D] after the worker broadcast).
+                    width = staleness._packed_width(params)
+                    update_state = {"m": torch.zeros((width,), device=dev),
+                                    "v": torch.zeros((width,), device=dev)}
+                else:
+                    update_state = optimizer.init(params)
+            return staleness.init_sim_state(params, update_state, sim_cfg,
+                                            gen)
+
+        def sim_step_inner(inner, batch, bound, comp):
+            if compensator is None:
+                inner, m = raw(inner, batch, bound=bound)
             else:
-                update_state = optimizer.init(params)
-        return staleness.init_sim_state(params, update_state, sim_cfg, gen)
+                inner, comp, m = raw(inner, batch, bound=bound, comp=comp)
+            return inner, comp, _mean_over_workers(m)
 
-    def step_inner(inner, batch, bound):
-        inner, m = raw(inner, batch, bound=bound)
-        return inner, _mean_over_workers(m)
+        return engine(sim_init, sim_step_inner,
+                      lambda inner: tm.tree_map(lambda x: x[0], inner.caches),
+                      sim_cfg.delay.bound)
 
-    return Engine(cfg=cfg, device=dev, meta=meta, _init_inner=init_inner,
-                  _step_inner=step_inner,
-                  _params_of=lambda inner: tm.tree_map(lambda x: x[0],
-                                                       inner.caches),
-                  _max_bound=sim_cfg.delay.bound)
+    if loss_fn is None or optimizer is None:
+        raise ValueError(f"{mode} mode needs (loss, optimizer)")
+
+    if mode == "sync":
+        # No ring, but the megakernel still fuses the packed Adam tail.
+        mega = resolve_mega(kernel_delivery, "kernels='off'")
+        sync_raw = stale_sync.make_sync_train_step_lean(
+            loss_fn, optimizer, compensator=compensator, fused=mega)
+
+        def sync_step_inner(inner, batch, _bound, comp):
+            if compensator is None:
+                inner, m = sync_raw(inner, batch)
+                return inner, comp, m
+            return sync_raw(inner, batch, comp=comp)
+
+        return engine(
+            lambda params, _ust, _gen: stale_sync.init_sync_state(
+                params, optimizer, fused=mega),
+            sync_step_inner, lambda inner: inner.params, 0)
+
+    # Gradient ring modes: stale-psum and ssp.
+    mega = resolve_mega(kernel_delivery, "tree delivery")
+    if mode == "ssp":
+        if cfg.delay is not None:
+            # An explicit Schedule replaces the sampled speed model
+            # (type-checked in EngineConfig).
+            spec = cfg.delay
+            spec.realize(num_workers=cfg.num_workers)  # width check
+            if spec.bound > cfg.s:
+                raise ValueError(
+                    f"delay schedule bound {spec.bound} exceeds the ssp "
+                    f"clock bound s={cfg.s}; raise s to at least {spec.bound}")
+            table = torch.as_tensor(np.asarray(spec.table, np.int32))
+        else:
+            speeds = cfg.ssp_speeds
+            if speeds is None:
+                speeds = ssp_lib.sample_worker_durations(
+                    device_lib.generator(cfg.ssp_seed, torch.device("cpu")),
+                    cfg.ssp_steps, cfg.num_workers, cfg.ssp_mean_dur,
+                    cfg.ssp_cv)
+            table = ssp_lib.ssp_delay_schedule(
+                ssp_lib.SSPConfig(num_workers=cfg.num_workers, bound=cfg.s),
+                speeds)
+        # Schedule delays reach cfg.s, so the ring needs s + 1 slots.
+        scfg = stale_sync.StaleSyncConfig(
+            num_workers=cfg.num_workers, s=cfg.s + 1,
+            buffer_dtype=cfg.buffer_dtype, delay_table=table,
+            kernels=kernel_delivery, fused_update=mega)
+        meta["ssp_schedule"] = table
+        max_bound = cfg.s
+    else:
+        spec = cfg.delay
+        table = None
+        if isinstance(spec, Schedule) and cfg.per_worker_delays:
+            spec.realize(num_workers=cfg.num_workers)  # width check
+            table = spec.table
+        scfg = stale_sync.StaleSyncConfig(
+            num_workers=cfg.num_workers, s=cfg.s,
+            delay=None if table is not None else spec, delay_table=table,
+            buffer_dtype=cfg.buffer_dtype,
+            per_worker_delays=cfg.per_worker_delays,
+            kernels=kernel_delivery, fused_update=mega)
+        eff_bound = spec.bound if spec is not None else scfg.delay.bound
+        if eff_bound > scfg.slots - 1:
+            # A delay the ring can't hold would wrap onto a fresher slot
+            # while the metrics report the large staleness.
+            raise ValueError(
+                f"delay bound {eff_bound} exceeds the gradient ring "
+                f"({scfg.slots} slots from s={cfg.s}); raise s to at least "
+                f"{eff_bound + 1}")
+        max_bound = eff_bound
+    raw = stale_sync.make_stale_train_step(loss_fn, optimizer, scfg,
+                                           compensator=compensator)
+
+    def ring_step_inner(inner, batch, bound, comp):
+        if compensator is None:
+            inner, m = raw(inner, batch, bound=bound)
+            return inner, comp, m
+        return raw(inner, batch, bound=bound, comp=comp)
+
+    return engine(
+        lambda params, _ust, gen: stale_sync.init_state(params, optimizer,
+                                                        scfg, gen),
+        ring_step_inner, lambda inner: inner.params, max_bound)

@@ -87,6 +87,9 @@ class Trainer:
         history: List[dict] = []
         curve: list = []
         batches_to_target, converged = None, False
+        # Realized-delay running sum over EVERY step, kept on the device so
+        # accumulating never forces a sync; read only when a row is logged.
+        stale_sum, stale_n = 0.0, 0
         for t in range(steps):
             try:
                 batch = next_batch()
@@ -94,6 +97,9 @@ class Trainer:
                 break
             state, metrics = engine.step(ctx.state, batch)
             ctx.state, ctx.step, ctx.metrics, ctx.row = state, t, metrics, None
+            if "mean_staleness" in metrics:
+                stale_sum = stale_sum + metrics["mean_staleness"]
+                stale_n += 1
             for h in self.hooks:
                 h.on_step(ctx)
 
@@ -102,6 +108,20 @@ class Trainer:
                            "wall_s": round(time.time() - t0, 2)}
                 if "loss" in metrics:
                     ctx.row["loss"] = float(metrics["loss"])
+                if "mean_staleness" in metrics:
+                    ctx.row["mean_staleness"] = float(
+                        metrics["mean_staleness"])
+                    # Realized mean TOTAL delay (1 + r) over all steps so
+                    # far, to set beside a spec's nominal mean_total_delay.
+                    ctx.row["mean_total_delay"] = round(
+                        1.0 + float(stale_sum) / stale_n, 4)
+                # Compensation diagnostics: realized sparsity and the
+                # effective stepsize factor.
+                if "sparsity" in metrics:
+                    ctx.row["sparsity"] = round(float(metrics["sparsity"]), 4)
+                if "lr_scale" in metrics:
+                    ctx.row["lr_scale"] = round(
+                        float(torch.as_tensor(metrics["lr_scale"]).mean()), 6)
                 if engine._max_bound:
                     ctx.row["bound"] = int(ctx.state.bound)
                 for h in self.hooks:

@@ -38,6 +38,11 @@ SIGNATURES = {
     "repro_fused_adam_f32": (
         [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong]
         + [ctypes.c_float] * 8 + [_P], ctypes.c_int),
+    "repro_fused_update_f32": (
+        [_P] * 17 + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_float] * 8 + [_P], ctypes.c_int),
+    "repro_sparsify_f32": (
+        [_P] * 4 + [ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
 }
 
 
@@ -110,6 +115,22 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def check_operand(op: str, name: str, t: torch.Tensor, shape: tuple,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous fp32 tensor of ``shape`` on the
+    CUDA ``device`` (what every kernel in ``csrc/`` takes)."""
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{op}: {name} must be a CUDA tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{op}: {name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
 
 
 def check(err: int, name: str) -> None:

@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fused_adam as _fa
+from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import sparsify as _sp
 from repro_torch.kernels import stale_accum as _sa
 
 # Width packed flat views are zero-padded to, kept equal to the JAX
@@ -81,3 +83,44 @@ def fused_adam(p, m, v, g, lr, b1=0.9, b2=0.999, eps=1e-8, step=1):
     if _backend("fused_adam", p) == "ref":
         return ref.fused_adam(p, m, v, g, lr, b1, b2, eps, step)
     return _fa.fused_adam(p, m, v, g, lr, b1, b2, eps, step)
+
+
+def sparsify_topk(acc, thr):
+    """Error-feedback split: acc [*, D], thr [*] -> (sent, resid), both
+    [*, D], with ``sent = where(|acc| >= thr, acc, 0)`` and
+    ``resid = acc - sent``. Takes a flat [D] accumulator with a scalar
+    threshold or row-batched [R, D] with per-row thresholds."""
+    if _backend("sparsify_topk", acc) == "ref":
+        return ref.sparsify_mask(acc, thr)
+    d = acc.shape[-1]
+    lead = tuple(acc.shape[:-1])
+    rows = acc.numel() // d if d else 0
+    thr = torch.as_tensor(thr, dtype=torch.float32, device=acc.device)
+    sent, resid = _sp.sparsify_topk(
+        acc.reshape(rows, d).contiguous(),
+        thr.expand(lead).reshape(rows).contiguous())
+    return sent.reshape(acc.shape), resid.reshape(acc.shape)
+
+
+def fused_update(p, m, v, stale, weights, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 step=1, scale=1.0, acc=None, thr=None, fresh=None, mom=None):
+    """One-pass fused step over packed flat [D] views: optional EF split of
+    the R source rows (``acc``/``thr``; DGC masked momentum via ``mom``),
+    weighted delivery of the ring rows ``stale`` with per-row ``fresh`` flags
+    selecting this step's ``sent`` over the gathered ring row, and the
+    bias-corrected Adam update with the LR factor ``scale`` (a float or a
+    one-element device tensor) multiplied in. Returns ``(p', m', v', u)``
+    (+ ``sent, resid`` with EF, + ``mom'``)."""
+    if _backend("fused_update", p) == "ref":
+        return ref.fused_update(p, m, v, stale, weights, lr, b1, b2, eps,
+                                step, scale, acc=acc, thr=thr, fresh=fresh,
+                                mom=mom)
+    if not torch.is_tensor(scale):
+        scale = torch.full((1,), scale, device=p.device)
+    # Per-row operands often arrive as strided views (a top-k column, a
+    # reshaped scalar); the kernel reads them dense.
+    dense = lambda t: None if t is None else t.contiguous()
+    return _fu.fused_update(p, m, v, dense(stale), dense(weights), lr, b1,
+                            b2, eps, step, scale.float().reshape(1),
+                            acc=dense(acc), thr=dense(thr),
+                            fresh=dense(fresh), mom=dense(mom))

@@ -19,17 +19,7 @@ def fused_adam(p, m, v, g, lr, b1, b2, eps, step):
         raise ValueError("fused_adam: operands must be flat [D] tensors")
     (d,) = p.shape
     for name, t in (("p", p), ("m", m), ("v", v), ("g", g)):
-        if t.device != p.device or t.device.type != "cuda":
-            raise ValueError(f"fused_adam: {name} must be a CUDA tensor on "
-                             f"{p.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused_adam: {name} must be float32, "
-                             f"got {t.dtype}")
-        if tuple(t.shape) != (d,):
-            raise ValueError(f"fused_adam: {name} has shape "
-                             f"{tuple(t.shape)}, expected ({d},)")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_adam: {name} must be contiguous")
+        build.check_operand("fused_adam", name, t, (d,), p.device)
     if step < 1:
         raise ValueError(f"fused_adam: step must be >= 1, got {step}")
     p_out, m_out, v_out = (torch.empty_like(p) for _ in range(3))

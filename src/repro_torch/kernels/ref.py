@@ -17,6 +17,19 @@ def stale_accum(params: torch.Tensor, buffer: torch.Tensor,
     return (params.float() + acc).to(params.dtype)
 
 
+def sparsify_mask(acc: torch.Tensor, thr):
+    """sent = where(|acc| >= thr, acc, 0); resid = acc - sent.
+
+    ``thr`` has one value per leading row of ``acc`` (shape
+    ``acc.shape[:-1]``, or a scalar); magnitudes compare in fp32. The split
+    is exact: ``sent + resid == acc`` bit for bit."""
+    a32 = acc.float()
+    t32 = torch.as_tensor(thr, dtype=torch.float32,
+                          device=acc.device).unsqueeze(-1)
+    sent = torch.where(a32.abs() >= t32, a32, torch.zeros_like(a32))
+    return sent.to(acc.dtype), (a32 - sent).to(acc.dtype)
+
+
 def adam_scalars(lr, b1, b2, eps, step):
     """The fp32 scalars of one Adam step, as ``repro/kernels/fused_adam.py``
     stacks them: ``(lr, b1, b2, eps, 1-b1, 1-b2, 1-b1^t, 1-b2^t)``. Each is
@@ -40,3 +53,44 @@ def fused_adam(p, m, v, g, lr, b1, b2, eps, step):
     update = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
     p_new = p.float() - update
     return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+
+def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale=1.0,
+                 acc=None, thr=None, fresh=None, mom=None):
+    """One-pass update: the ``sparsify_mask`` split of the R source rows
+    (optional, with DGC masked momentum), the weighted delivery
+    ``u = sum_r w[r] * delivered[r]`` where ``delivered[r]`` is this step's
+    ``sent[r]`` for fresh rows and the ring row ``stale[r]`` otherwise, and
+    the ``fused_adam`` formula with the LR factor multiplied in last
+    (``p' = p - scale * update``). Returns ``(p', m', v', u)``, plus
+    ``(sent, resid)`` when ``acc``/``thr``/``fresh`` are given and ``mom'``
+    when ``mom`` is. All math fp32; the rows are summed one at a time in
+    row order, as the kernel sums them."""
+    lr, b1, b2, eps, omb1, omb2, bc1, bc2 = adam_scalars(lr, b1, b2, eps,
+                                                         step)
+    w32 = weights.float()
+    rows = stale.float()
+    extras = ()
+    if acc is not None:
+        a32 = acc.float()
+        t32 = torch.as_tensor(thr, dtype=torch.float32,
+                              device=acc.device).unsqueeze(-1)
+        keep = a32.abs() >= t32
+        sent = torch.where(keep, a32, torch.zeros_like(a32))
+        extras = (sent.to(acc.dtype), (a32 - sent).to(acc.dtype))
+        if mom is not None:
+            mom32 = mom.float()
+            extras += (torch.where(keep, torch.zeros_like(mom32),
+                                   mom32).to(mom.dtype),)
+        rows = torch.where(fresh.float().unsqueeze(-1) > 0, sent, rows)
+    u = torch.zeros_like(rows[0])
+    for r in range(rows.shape[0]):
+        u = u + w32[r] * rows[r]
+    m_new = b1 * m.float() + omb1 * u
+    v_new = b2 * v.float() + omb2 * u * u
+    update = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    update = torch.as_tensor(scale, dtype=torch.float32,
+                             device=p.device) * update
+    p_new = p.float() - update
+    return (p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype),
+            u) + extras

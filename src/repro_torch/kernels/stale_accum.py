@@ -12,30 +12,15 @@ import torch
 from repro_torch.kernels import build
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"stale_accum: {name} must be a CUDA tensor, "
-                         f"got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"stale_accum: {name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"stale_accum: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"stale_accum: {name} must be contiguous")
-
-
 def stale_accum(params: torch.Tensor, buffer: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """params [D], buffer [S, D], weights [S] (fp32, CUDA) -> out [D]."""
     if params.dim() != 1 or buffer.dim() != 2:
         raise ValueError("stale_accum: params must be [D] and buffer [S, D]")
     s, d = buffer.shape
-    _check("params", params, (d,))
-    _check("buffer", buffer, (s, d))
-    _check("weights", weights, (s,))
-    if weights.device != params.device or buffer.device != params.device:
-        raise ValueError("stale_accum: operands lie on different devices")
+    for name, t, shape in (("params", params, (d,)), ("buffer", buffer, (s, d)),
+                           ("weights", weights, (s,))):
+        build.check_operand("stale_accum", name, t, shape, params.device)
     out = torch.empty_like(params)
     if d == 0:
         return out

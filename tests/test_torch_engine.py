@@ -188,16 +188,21 @@ def test_engine_surface(setup):
         eng.init(0)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mode="stale-psum", s=2), "A.5"), (dict(mode="ssp", s=2), "A.5"),
-    (dict(mode="sync"), "A.5"),
-    (dict(mode="simulate", lr_scale="inverse"), "A.6"),
-    (dict(mode="simulate", compress="topk:0.1"), "A.6"),
-    (dict(mode="simulate", server_side=True), "A.2")])
-def test_unported_modes_and_options_raise(kw, item):
+@pytest.mark.parametrize("kw,mesh,item", [
+    (dict(mode="stale-psum", s=2), object(), "A.12"),
+    (dict(mode="ssp", s=2), object(), "A.12"),
+    (dict(mode="sync"), object(), "A.12"),
+    (dict(mode="stale-psum", s=2, server_side=True), None, "A.2"),
+    (dict(mode="simulate", compress="topk:0.1", server_side=True), None,
+     "A.2"),
+    (dict(mode="simulate", server_side=True), None, "A.2")])
+def test_unported_modes_and_options_raise(kw, mesh, item):
+    """Every mode and compensation knob is ported; mesh= (A.12) and the
+    server_side ablation (A.2) still raise, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         build_engine(tmlp.loss_fn, topt.sgd(0.1),
-                     EngineConfig(num_workers=2, **kw), device="cpu")
+                     EngineConfig(num_workers=2, **kw), mesh=mesh,
+                     device="cpu")
 
 
 def test_config_validation_and_mesh():
@@ -205,7 +210,14 @@ def test_config_validation_and_mesh():
                 dict(kernels="yes"), dict(megakernel="maybe")):
         with pytest.raises(ValueError):
             EngineConfig(**bad)
-    assert isinstance(EngineConfig(delay=[[0, 1]]).delay, tdel.Schedule)
+    assert isinstance(EngineConfig(mode="simulate", delay=[[0, 1]]).delay,
+                      tdel.Schedule)
+    # As in the reference: sync is delay-free, ssp takes a Schedule only.
+    with pytest.raises(ValueError, match="delay-free"):
+        EngineConfig(mode="sync", delay=[[0, 1]])
+    assert EngineConfig(mode="sync", delay=tdel.Zero()).delay == tdel.Zero()
+    with pytest.raises(ValueError, match="Schedule"):
+        EngineConfig(mode="ssp", s=2, delay=tdel.UniformDelay(2))
     with pytest.raises(NotImplementedError, match="A.12"):
         build_engine(tmlp.loss_fn, topt.sgd(0.1),
                      EngineConfig(mode="simulate"), mesh=object(),
@@ -235,6 +247,13 @@ def test_importing_the_port_loads_no_jax():
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "for m in ('repro_torch.core.stale_sync', 'repro_torch.core.ssp', "
+            "'repro_torch.core.coherence', 'repro_torch.compensate', "
+            "'repro_torch.compensate.lr', 'repro_torch.compensate.sparsify', "
+            "'repro_torch.compensate.__main__', "
+            "'repro_torch.kernels.fused_update', "
+            "'repro_torch.kernels.sparsify'):\n"
+            "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
