@@ -26,9 +26,8 @@ does through buffer donation: a state passed to ``step`` is consumed and
 must not be stepped again. Ring rows are gathered with ``index_select``,
 which copies, so a gather made before the ring write (the compressed fused
 tail) is never changed by it. The step count is a Python int; the realized
-delays stay on the device, so nothing in a step reads the device on the
-host (the one exception: a device LR factor on the dense fused sync tail,
-which folds it into Adam's by-value learning rate).
+delays, the top-k thresholds and the LR factor stay on the device, so
+nothing in a step reads the device on the host.
 """
 from __future__ import annotations
 
@@ -420,12 +419,6 @@ def init_sync_state(params: Pytree, optimizer: Optimizer,
     return SyncTrainState(params=params, opt_state=opt_state, step=0)
 
 
-def _f32_product(factor, eta: float) -> float:
-    """``factor * eta`` rounded as fp32 (the reference multiplies an fp32
-    factor by the learning rate). A device factor is read on the host."""
-    return float(np.float32(float(factor)) * np.float32(eta))
-
-
 def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
                               compensator=None, fused: bool = False):
     """Buffer-free synchronous step: ``step(state, batch, comp=None)``.
@@ -433,9 +426,12 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     ``fused=True`` (an Adam-spec optimizer) runs the post-gradient tail over
     the packed [D] view with the moments packed in opt_state: with
     compression, ONE ``dispatch.fused_update`` pass in which the gradient
-    is a single fresh row of weight 1.0; dense, ``dispatch.fused_adam``
-    alone. Staleness is identically 0 here, so ``inverse`` leaves the
-    stepsize as it is and ``theorem1`` reduces to its schedule factor."""
+    is a single fresh row of weight 1.0 (no ring, so ``stale=None``);
+    dense with an LR factor, ``fused_update`` plain over that row, which
+    takes the factor as a device scalar; dense without one,
+    ``dispatch.fused_adam`` alone. Staleness is identically 0 here, so
+    ``inverse`` leaves the stepsize as it is and ``theorem1`` reduces to
+    its schedule factor."""
     if fused:
         _require_adam(optimizer, "fused=True")
 
@@ -453,26 +449,29 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
         eta = lr_at(osp["lr"], ostep)
         m, v = state.opt_state["m"], state.opt_state["v"]
         pzero = torch.zeros_like(m)
+        one = torch.ones((1,), device=dev)
+        adam_kw = dict(lr=eta, b1=osp["b1"], b2=osp["b2"], eps=osp["eps"],
+                       step=ostep, scale=factor)
         if compensator is not None and compensator.sparsifies:
             acc, thr, mom_in = compensator.ef_inputs(comp, gvec, spec.total)
-            one = torch.ones((1,), device=dev)
             outs = dispatch.fused_update(
-                pzero, m, v, torch.zeros((1, gvec.shape[-1]), device=dev),
-                one, lr=eta, b1=osp["b1"], b2=osp["b2"], eps=osp["eps"],
-                step=ostep, scale=factor, acc=acc.unsqueeze(0),
-                thr=thr.reshape(1), fresh=one,
-                mom=None if mom_in is None else mom_in.unsqueeze(0))
+                pzero, m, v, None, one, acc=acc.unsqueeze(0),
+                thr=thr.reshape(1),
+                mom=None if mom_in is None else mom_in.unsqueeze(0),
+                **adam_kw)
             dneg, m2, v2, u, sent, resid = outs[:6]
             mom_out = outs[6][0] if mom_in is not None else None
             comp = compensator.ef_commit(comp, resid[0], mom_out)
             cmetrics.update(compensator.ef_metrics(sent, spec.total))
+        elif compensator is not None and compensator.scales:
+            # The LR factor lives on the device: fused_update takes it as
+            # a device scalar, so the step never reads it on the host.
+            dneg, m2, v2, _ = dispatch.fused_update(
+                pzero, m, v, gvec.unsqueeze(0), one, **adam_kw)
         else:
-            # No ring and no split: delivery would be the identity, so the
-            # packed Adam kernel runs alone with the LR factor folded into
-            # its learning rate.
-            lr = (eta if not torch.is_tensor(factor) and factor == 1.0
-                  else _f32_product(factor, eta))
-            dneg, m2, v2 = dispatch.fused_adam(pzero, m, v, gvec, lr,
+            # No ring, no split and no factor: delivery would be the
+            # identity, so the packed Adam kernel runs alone.
+            dneg, m2, v2 = dispatch.fused_adam(pzero, m, v, gvec, eta,
                                                osp["b1"], osp["b2"],
                                                osp["eps"], ostep)
         delta = _adam_delta(dneg, spec, state.params, factor, eta,

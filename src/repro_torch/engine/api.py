@@ -28,8 +28,9 @@ Every mode honours the compensation layer (``lr_scale``, ``compress``,
 Routing: ``kernels="off"`` keeps the tree layouts in plain torch; ``"auto"``
 and ``"on"`` run the packed ring through the CUDA kernels (one device, so no
 placement veto). An Adam-spec optimizer on the packed path runs the
-megakernel tail (``fused_update`` in the ring modes, ``fused_adam`` in
-simulate and in dense sync) unless ``megakernel="off"``.
+megakernel tail (``fused_update`` in the ring modes and in sync with a
+compensation knob, ``fused_adam`` in simulate and in plain dense sync)
+unless ``megakernel="off"``.
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
 A.12) and ``server_side`` (A.2). The Trace and MultiPod delay specs (A.8)

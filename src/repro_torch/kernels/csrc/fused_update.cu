@@ -9,20 +9,26 @@
 //      keep = |acc| >= thr[r], sent = keep ? acc : 0, resid = acc - sent,
 //      and (ef_mom) zeroes the DGC momentum where keep holds;
 //   2. delivers u = sum_r w[r] * delivered[r], where delivered[r] is this
-//      step's sent[r] for a fresh row (fresh[r] > 0) and the gathered ring
-//      row stale[r] otherwise;
+//      step's sent[r] for a fresh row (fresh[r] > 0, or every row when
+//      fresh is null) and the gathered ring row stale[r] otherwise;
 //   3. runs bias-corrected Adam on (p, m, v) with u as the gradient and the
 //      LR factor multiplied in last: p' = p - scale * update.
 //
-// Bound on an H100: memory. Per element of D a call reads p, m, v and the R
-// ring rows (plus R accumulator rows, plus R momentum rows) and writes p',
-// m', v' and u (plus R sent and R resid rows, plus R momentum rows), against
-// ~15 + 3R flops: under one flop per byte. At R = 8, D = 335,872 that is
-// 15 D floats for `plain` (20.2 MB, 6.0 us at 3.35 TB/s), 7 D + 4 R D for
-// `ef` (52.4 MB, 15.6 us) and 7 D + 6 R D for `ef_mom` (73.9 MB, 22.1 us).
+// Bound on an H100: memory. Per element of D a call reads p, m, v and the
+// ring rows it delivers (all R for `plain`; with EF only the R - F rows that
+// are not fresh, since a fresh row delivers sent), plus R accumulator rows
+// (plus R momentum rows), and writes p', m', v' and u (plus R sent and R
+// resid rows, plus R momentum rows), against ~15 + 3R flops: under one flop
+// per byte. At R = 8, D = 335,872 that is 15 D floats for `plain` (20.2 MB,
+// 6.0 us at 3.35 TB/s); with F = 4 fresh rows 7 D + 3 R D + (R - F) D for
+// `ef` (47.0 MB, 14.0 us) and that plus 2 R D for `ef_mom` (68.5 MB,
+// 20.5 us); the sync tail's single always-fresh row (R = 1, no ring) moves
+// 10 D (13.4 MB, 4.0 us).
 //
-// Design: every operand is read once and every output written once; the
-// split, the delivery and the Adam step stay in registers. One thread owns
+// Design: every operand is read once and every output written once, and a
+// ring row is read only where it is delivered (fresh is per row, so the
+// branch is the same for a whole warp); the split, the delivery and the
+// Adam step stay in registers. One thread owns
 // a 16-byte chunk of D and loops over the R rows in a fixed order, so u is
 // the same sum on every run, with no atomics. weights, thr, fresh and scale
 // come in as device pointers, because the engine computes them on the device
@@ -54,11 +60,11 @@ struct Operands {
   const float* p;
   const float* m;
   const float* v;
-  const float* stale;    // [R, D]
+  const float* stale;    // [R, D]; null with EF when fresh is null
   const float* weights;  // [R]
   const float* acc;      // [R, D] (ef)
   const float* thr;      // [R] (ef)
-  const float* fresh;    // [R] (ef)
+  const float* fresh;    // [R] (ef); null: every row is fresh
   const float* mom;      // [R, D] (ef_mom)
   const float* scale;    // [1]
   float* p_out;
@@ -87,7 +93,8 @@ __device__ __forceinline__ void adam_one(float p, float m, float v, float u,
 }
 
 // One row's value for one element: the split and the momentum mask where
-// the variant has them, and the value the row delivers.
+// the variant has them, and the value the row delivers (sent for a fresh
+// row, whose ring value st the caller leaves unloaded).
 template <bool EF, bool MOM>
 __device__ __forceinline__ float row_one(float st, float a, float t,
                                          bool fresh, float mo, float* sent,
@@ -101,6 +108,12 @@ __device__ __forceinline__ float row_one(float st, float a, float t,
   return fresh ? s : st;
 }
 
+// Is row r fresh? Only EF has fresh rows; a null fresh marks every row.
+template <bool EF>
+__device__ __forceinline__ bool row_fresh(const float* fresh, int r) {
+  return EF && (fresh == nullptr || __ldg(fresh + r) > 0.f);
+}
+
 template <bool EF, bool MOM>
 __global__ void fused_update_vec4(Operands o, AdamScalars s) {
   const size_t n4 = o.d / 4;
@@ -112,15 +125,14 @@ __global__ void fused_update_vec4(Operands o, AdamScalars s) {
     for (int r = 0; r < o.rows; ++r) {
       const size_t off = static_cast<size_t>(r) * n4 + i;
       const float w = __ldg(o.weights + r);
-      const float4 st = __ldg(reinterpret_cast<const float4*>(o.stale) + off);
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), mo = a, se = a, re = a,
-             mn = a;
+      const bool fr = row_fresh<EF>(o.fresh, r);
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), st = a, mo = a, se = a,
+             re = a, mn = a;
+      if (!fr) st = __ldg(reinterpret_cast<const float4*>(o.stale) + off);
       float t = 0.f;
-      bool fr = false;
       if (EF) {
         a = __ldg(reinterpret_cast<const float4*>(o.acc) + off);
         t = __ldg(o.thr + r);
-        fr = __ldg(o.fresh + r) > 0.f;
       }
       if (MOM) mo = __ldg(reinterpret_cast<const float4*>(o.mom) + off);
       float4 dl;
@@ -162,16 +174,16 @@ __global__ void fused_update_scalar(Operands o, AdamScalars s) {
     float u = 0.f;
     for (int r = 0; r < o.rows; ++r) {
       const size_t off = static_cast<size_t>(r) * o.d + i;
-      float a = 0.f, mo = 0.f, se = 0.f, re = 0.f, mn = 0.f, t = 0.f;
-      bool fr = false;
+      const bool fr = row_fresh<EF>(o.fresh, r);
+      float a = 0.f, st = 0.f, mo = 0.f, se = 0.f, re = 0.f, mn = 0.f,
+            t = 0.f;
+      if (!fr) st = o.stale[off];
       if (EF) {
         a = o.acc[off];
         t = __ldg(o.thr + r);
-        fr = __ldg(o.fresh + r) > 0.f;
       }
       if (MOM) mo = o.mom[off];
-      const float dl =
-          row_one<EF, MOM>(o.stale[off], a, t, fr, mo, &se, &re, &mn);
+      const float dl = row_one<EF, MOM>(st, a, t, fr, mo, &se, &re, &mn);
       if (EF) {
         o.sent_out[off] = se;
         o.resid_out[off] = re;
@@ -214,9 +226,10 @@ void launch(const Operands& o, const AdamScalars& s, cudaStream_t st) {
 
 // One entry point for the three variants: acc == nullptr runs `plain`
 // (thr, fresh, mom and the sent/resid/mom outputs unused), mom == nullptr
-// runs `ef`, otherwise `ef_mom`. Scalars are the fp32 values of
-// kernels/ref.py::adam_scalars. Returns cudaGetLastError() after the launch
-// (0 = cudaSuccess).
+// runs `ef`, otherwise `ef_mom`. With EF, fresh == nullptr makes every row
+// fresh, and stale is then unused (it may be null). Scalars are the fp32
+// values of kernels/ref.py::adam_scalars. Returns cudaGetLastError() after
+// the launch (0 = cudaSuccess).
 extern "C" int repro_fused_update_f32(
     const void* p, const void* m, const void* v, const void* stale,
     const void* weights, const void* acc, const void* thr, const void* fresh,

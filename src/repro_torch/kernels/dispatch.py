@@ -107,7 +107,8 @@ def fused_update(p, m, v, stale, weights, lr, b1=0.9, b2=0.999, eps=1e-8,
     """One-pass fused step over packed flat [D] views: optional EF split of
     the R source rows (``acc``/``thr``; DGC masked momentum via ``mom``),
     weighted delivery of the ring rows ``stale`` with per-row ``fresh`` flags
-    selecting this step's ``sent`` over the gathered ring row, and the
+    selecting this step's ``sent`` over the gathered ring row (with EF,
+    ``stale=None, fresh=None``: every row delivers ``sent``), and the
     bias-corrected Adam update with the LR factor ``scale`` (a float or a
     one-element device tensor) multiplied in. Returns ``(p', m', v', u)``
     (+ ``sent, resid`` with EF, + ``mom'``)."""

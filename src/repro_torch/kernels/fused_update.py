@@ -3,12 +3,14 @@
 
 Three variants share one entry point: ``plain`` (delivery + Adam), ``ef``
 (adds the split of ``acc`` against ``thr`` with ``fresh`` rows delivering
-this step's ``sent``) and ``ef_mom`` (adds the DGC masked momentum).
-``weights``, ``thr``, ``fresh`` and ``scale`` are device tensors; the Adam
-scalars are computed here in fp32 (``ref.adam_scalars``) and passed by
-value. The kernel takes contiguous fp32 CUDA tensors; anything else raises.
-CPU tensors go to ``kernels/ref.py`` through ``kernels/dispatch.py``, never
-through here.
+this step's ``sent``) and ``ef_mom`` (adds the DGC masked momentum). With
+EF, ``stale=None, fresh=None`` means every row is fresh (the sync tail: no
+ring to read). ``weights``, ``thr``, ``fresh`` and ``scale`` are device
+tensors; the Adam scalars are computed here in fp32 (``ref.adam_scalars``)
+and passed by value. Launches are counted per variant in
+``fused_update.by_variant``. The kernel takes contiguous fp32 CUDA
+tensors; anything else raises. CPU tensors go to ``kernels/ref.py``
+through ``kernels/dispatch.py``, never through here.
 """
 from __future__ import annotations
 
@@ -29,19 +31,22 @@ def variant(acc=None, mom=None) -> str:
 def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale,
                  acc=None, thr=None, fresh=None, mom=None):
     """p/m/v [D]; stale [R, D]; weights [R]; scale a [1] or 0-dim device
-    tensor; with EF also acc [R, D], thr [R], fresh [R] and optionally
-    mom [R, D]. Returns ``(p', m', v', u)`` (+ ``sent, resid`` with EF,
-    + ``mom'``). step >= 1."""
-    if p.dim() != 1 or stale.dim() != 2:
+    tensor; with EF also acc [R, D], thr [R], fresh [R] (or stale and
+    fresh both None: every row fresh) and optionally mom [R, D]. Returns
+    ``(p', m', v', u)`` (+ ``sent, resid`` with EF, + ``mom'``).
+    step >= 1."""
+    name = variant(acc, mom)
+    lead = acc if stale is None and name != "plain" else stale
+    if lead is None or p.dim() != 1 or lead.dim() != 2:
         raise ValueError("fused_update: p must be [D] and stale [R, D]")
     (d,) = p.shape
-    r = stale.shape[0]
+    r = lead.shape[0]
     dev = p.device
-    name = variant(acc, mom)
-    rows = [("stale", stale)]
+    rows = [] if stale is None else [("stale", stale)]
     if name != "plain":
-        if thr is None or fresh is None:
-            raise ValueError("fused_update: acc needs thr and fresh")
+        if thr is None or (fresh is None) != (stale is None):
+            raise ValueError("fused_update: acc needs thr, and fresh "
+                             "unless stale is None too")
         rows.append(("acc", acc))
         if mom is not None:
             rows.append(("mom", mom))
@@ -53,7 +58,9 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale,
         build.check_operand("fused_update", nm, t, (r, d), dev)
     per_row = [("weights", weights)]
     if name != "plain":
-        per_row += [("thr", thr), ("fresh", fresh)]
+        per_row.append(("thr", thr))
+        if fresh is not None:
+            per_row.append(("fresh", fresh))
     for nm, t in per_row:
         build.check_operand("fused_update", nm, t, (r,), dev)
     if not torch.is_tensor(scale) or scale.numel() != 1:
@@ -76,17 +83,15 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale,
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = build.library().repro_fused_update_f32(
-            p.data_ptr(), m.data_ptr(), v.data_ptr(), stale.data_ptr(),
+            p.data_ptr(), m.data_ptr(), v.data_ptr(), ptr(stale),
             weights.data_ptr(), ptr(acc), ptr(thr), ptr(fresh), ptr(mom),
             scale.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
             v_out.data_ptr(), u_out.data_ptr(), ptr(sent), ptr(resid),
             ptr(mom_out), r, d, *ref.adam_scalars(lr, b1, b2, eps, step),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_update")
-    fused_update.launches += 1
     fused_update.by_variant[name] += 1
     return outs
 
 
-fused_update.launches = 0
 fused_update.by_variant = dict.fromkeys(VARIANTS, 0)

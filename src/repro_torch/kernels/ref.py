@@ -63,13 +63,14 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale=1.0,
     ``sent[r]`` for fresh rows and the ring row ``stale[r]`` otherwise, and
     the ``fused_adam`` formula with the LR factor multiplied in last
     (``p' = p - scale * update``). Returns ``(p', m', v', u)``, plus
-    ``(sent, resid)`` when ``acc``/``thr``/``fresh`` are given and ``mom'``
-    when ``mom`` is. All math fp32; the rows are summed one at a time in
-    row order, as the kernel sums them."""
+    ``(sent, resid)`` when ``acc``/``thr`` are given and ``mom'`` when
+    ``mom`` is. With ``acc``, ``stale=None, fresh=None`` makes every row
+    fresh (nothing is read from a ring). All math fp32; the rows are summed
+    one at a time in row order, as the kernel sums them."""
     lr, b1, b2, eps, omb1, omb2, bc1, bc2 = adam_scalars(lr, b1, b2, eps,
                                                          step)
     w32 = weights.float()
-    rows = stale.float()
+    rows = None if stale is None else stale.float()
     extras = ()
     if acc is not None:
         a32 = acc.float()
@@ -82,7 +83,8 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale=1.0,
             mom32 = mom.float()
             extras += (torch.where(keep, torch.zeros_like(mom32),
                                    mom32).to(mom.dtype),)
-        rows = torch.where(fresh.float().unsqueeze(-1) > 0, sent, rows)
+        rows = (sent if fresh is None else
+                torch.where(fresh.float().unsqueeze(-1) > 0, sent, rows))
     u = torch.zeros_like(rows[0])
     for r in range(rows.shape[0]):
         u = u + w32[r] * rows[r]

@@ -133,6 +133,31 @@ def test_fused_update_kernel_matches_plain(cuda_device, variant, r, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048 * 4, 1_003])
+@pytest.mark.parametrize("variant", ["ef", "ef_mom"])
+def test_fused_update_kernel_without_ring_matches_plain(cuda_device,
+                                                        variant, d):
+    """The sync tail's call: one row, no ring (stale and fresh None), so
+    the row delivers this step's sent."""
+    x = _update_inputs(1, d, cuda_device, seed=3)
+    opt = {k: x[k] for k in ("acc", "thr")}
+    if variant == "ef_mom":
+        opt["mom"] = x["mom"]
+    args = [x["p"], x["m"], x["v"], None, x["weights"]]
+    scale = torch.full((1,), 0.5, device=cuda_device)
+    before = dict(tfu.fused_update.by_variant)
+    got = tfu.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 5, scale, **opt)
+    torch.cuda.synchronize()
+    assert tfu.fused_update.by_variant[variant] == before[variant] + 1
+    want = ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 5, scale, **opt)
+    for a, b in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, b, **TOL_ADAM)
+    for a, b in zip(got[3:], want[3:]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], got[4][0])     # u is the one row's sent
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 2048 * 4), (3, 1_003), (2048 * 4,)])
 def test_sparsify_kernel_matches_plain(cuda_device, shape):
     rng = np.random.default_rng(0)

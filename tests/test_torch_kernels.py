@@ -106,6 +106,32 @@ def test_plain_fused_update_matches_pallas_interpret(variant, r):
         assert torch.equal(sent + resid, torch.from_numpy(x["acc"]))
 
 
+@pytest.mark.parametrize("variant", ["ef", "ef_mom"])
+@pytest.mark.parametrize("r", [1, 4])
+def test_plain_fused_update_without_ring_matches_pallas_interpret(variant, r):
+    """``stale=None, fresh=None`` (the sync tail's call) delivers sent for
+    every row: the Pallas kernel with every row fresh, whatever its ring
+    rows hold, gives the same outputs."""
+    x = _update_inputs(r, 4096, seed=20 + r)
+    opt = dict(acc=x["acc"], thr=x["thr"])
+    if variant == "ef_mom":
+        opt["mom"] = x["mom"]
+    scalars = jfu._stack_scalars(1e-3, 0.9, 0.999, 1e-8, 3, 0.5)
+    want = jfu.fused_update(
+        *map(jnp.asarray, (x["p"], x["m"], x["v"], x["stale"], x["weights"])),
+        scalars, fresh=jnp.ones((r,), jnp.float32),
+        **{k: jnp.asarray(v) for k, v in opt.items()}, interpret=True)
+    got = ref.fused_update(
+        *map(torch.from_numpy, (x["p"], x["m"], x["v"])), None,
+        torch.from_numpy(x["weights"]), 1e-3, 0.9, 0.999, 1e-8, 3,
+        torch.tensor(0.5), **{k: torch.from_numpy(v) for k, v in opt.items()})
+    assert len(got) == len(want)
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL_UPDATE)
+    for a, b in zip(got[4:], want[4:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 @pytest.mark.parametrize("r", [1, 3])
 def test_plain_sparsify_mask_matches_pallas_interpret(r):
     x = _update_inputs(r, 2048, seed=10 + r)
@@ -166,8 +192,10 @@ def test_dispatch_routes_cpu_tensors_to_plain_version():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never quietly runs the plain version: CPU tensors
     raise before anything is built or launched."""
-    before = (tsa.stale_accum.launches, tfa.fused_adam.launches,
-              tsp.sparsify_topk.launches, tfu.fused_update.launches)
+    count = lambda: (tsa.stale_accum.launches, tfa.fused_adam.launches,
+                     tsp.sparsify_topk.launches,
+                     sum(tfu.fused_update.by_variant.values()))
+    before = count()
     p, buf, w = map(torch.from_numpy, _accum_inputs(1, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tsa.stale_accum(p, buf, w)
@@ -180,8 +208,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfu.fused_update(x["p"], x["m"], x["v"], x["stale"], x["weights"],
                          1e-3, 0.9, 0.999, 1e-8, 1, torch.ones(1))
-    assert (tsa.stale_accum.launches, tfa.fused_adam.launches,
-            tsp.sparsify_topk.launches, tfu.fused_update.launches) == before
+    # Without a ring every row is fresh: stale and fresh are None together.
+    for stale, fresh in ((None, x["fresh"]), (x["stale"], None)):
+        with pytest.raises(ValueError, match="fresh"):
+            tfu.fused_update(x["p"], x["m"], x["v"], stale, x["weights"],
+                             1e-3, 0.9, 0.999, 1e-8, 1, torch.ones(1),
+                             acc=x["acc"], thr=x["thr"], fresh=fresh)
+    with pytest.raises(ValueError, match="stale"):
+        tfu.fused_update(x["p"], x["m"], x["v"], None, x["weights"],
+                         1e-3, 0.9, 0.999, 1e-8, 1, torch.ones(1))
+    assert count() == before
     assert tfu.variant() == "plain"
     assert tfu.variant(acc=x["acc"]) == "ef"
     assert tfu.variant(acc=x["acc"], mom=x["mom"]) == "ef_mom"
