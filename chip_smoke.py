@@ -24,7 +24,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card, with launch counters checked;
 6. timings with CUDA events: ms per engine step, and each kernel's time
    beside its bound, its plain version and one PyTorch library call (where
-   one computes the same function).
+   one computes the same function);
+7. the coherence path: ``coherence_dots`` against fp64 and its plain
+   version (W = 8, 16 at the packed width, W = 3 at a ragged D; bitwise
+   replay); the simulate Adam leg of ``examples/coherence_adaptive.py``
+   (50 steps) with ``CoherenceHook(kernels=True, window=8, every=5)`` and
+   its ``CoherenceController``, held against the same leg with the plain
+   reduction (mu within the kernel's tolerance, the same ``allowed_s``,
+   two kernel runs equal), with ``CheckpointHook`` (the last snapshot
+   restores the eval params bit for bit) and ``TraceRecorderHook`` (the
+   trace drives ``ssp`` steps as ``Trace(path, bound=16)``); the
+   ``stale-psum`` Adam leg with ``lr_scale="theorem1"`` fed by the hook,
+   kernels on vs off; the hook's cost per step and the split of one probe;
+   ``coherence_dots``'s time beside its bound, its plain version and
+   ``torch.mv``.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -36,6 +49,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -294,24 +308,27 @@ def profile_steps(engine, state, batches, k: int) -> dict:
 
 def reset_counters() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
-    for fn in (stale_accum, fused_adam, sparsify_topk):
+    for fn in (stale_accum, fused_adam, sparsify_topk, coherence_dots):
         fn.launches = 0
     fused_update.by_variant = dict.fromkeys(fused_update.by_variant, 0)
 
 
 def counters() -> dict:
     """Every kernel wrapper's launch count, fused_update by variant."""
+    from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
     out = {"stale_accum": stale_accum.launches,
            "fused_adam": fused_adam.launches,
-           "sparsify_topk": sparsify_topk.launches}
+           "sparsify_topk": sparsify_topk.launches,
+           "coherence_dots": coherence_dots.launches}
     for variant, n in fused_update.by_variant.items():
         out[f"fused_update.{variant}"] = n
     return out
@@ -331,11 +348,11 @@ def expect(steps: int, **per_step) -> dict:
 
 
 def drive(engine, params0, batches, xt, yt, dev, *, steps, timed_steps,
-          profile=0):
-    """One main-path run through ``Trainer``: ``steps`` steps with the
-    launch counters zeroed just before and read just after, then
-    ``timed_steps`` more steps timed on the host clock between syncs, then
-    ``profile`` steps under the profiler."""
+          profile=0, hooks=()):
+    """One main-path run through ``Trainer`` (with ``hooks`` after the loss
+    log): ``steps`` steps with the launch counters zeroed just before and
+    read just after, then ``timed_steps`` more steps timed on the host clock
+    between syncs, then ``profile`` steps under the profiler."""
     import torch
     from repro_torch import treemath as tm
     from repro_torch.engine import Hook, Trainer
@@ -354,7 +371,7 @@ def drive(engine, params0, batches, xt, yt, dev, *, steps, timed_steps,
     state = engine.init(0, params=tm.tree_map(torch.clone, params0))
     log = LossLog()
     reset_counters()
-    res = Trainer(engine, hooks=[log]).run(
+    res = Trainer(engine, hooks=[log, *hooks]).run(
         batches, steps, state=state,
         eval_fn=lambda p: mlp.accuracy(p, xt, yt), eval_every=steps)
     launches = counters()
@@ -833,6 +850,381 @@ def kernel_entries(timings: dict, runs: dict, ring: dict, errs: dict) -> list:
     return kernels
 
 
+def coherence_entry(timings: dict, coh: dict, err: float) -> dict:
+    """The ``{"kernels": [...]}`` entry of coherence_dots: its main-path
+    run is the gated simulate leg with the kernel; times at W = 8, with
+    W = 16 beside them, and torch.mv (the dots alone) for scale."""
+    t = timings["coherence_dots.W8"]
+    return {
+        "name": "coherence_dots", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/coherence.cu",
+        "replaces": "src/repro/kernels/coherence.py:49",
+        "launches": coh["gated", "on"]["launches"]["coherence_dots"],
+        "launches_by_run": {f"{leg} {k}": run["launches"]["coherence_dots"]
+                            for (leg, k), run in coh.items()},
+        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "mv_ms": t["mv_ms"], "eager_ms": t["eager_ms"],
+        "variants": {f"W{w}": {key: timings[f"coherence_dots.W{w}"][key]
+                               for key in ("ms", "plain_ms", "bound_ms",
+                                           "mv_ms", "eager_ms")}
+                     for w in (8, 16)}}
+
+
+# -- phase 7: the coherence path --------------------------------------------
+
+# coherence_dots, kernel and plain version, normwise against fp64:
+# |x - x64| <= COHERENCE_C * eps * sum_i |t_i| for the terms t_i of each sum
+# (eps = 2^-23). The kernel's longest chain of additions (a thread's terms,
+# the 5-level warp shuffle tree, 8 warps, the stage-2 lane sum over <= 32
+# partials and its 5-level tree) is under 64 roundings at these shapes, so
+# 64 is its worst-case bound; the plain version is held to the same bound.
+COHERENCE_C = 64
+# The coherence phase: the example's window, probe cadence and controller.
+PROBE_EVERY, WINDOW, PROBE_N = 5, 8, 1000
+CONTROLLER = dict(s_max=16, lo=0.0, hi=0.3, patience=10)
+CKPT_EVERY, TRACE_STEPS = 25, 5
+
+
+def coherence_excess(out, h, g) -> float:
+    """Largest error of (dots, hist_sq, g_sq) against fp64, in units of
+    eps * sum |terms|: within tolerance when <= COHERENCE_C."""
+    import torch
+    h64, g64 = h.double(), g.double()
+    want = (h64 @ g64, (h64 * h64).sum(-1), (g64 * g64).sum())
+    scale = (h64.abs() @ g64.abs(), want[1], want[2])
+    eps = torch.finfo(torch.float32).eps
+    return max(float(((a.double() - w).abs() / (eps * sc).clamp(
+        min=1e-300)).max()) for a, w, sc in zip(out, want, scale))
+
+
+def coherence_kernel_checks(dev, width: int) -> float:
+    """coherence_dots and its plain version against fp64 at W = 8 and 16
+    (width D_pad) and W = 3 at a ragged D; two kernel calls replay bit for
+    bit. Returns the kernel's max abs error against the plain version at
+    W = 8, D_pad."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coherence import coherence_dots
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err8 = None
+    for w, d in ((8, width), (16, width), (3, 1_000_003)):
+        h = torch.randn((w, d), generator=gen, device=dev)
+        g = torch.randn((d,), generator=gen, device=dev)
+        got, again = coherence_dots(h, g), coherence_dots(h, g)
+        plain = ref.coherence_dots(h, g)
+        k_exc, p_exc = coherence_excess(got, h, g), coherence_excess(plain, h, g)
+        err = max(max_abs(a, b) for a, b in zip(got, plain))
+        print(f"coherence_dots W={w} D={d}: error vs fp64 {k_exc!r} x eps "
+              f"x sum|terms| (plain version {p_exc!r}; tol {COHERENCE_C}); "
+              f"max_abs_err vs plain {err!r}")
+        if k_exc > COHERENCE_C or p_exc > COHERENCE_C:
+            raise AssertionError(f"coherence_dots W={w} D={d}: outside the "
+                                 "fp64 tolerance")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"coherence_dots W={w} D={d}: two calls on "
+                                 "the same inputs differ")
+        if w == 8:
+            err8 = err
+    torch.cuda.synchronize(dev)
+    print("coherence_dots: two calls replay bit for bit at every shape")
+    return err8
+
+
+def probe_hooks(data, dim: int, kernels: bool, controller: bool = True):
+    """A CoherenceHook on Fig. 4's probe set (the first 1000 training
+    samples) that also keeps, at each probe, the ring's largest row norm
+    from before the observation (for the mu tolerance) and the reading."""
+    from repro_torch.core import CoherenceController
+    from repro_torch.engine import CoherenceHook
+    from repro_torch.models import mlp
+
+    class Probed(CoherenceHook):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.probes = []
+
+        def on_step(self, ctx):
+            probe = (ctx.step + 1) % self.every == 0
+            if probe:
+                hmax = self.monitor.history.norm(dim=1).max()
+            super().on_step(ctx)
+            if probe:
+                self.probes.append((float(hmax), dict(self.last)))
+
+    ctl = CoherenceController(**CONTROLLER) if controller else None
+    return Probed(mlp.loss_fn, (data.x_train[:PROBE_N], data.y_train[:PROBE_N]),
+                  dim=dim, window=WINDOW, every=PROBE_EVERY, controller=ctl,
+                  kernels=kernels)
+
+
+def mu_tolerance(hmax: float, reading: dict) -> float:
+    """How far two fp32 readings of mu = min_w <h_w, g> / <g, g> may part
+    when each sum is within COHERENCE_C * eps * sum|terms| of exact: per
+    reading C * eps * (max_w ||h_w|| / ||g|| + |mu|) (Cauchy-Schwarz bounds
+    sum|h g| by ||h|| ||g||), twice for two readings."""
+    import torch
+    eps = torch.finfo(torch.float32).eps
+    return 2 * COHERENCE_C * eps * (hmax / max(reading["grad_norm"], 1e-30)
+                                    + abs(reading["mu"]))
+
+
+def coherence_path(dev, params0, data, table, tmp: str, *, workers=WORKERS,
+                   batch=BATCH, steps=STEPS, timed_steps=TIMED_STEPS) -> dict:
+    """Phase 7: the gated simulate leg (Adam, kernels="on", the CoherenceHook
+    with the example's controller) with the hook's reduction on the kernel
+    and on the plain version, twice with the kernel; the checkpoint and
+    trace hooks on the first kernel run; the theorem1 stale-psum leg, on
+    vs off. Returns the runs."""
+    import numpy as np
+    import torch
+    from repro_torch import delays
+    from repro_torch import treemath as tm
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import (CheckpointHook, EngineConfig, Hook,
+                                    TraceRecorderHook, build_engine)
+    from repro_torch.models import mlp
+    from repro_torch.optim import paper_default
+
+    dim = tm.tree_size(params0)
+    xt = torch.as_tensor(data.x_test, device=dev)
+    yt = torch.as_tensor(data.y_test, device=dev)
+    trace_path = os.path.join(tmp, "trace.jsonl")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+
+    class RestoreCheck(Hook):
+        """After the run: the last snapshot restores the eval params bit
+        for bit."""
+
+        def on_end(self, ctx, result):
+            step = ckpt.latest_step(ckpt_dir)
+            params = ctx.engine.params(ctx.state)
+            tree, got, _ = ckpt.restore(ckpt.step_path(ckpt_dir, step),
+                                        like=params)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(tree), tm.tree_leaves(params)))
+            print(f"checkpoint: steps {ckpt.steps_in(ckpt_dir)}, step {got} "
+                  f"restores the eval params bit for bit: {same}")
+            if not same or got != ctx.step + 1:
+                raise AssertionError("checkpoint does not restore the eval "
+                                     "params")
+
+    def gated(kernels: bool, extra=()):
+        cfg = EngineConfig(mode="simulate", num_workers=workers, s=STALENESS,
+                           delay=delays.Schedule(table), kernels="on")
+        engine = build_engine(mlp.loss_fn, paper_default("adam"), cfg,
+                              device=dev)
+        hook = probe_hooks(data, dim, kernels)
+        batches = iter(ShardedBatches([data.x_train, data.y_train], workers,
+                                      batch, seed=0))
+        run = drive(engine, params0, batches, xt, yt, dev, steps=steps,
+                    timed_steps=0, hooks=[hook, *extra])
+        run["probes"] = hook.probes
+        return run
+
+    runs = {}
+    runs["gated", "on"] = gated(True, extra=[
+        CheckpointHook(ckpt_dir, every=CKPT_EVERY, keep_last=2),
+        RestoreCheck(), TraceRecorderHook(trace_path)])
+    runs["gated", "off"] = gated(False)
+    runs["gated", "on2"] = gated(True)
+    n_probes = steps // PROBE_EVERY
+    check_launches("gated on", runs["gated", "on"],
+                   {**expect(steps, stale_accum=1, fused_adam=1),
+                    "coherence_dots": n_probes})
+    check_launches("gated off", runs["gated", "off"],
+                   expect(steps, stale_accum=1, fused_adam=1))
+    on, off, again = (runs["gated", k]["probes"] for k in ("on", "off", "on2"))
+    report = []
+    for (hmax, a), (_, b), (_, c) in zip(on, off, again):
+        tol = mu_tolerance(hmax, b)
+        near = min(abs(b["mu"] - CONTROLLER["lo"]),
+                   abs(b["mu"] - CONTROLLER["hi"])) <= tol
+        report.append({"mu_on": a["mu"], "mu_off": b["mu"],
+                       "diff": abs(a["mu"] - b["mu"]), "tol": tol,
+                       "allowed_on": a["allowed_s"],
+                       "allowed_off": b["allowed_s"], "near_threshold": near})
+        if abs(a["mu"] - b["mu"]) > tol:
+            raise AssertionError(f"gated leg: mu on {a['mu']!r} vs off "
+                                 f"{b['mu']!r} beyond {tol!r}")
+        if a["allowed_s"] != b["allowed_s"] and not near:
+            raise AssertionError("gated leg: allowed_s differs at a probe "
+                                 "whose mu is not near a threshold")
+        if a["mu"] != c["mu"]:
+            raise AssertionError("gated leg: two kernel runs give different "
+                                 "mu traces")
+    print(f"gated leg, {len(on)} probes (kernel vs plain reduction): "
+          f"{json.dumps(report)}")
+    flips = [r for r in report if r["allowed_on"] != r["allowed_off"]]
+    print(f"gated leg: allowed_s {[r['allowed_on'] for r in report]} "
+          f"(kernel) vs {[r['allowed_off'] for r in report]} (plain); "
+          f"{len(flips)} probes differ, all within tolerance of a threshold; "
+          f"two kernel runs give identical mu traces")
+    compare_runs("gated", runs["gated", "on"], runs["gated", "off"],
+                 TOL_RING["adam"])
+
+    # The recorded trace drives a few ssp steps.
+    durations, header = delays.read_trace(trace_path)
+    spec = delays.Trace(trace_path, bound=STALENESS)
+    engine = build_engine(mlp.loss_fn, paper_default("adam"),
+                          EngineConfig(mode="ssp", num_workers=workers,
+                                       s=STALENESS, delay=spec, kernels="on"),
+                          device=dev)
+    state = engine.init(0, params=tm.tree_map(torch.clone, params0))
+    batches = ShardedBatches([data.x_train, data.y_train], workers, batch,
+                             seed=0).flat_iter()
+    losses = []
+    for _ in range(TRACE_STEPS):
+        state, m = engine.step(state, next(batches))
+        losses.append(float(m["loss"]))
+    table_t = np.asarray(engine.meta["ssp_schedule"])
+    print(f"trace: {durations.shape} recorded ({header}); replayed as "
+          f"Trace(bound={STALENESS}) in ssp: schedule {table_t.shape} in "
+          f"[{table_t.min()}, {table_t.max()}], losses {losses}")
+    if not (np.isfinite(losses).all() and table_t.max() <= STALENESS):
+        raise AssertionError("trace replay: non-finite loss or bound broken")
+
+    # Theorem-1 leg: stale-psum Adam, live mu and L from the hook.
+    for kernels in ("on", "off"):
+        cfg = EngineConfig(mode="stale-psum", num_workers=workers,
+                           s=STALENESS, delay=delays.Schedule(table),
+                           lr_scale="theorem1", kernels=kernels,
+                           megakernel="auto" if kernels == "on" else "off")
+        engine = build_engine(mlp.loss_fn, paper_default("adam"), cfg,
+                              device=dev)
+        hook = probe_hooks(data, dim, kernels == "on", controller=False)
+        batches = ShardedBatches([data.x_train, data.y_train], workers,
+                                 batch, seed=0).flat_iter()
+        runs["theorem1", kernels] = drive(
+            engine, params0, batches, xt, yt, dev, steps=steps,
+            timed_steps=timed_steps, hooks=[hook])
+        runs["theorem1", kernels]["probes"] = hook.probes
+    t_on, t_off = runs["theorem1", "on"], runs["theorem1", "off"]
+    compare_runs("theorem1 stale-psum adam", t_on, t_off, TOL_RING["adam"])
+    check_launches("theorem1 on", t_on,
+                   {**expect(steps, fused_update_plain=1),
+                    "coherence_dots": n_probes})
+    check_launches("theorem1 off", t_off, expect(steps))
+    print("theorem1 leg (mu, lip) per probe, on / off: "
+          f"{[(a['mu'], a['lip']) for _, a in t_on['probes']]} / "
+          f"{[(b['mu'], b['lip']) for _, b in t_off['probes']]}; "
+          f"comp on {t_on['comp']['mu']!r} {t_on['comp']['lip']!r}")
+    return runs
+
+
+def hook_cost(dev, params0, data, table, *, workers=WORKERS, batch=BATCH,
+              steps=STEPS) -> dict:
+    """ms per step of the gated leg with its CoherenceHook (kernel, the
+    example's controller) against the same leg without hooks, run in turns
+    (without, with, with, without) on the host clock between syncs; and the
+    split of one probe: probe gradient, reduction, host read of mu."""
+    import torch
+    from repro_torch import delays
+    from repro_torch import treemath as tm
+    from repro_torch.core import CoherenceController
+    from repro_torch.core import coherence as coh
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import (CoherenceHook, EngineConfig, Trainer,
+                                    build_engine)
+    from repro_torch.models import mlp
+    from repro_torch.optim import paper_default
+
+    cfg = EngineConfig(mode="simulate", num_workers=workers, s=STALENESS,
+                       delay=delays.Schedule(table), kernels="on")
+    engine = build_engine(mlp.loss_fn, paper_default("adam"), cfg, device=dev)
+    batches = iter(ShardedBatches([data.x_train, data.y_train], workers, batch,
+                                  seed=0))
+    state = engine.init(0, params=tm.tree_map(torch.clone, params0))
+    hook = CoherenceHook(mlp.loss_fn, (data.x_train[:PROBE_N],
+                                       data.y_train[:PROBE_N]),
+                         dim=tm.tree_size(params0), window=WINDOW,
+                         every=PROBE_EVERY,
+                         controller=CoherenceController(**CONTROLLER),
+                         kernels=True)
+    state = Trainer(engine, hooks=[hook]).run(batches, 10, state=state).state
+
+    with_ms, without_ms = [], []
+    for use in (False, True, True, False):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state = Trainer(engine, hooks=[hook] if use else []).run(
+            batches, steps, state=state).state
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        (with_ms if use else without_ms).append(ms)
+
+    # One probe, part by part, each between syncs (mean of 20).
+    params = engine.params(state)
+    probe = hook.probe_batch
+    parts = {"probe_gradient": [], "reduction": [], "host_read": []}
+    for _ in range(20):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        g = coh.probe_gradient(mlp.loss_fn, params, probe)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        hook.monitor, out = coh.observe(hook.monitor, g, kernels=True)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        torch.stack([out["mu"], out["grad_norm"]]).tolist()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    split = {key: sum(v) / len(v) for key, v in parts.items()}
+
+    # Device time of one probe by kernel, from the profiler.
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g = coh.probe_gradient(mlp.loss_fn, params, probe)
+        hook.monitor, out = coh.observe(hook.monitor, g, kernels=True)
+        torch.stack([out["mu"], out["grad_norm"]]).tolist()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    out = {"with_hook_ms_per_step": sum(with_ms) / 2,
+           "without_hooks_ms_per_step": sum(without_ms) / 2,
+           "runs_ms_per_step": {"without": without_ms, "with": with_ms},
+           "probe_split_ms": split, "probe_device_busy_ms": busy,
+           "probe_top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                         for e in top]}
+    print(f"hook cost (simulate Adam, {steps} steps per run, probe every "
+          f"{PROBE_EVERY}): {json.dumps(out)}")
+    return out
+
+
+def coherence_timings(dev, width: int) -> dict:
+    """coherence_dots at W = 8 and 16 (width D_pad): kernel, plain version
+    and torch.mv (the dots alone) beside the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coherence import coherence_dots
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    # Sets past the 50 MB L2: 12 MB per call at W = 8, 23 MB at W = 16.
+    for w, k in ((8, 6), (16, 3)):
+        sets = [(torch.randn((w, width), generator=gen, device=dev),
+                 torch.randn((width,), generator=gen, device=dev))
+                for _ in range(k)]
+        out[f"coherence_dots.W{w}"] = {
+            "ms": time_ms(coherence_dots, sets),
+            "plain_ms": time_ms(ref.coherence_dots, sets),
+            "library_ms": (None, None),
+            "mv_ms": time_ms(torch.mv, sets),
+            "bound": bound_ms(((w + 1) * width + 2 * w + 1) * 4,
+                              4 * w * width + 2 * width)}
+    rows = summarize(out, width)
+    for name, row in rows.items():
+        print(f"timing {name}: torch.mv (the dots alone) {row['mv_ms']!r} ms")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -857,7 +1249,7 @@ def main() -> int:
     build.library()
     print(f"build: {path.name} in {secs:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}")
 
     # The packed width at the main path's shapes: D = 335,114 padded to
@@ -884,17 +1276,31 @@ def main() -> int:
     table[0, 0] = STALENESS - 1
     speeds = np.random.default_rng(0).lognormal(
         0.0, 0.5, (64, WORKERS)).astype(np.float32)
-    ring = ring_path(dev, params0, synthetic.teacher_classification(seed=0),
-                     table, speeds)
+    data = synthetic.teacher_classification(seed=0)
+    ring = ring_path(dev, params0, data, table, speeds)
 
     timings = kernel_timings(dev, n)
     timings.update(ring_kernel_timings(dev, width))
 
+    # The coherence path: the same DNN, data, seeds and delay table.
+    coh_err = coherence_kernel_checks(dev, width)
+    with tempfile.TemporaryDirectory() as tmp:
+        coh = coherence_path(dev, params0, data, table, tmp)
+    cost = hook_cost(dev, params0, data, table)
+    timings.update(coherence_timings(dev, width))
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
+    kernels.append(coherence_entry(timings, coh, coh_err))
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
                        for (name, k), run in ring.items()})
+    steps_line.update({f"{name} {k}": run["ms_per_step"]
+                       for (name, k), run in coh.items()
+                       if name == "theorem1"})
+    steps_line.update({"gated with hook": cost["with_hook_ms_per_step"],
+                       "gated without hooks":
+                           cost["without_hooks_ms_per_step"]})
     print(json.dumps({"engine_ms_per_step": steps_line}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,0 +1,154 @@
+"""Pytree checkpointing on .npz (port of ``repro/checkpoint/checkpoint.py``).
+
+The format is the JAX package's, so each package restores the other's
+snapshots: leaves are stored as ``leaf_<i>`` in the JAX leaf order (sorted
+dict keys) and named in the metadata with ``jax.tree_util.keystr``'s
+spelling (``['layers'][0]['w']``); the metadata (step, names, shardings,
+extra) rides in a JSON side file. The port runs on one device, so
+``shardings`` is written as a list of ``None``.
+
+Writes are ATOMIC: both files land via write-to-temp + ``os.replace``, and
+the meta file is renamed LAST: it is the commit marker. A reader polling
+``latest_step`` only ever sees fully written snapshots. ``prune`` removes
+the meta first (un-announcing the step) and the .npz second, the exact
+reverse, so the only race left is a reader holding a step that ``prune``
+deletes under it; readers handle that as ``FileNotFoundError``.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import treemath as tm
+
+Pytree = Any
+
+
+def _leaf_names(tree: Pytree):
+    """(names, leaves) in the JAX leaf order, each name spelled as
+    ``jax.tree_util.keystr`` spells its path."""
+    names: List[str] = []
+    leaves: list = []
+
+    def walk(node, path: str) -> None:
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(child, f"{path}[{i}]")
+        else:
+            names.append(path)
+            leaves.append(node)
+
+    walk(tree, "")
+    return names, leaves
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _meta_path(path: str) -> str:
+    base = path[:-4] if path.endswith(".npz") else path
+    return base + ".meta.json"
+
+
+def save(path: str, tree: Pytree, step: int = 0,
+         extra: Optional[dict] = None) -> None:
+    names, leaves = _leaf_names(tree)
+    arrays = {f"leaf_{i}": _to_numpy(l) for i, l in enumerate(leaves)}
+    npz = _npz_path(path)
+    os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
+    # np.savez on a file OBJECT (a string would get ".npz" appended to the
+    # temp name); temp files live in the target dir so os.replace never
+    # crosses a filesystem boundary.
+    tmp = npz + f".tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, npz)
+    meta = {"step": int(step), "names": names,
+            "shardings": [None] * len(leaves), "extra": extra or {}}
+    mtmp = _meta_path(path) + f".tmp-{os.getpid()}"
+    with open(mtmp, "w") as f:
+        json.dump(meta, f, indent=1)
+    os.replace(mtmp, _meta_path(path))  # commit marker lands last
+
+
+def restore(path: str, like: Pytree, shardings: Optional[Pytree] = None):
+    """Restore into the structure of ``like``. Returns (tree, step, extra).
+    Each leaf comes back as a tensor on the device of ``like``'s matching
+    leaf (the CPU where that leaf is not a tensor), with the saved dtype and
+    values bit for bit."""
+    if shardings is not None:
+        raise NotImplementedError(
+            "restore(shardings=) is not ported yet (ROADMAP A.12, "
+            "multi-GPU placement)")
+    with open(_meta_path(path)) as f:
+        meta = json.load(f)
+    names, like_leaves = _leaf_names(like)
+    if names != meta["names"]:
+        raise ValueError(
+            "checkpoint/model structure mismatch:\n"
+            f" ckpt: {meta['names'][:5]}...\n tree: {names[:5]}...")
+    with np.load(_npz_path(path)) as npz:
+        arrays = [npz[f"leaf_{i}"] for i in range(len(names))]
+    leaves = [torch.from_numpy(a).to(l.device if torch.is_tensor(l) else "cpu")
+              for a, l in zip(arrays, like_leaves)]
+    return (tm.tree_unflatten(tm.tree_structure(like), leaves), meta["step"],
+            meta["extra"])
+
+
+def steps_in(ckpt_dir: str) -> List[int]:
+    """COMMITTED snapshot steps in ``ckpt_dir``, ascending. A step counts
+    only when both its .npz and its .meta.json exist (the meta file is
+    written last), so an in-flight publish is invisible."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    steps = []
+    for f in os.listdir(ckpt_dir):
+        if f.startswith("step_") and f.endswith(".npz"):
+            stem = f[len("step_"):-len(".npz")]
+            if not stem.isdigit():
+                continue
+            if os.path.exists(_meta_path(os.path.join(ckpt_dir, f))):
+                steps.append(int(stem))
+    return sorted(steps)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = steps_in(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def prune(ckpt_dir: str, keep_last: int) -> List[int]:
+    """Delete all but the newest ``keep_last`` committed snapshots. Removes
+    each victim's meta FIRST and its .npz second, the reverse of the
+    publish order. Returns the pruned steps."""
+    if keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+    victims = steps_in(ckpt_dir)[:-keep_last]
+    for step in victims:
+        path = step_path(ckpt_dir, step)
+        for p in (_meta_path(path), _npz_path(path)):
+            try:
+                os.remove(p)
+            except FileNotFoundError:  # concurrent pruner: already gone
+                pass
+    return victims
+
+
+def step_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step}.npz")

@@ -23,6 +23,8 @@ def params_from_jax(tree: Any, device=None) -> Any:
     dev = device_lib.resolve(device)
 
     def conv(node):
+        if node is None:          # an empty subtree, as in JAX
+            return None
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

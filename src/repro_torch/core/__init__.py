@@ -1,7 +1,7 @@
 """Core: the paper's staleness simulation model (``staleness``), the
 gradient-ring data-parallel steps (``stale_sync``), SSP clock semantics
-(``ssp``) and the Theorem-1 stepsize (``coherence``). The coherence monitor
-and controller follow in ROADMAP A.7."""
+(``ssp``) and coherence theory (``coherence``: the Definition-1 monitor,
+the Theorem-1 stepsize and the coherence-gated controller)."""
 from repro_torch.core.staleness import (
     SimState,
     StalenessConfig,
@@ -10,7 +10,14 @@ from repro_torch.core.staleness import (
     make_sim_step,
     sequential_reference,
 )
-from repro_torch.core.coherence import theorem1_stepsize
+from repro_torch.core.coherence import (
+    CoherenceController,
+    CoherenceState,
+    init_coherence,
+    observe,
+    probe_gradient,
+    theorem1_stepsize,
+)
 from repro_torch.core.stale_sync import (
     StaleSyncConfig,
     StaleTrainState,

@@ -11,6 +11,10 @@
                                        lr_scale="inverse"))
     result = Trainer(engine).run(batches, steps=1000, params=params,
                                  eval_fn=acc, eval_every=25, target=0.85)
+
+Side concerns hang off the hook surface: ``CoherenceHook`` (coherence
+monitor, gated staleness, live Theorem-1 signals), ``CheckpointHook``,
+``TraceRecorderHook`` and the ``StdoutSink``/``JSONLinesSink`` log sinks.
 """
 from repro_torch.engine.api import (
     MODES,
@@ -18,5 +22,12 @@ from repro_torch.engine.api import (
     EngineConfig,
     EngineState,
     build_engine,
+)
+from repro_torch.engine.hooks import (
+    CheckpointHook,
+    CoherenceHook,
+    JSONLinesSink,
+    StdoutSink,
+    TraceRecorderHook,
 )
 from repro_torch.engine.trainer import Hook, StepContext, Trainer, TrainResult

@@ -32,9 +32,13 @@ megakernel tail (``fused_update`` in the ring modes and in sync with a
 compensation knob, ``fused_adam`` in simulate and in plain dense sync)
 unless ``megakernel="off"``.
 
+Delays: any ``DelaySpec`` in the sampled modes (samplers, ``Schedule``,
+``MultiPod``; a ``Trace`` with an explicit ``bound``); ``ssp`` takes a
+``Trace`` (measured wall-times), a ``Schedule`` or ``delay=None`` (the
+lognormal speed model).
+
 Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A.12) and ``server_side`` (A.2). The Trace and MultiPod delay specs (A.8)
-do not exist in the port yet.
+A.12) and ``server_side`` (A.2).
 """
 from __future__ import annotations
 
@@ -50,7 +54,9 @@ from repro_torch import treemath as tm
 from repro_torch.core import ssp as ssp_lib
 from repro_torch.core import stale_sync, staleness
 from repro_torch.delays.models import DelaySpec, UniformDelay, as_spec
+from repro_torch.delays.multipod import MultiPod
 from repro_torch.delays.schedule import Schedule
+from repro_torch.delays.trace import Trace
 from repro_torch.kernels import dispatch
 from repro_torch.optim import optimizers as optlib
 
@@ -112,12 +118,18 @@ class EngineConfig:
                 raise ValueError(
                     "sync mode is delay-free: only a bound-0 spec "
                     "(delays.Zero()) is accepted")
-            if self.mode == "ssp" and not isinstance(self.delay, Schedule):
+            if self.mode == "ssp" and not isinstance(self.delay,
+                                                     (Schedule, Trace)):
                 raise ValueError(
                     "ssp derives its delays from a clock schedule: pass "
+                    "delays.Trace(...) (measured wall-times), "
                     "delays.Schedule(...) (an explicit table) or delay=None "
-                    "for the lognormal speed model (Trace replays are "
-                    "ROADMAP A.8)")
+                    "for the lognormal speed model")
+            if (isinstance(self.delay, Trace) and self.delay.bound is None
+                    and self.mode != "ssp"):
+                raise ValueError(
+                    "Trace needs an explicit bound= outside mode='ssp' "
+                    "(it sizes the delivery ring)")
 
 
 @dataclasses.dataclass
@@ -391,10 +403,16 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     mega = resolve_mega(kernel_delivery, "tree delivery")
     if mode == "ssp":
         if cfg.delay is not None:
-            # An explicit Schedule replaces the sampled speed model
-            # (type-checked in EngineConfig).
+            # A Trace or Schedule replaces the sampled speed model
+            # (type-checked in EngineConfig): measured wall-times run
+            # through the same clock discipline.
             spec = cfg.delay
-            spec.realize(num_workers=cfg.num_workers)  # width check
+            if isinstance(spec, Trace):
+                spec = spec.schedule(
+                    num_workers=cfg.num_workers,
+                    bound=spec.bound if spec.bound is not None else cfg.s)
+            else:
+                spec.realize(num_workers=cfg.num_workers)  # width check
             if spec.bound > cfg.s:
                 raise ValueError(
                     f"delay schedule bound {spec.bound} exceeds the ssp "
@@ -419,6 +437,13 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         max_bound = cfg.s
     else:
         spec = cfg.delay
+        if isinstance(spec, Trace):
+            # bound is set here (EngineConfig checks it).
+            spec = spec.schedule(num_workers=cfg.num_workers)
+        if isinstance(spec, MultiPod) and not cfg.per_worker_delays:
+            raise ValueError(
+                "MultiPod delays are per-worker; the Theorem-1 aggregate "
+                "form (per_worker_delays=False) cannot express topology")
         table = None
         if isinstance(spec, Schedule) and cfg.per_worker_delays:
             spec.realize(num_workers=cfg.num_workers)  # width check

@@ -43,6 +43,10 @@ SIGNATURES = {
         + [ctypes.c_float] * 8 + [_P], ctypes.c_int),
     "repro_sparsify_f32": (
         [_P] * 4 + [ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
+    "repro_coherence_workspace_f32": (
+        [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong),
+    "repro_coherence_f32": (
+        [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
 }
 
 

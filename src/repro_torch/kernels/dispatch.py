@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import coherence as _co
 from repro_torch.kernels import fused_adam as _fa
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
@@ -125,3 +126,12 @@ def fused_update(p, m, v, stale, weights, lr, b1=0.9, b2=0.999, eps=1e-8,
                             b2, eps, step, scale.float().reshape(1),
                             acc=dense(acc), thr=dense(thr),
                             fresh=dense(fresh), mom=dense(mom))
+
+
+def coherence_dots(history, g):
+    """history [W, D], g [D] -> (dots [W], hist_sq [W], g_sq []): the
+    Definition-1 reduction in one pass. No block-size contract: the kernel
+    masks its own ragged tail."""
+    if _backend("coherence_dots", history) == "ref":
+        return ref.coherence_dots(history, g)
+    return _co.coherence_dots(history, g)

@@ -30,6 +30,16 @@ def sparsify_mask(acc: torch.Tensor, thr):
     return sent.to(acc.dtype), (a32 - sent).to(acc.dtype)
 
 
+def coherence_dots(history: torch.Tensor, g: torch.Tensor):
+    """history [W, D], g [D] -> (dots [W], hist_sq [W], g_sq []). fp32."""
+    h32 = history.float()
+    g32 = g.float()
+    dots = h32 @ g32
+    hist_sq = torch.sum(h32 * h32, dim=-1)
+    g_sq = torch.sum(g32 * g32)
+    return dots, hist_sq, g_sq
+
+
 def adam_scalars(lr, b1, b2, eps, step):
     """The fp32 scalars of one Adam step, as ``repro/kernels/fused_adam.py``
     stacks them: ``(lr, b1, b2, eps, 1-b1, 1-b2, 1-b1^t, 1-b2^t)``. Each is

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import coherence as tcoh
+from repro_torch.kernels import coherence as tco
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import fused_update as tfu
@@ -24,6 +26,12 @@ from repro_torch.kernels import stale_accum as tsa
 # each; the plain version divides by a scalar as a multiply by its
 # reciprocal, so elements may differ by about one ulp.
 TOL_ADAM = dict(rtol=1e-5, atol=1e-7)
+# coherence_dots, normwise against fp64: |x - x64| <= C * eps * sum_i |t_i|
+# for the terms t_i of each sum. The kernel's longest chain of additions
+# (per-thread terms, the warp shuffle tree, 8 warps, the stage-2 lane sums
+# and their tree) is under 64 roundings at these shapes, so C = 64 is its
+# worst-case bound; the plain version's sums are held to the same bound.
+COHERENCE_C = 64
 
 
 @pytest.fixture
@@ -172,3 +180,66 @@ def test_sparsify_kernel_matches_plain(cuda_device, shape):
     assert torch.equal(sent, want[0]) and torch.equal(resid, want[1])
     assert torch.equal(sent + resid, acc)
     assert dispatch.report()["sparsify_topk"] == "cuda"
+
+
+def coherence_excess(out, h, g):
+    """Largest error of (dots, hist_sq, g_sq) against fp64, in units of
+    eps * sum |terms| (the kernel passes when this is <= COHERENCE_C)."""
+    h64, g64 = h.double(), g.double()
+    want = (h64 @ g64, (h64 * h64).sum(-1), (g64 * g64).sum())
+    scale = (h64.abs() @ g64.abs(), want[1], want[2])
+    eps = torch.finfo(torch.float32).eps
+    return max(float(((a.double() - w).abs() / (eps * sc).clamp(
+        min=1e-300)).max()) for a, w, sc in zip(out, want, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048 * 4, 335_872, 1_003, 1])
+@pytest.mark.parametrize("w", [1, 3, 8, 16, 17, 40])
+def test_coherence_kernel_matches_fp64_and_replays(cuda_device, w, d):
+    rng = np.random.default_rng(w)
+    h = torch.from_numpy(rng.standard_normal((w, d)).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(
+        cuda_device)
+    before = tco.coherence_dots.launches
+    got = tco.coherence_dots(h, g)
+    again = tco.coherence_dots(h, g)
+    torch.cuda.synchronize()
+    assert tco.coherence_dots.launches == before + 2
+    assert [tuple(x.shape) for x in got] == [(w,), (w,), ()]
+    assert coherence_excess(got, h, g) <= COHERENCE_C
+    assert coherence_excess(ref.coherence_dots(h, g), h, g) <= COHERENCE_C
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_coherence_dispatch_and_operand_checks(cuda_device):
+    dispatch.reset_report()
+    h = torch.randn(4, 4096, device=cuda_device)
+    g = torch.randn(4096, device=cuda_device)
+    before = tco.coherence_dots.launches
+    dispatch.coherence_dots(h, g)
+    assert tco.coherence_dots.launches == before + 1
+    assert dispatch.report()["coherence_dots"] == "cuda"
+    for bad_h, bad_g in ((h.double(), g), (h, g[:-1]), (h[:, ::2], g[::2]),
+                         (h, g.cpu()), (h[:0], g)):
+        with pytest.raises(ValueError):
+            tco.coherence_dots(bad_h, bad_g)
+
+
+@pytest.mark.cuda
+def test_observe_with_the_kernel_matches_plain_on_the_card(cuda_device):
+    """observe(kernels=True) on a block-padded ring against the plain
+    three-op reduction, over a window filling and wrapping."""
+    rng = np.random.default_rng(0)
+    gs = rng.standard_normal((11, 3000)).astype(np.float32)
+    st_k = tcoh.init_coherence(4096, 4, device=cuda_device)
+    st_p = tcoh.init_coherence(3000, 4, device=cuda_device)
+    for g in gs:
+        g = torch.from_numpy(g).to(cuda_device)
+        st_k, a = tcoh.observe(st_k, g, kernels=True)
+        st_p, b = tcoh.observe(st_p, g, kernels=False)
+        for key in ("mu", "cos_by_lag", "grad_norm"):
+            torch.testing.assert_close(a[key], b[key], rtol=1e-5, atol=1e-6)

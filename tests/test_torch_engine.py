@@ -212,7 +212,8 @@ def test_config_validation_and_mesh():
             EngineConfig(**bad)
     assert isinstance(EngineConfig(mode="simulate", delay=[[0, 1]]).delay,
                       tdel.Schedule)
-    # As in the reference: sync is delay-free, ssp takes a Schedule only.
+    # As in the reference: sync is delay-free, ssp takes a Schedule or a
+    # Trace.
     with pytest.raises(ValueError, match="delay-free"):
         EngineConfig(mode="sync", delay=[[0, 1]])
     assert EngineConfig(mode="sync", delay=tdel.Zero()).delay == tdel.Zero()
@@ -252,7 +253,10 @@ def test_importing_the_port_loads_no_jax():
             "'repro_torch.compensate.lr', 'repro_torch.compensate.sparsify', "
             "'repro_torch.compensate.__main__', "
             "'repro_torch.kernels.fused_update', "
-            "'repro_torch.kernels.sparsify'):\n"
+            "'repro_torch.kernels.sparsify', 'repro_torch.kernels.coherence', "
+            "'repro_torch.engine.hooks', 'repro_torch.checkpoint.checkpoint', "
+            "'repro_torch.delays.trace', 'repro_torch.delays.multipod', "
+            "'repro_torch.delays.parse', 'repro_torch.delays.__main__'):\n"
             "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

@@ -16,6 +16,7 @@ from repro.kernels import fused_update as jfu
 from repro.kernels import sparsify as jsp
 from repro.kernels import stale_accum as jsa
 from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels import coherence as tco
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import sparsify as tsp
@@ -178,8 +179,12 @@ def test_dispatch_routes_cpu_tensors_to_plain_version():
                     ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 2, 0.5,
                                      **ef)):
         assert torch.equal(a, b)
+    h, g = x["stale"], x["p"]
+    for a, b in zip(dispatch.coherence_dots(h, g), ref.coherence_dots(h, g)):
+        assert torch.equal(a, b)
     rep = dispatch.report()
-    for op in ("stale_accum", "fused_adam", "sparsify_topk", "fused_update"):
+    for op in ("stale_accum", "fused_adam", "sparsify_topk", "fused_update",
+               "coherence_dots"):
         assert rep[op] == "ref (cpu tensor)"
     assert any("stale_accum" in line for line in dispatch.report_lines())
     assert dispatch.fuses(p) is False
@@ -194,7 +199,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     raise before anything is built or launched."""
     count = lambda: (tsa.stale_accum.launches, tfa.fused_adam.launches,
                      tsp.sparsify_topk.launches,
-                     sum(tfu.fused_update.by_variant.values()))
+                     sum(tfu.fused_update.by_variant.values()),
+                     tco.coherence_dots.launches)
     before = count()
     p, buf, w = map(torch.from_numpy, _accum_inputs(1, 64))
     with pytest.raises(ValueError, match="CUDA"):
@@ -217,6 +223,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="stale"):
         tfu.fused_update(x["p"], x["m"], x["v"], None, x["weights"],
                          1e-3, 0.9, 0.999, 1e-8, 1, torch.ones(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        tco.coherence_dots(x["stale"], x["p"])
     assert count() == before
     assert tfu.variant() == "plain"
     assert tfu.variant(acc=x["acc"]) == "ef"
@@ -228,10 +236,12 @@ def test_build_declares_every_c_entry_point():
     the build targets sm_90a."""
     srcs = build.sources()
     assert {s.name for s in srcs} == {"stale_accum.cu", "fused_adam.cu",
-                                      "fused_update.cu", "sparsify.cu"}
+                                      "fused_update.cu", "sparsify.cu",
+                                      "coherence.cu"}
     names = set()
     for src in srcs:
-        names |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+        names |= set(re.findall(r'extern "C" (?:int|long long) (\w+)\(',
+                                src.read_text()))
     assert names == set(build.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.parts[-2] == "build"
