@@ -37,7 +37,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``stale-psum`` Adam leg with ``lr_scale="theorem1"`` fed by the hook,
    kernels on vs off; the hook's cost per step and the split of one probe;
    ``coherence_dots``'s time beside its bound, its plain version and
-   ``torch.mv``.
+   ``torch.mv``;
+8. the serve path: ``paged_attention`` against its plain version on the
+   card at the head shapes of h2o-danube-1.8b (32/8/80), deepseek-7b
+   (32/32/128, a pool past 2^31 elements) and qwen3-14b (40/8/128), with 8
+   slots, 8- and 16-row pages, a ring that T does not divide, wrapped
+   rings, lazily allocated and empty slots, windows 0, 16 and 4096, the
+   last layer's columns, fp32 and bf16 operands, and two calls bitwise; its
+   time beside its bound, its plain version and
+   ``F.scaled_dot_product_attention`` over the gathered ring; then the
+   full-width h2o-danube-1.8b (24 layers, random weights from seed 0)
+   served through ``Server`` on the paged route (the kernel): 16 requests
+   over 8 slots, prompts of 128, up to 96 new tokens, bf16 compute over
+   fp32 params, with the launch count checked against 24 x decode steps and
+   the device-busy share of 5 decode steps under ``torch.profiler``; the
+   same stream at fp32 on the paged and the gather route (no kernel), whose
+   greedy tokens must agree up to the first near-tie; and the gather route
+   at bf16, timed for the record.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -282,6 +298,17 @@ def ring_kernel_checks(dev, d: int) -> dict:
 
 # -- phase 4: the simulate path --------------------------------------------
 
+def device_events(prof) -> list:
+    """The profile's device kernels (and device copies and sets), summed by
+    name. ``key_averages()`` also lists every host op with the device time
+    of the kernels it launched, so a sum over all its entries would count
+    each kernel twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def profile_steps(engine, state, batches, k: int) -> dict:
     """Device busy time per engine step and the top ops by device time,
     from ``torch.profiler`` over ``k`` steps."""
@@ -296,7 +323,7 @@ def profile_steps(engine, state, batches, k: int) -> dict:
             state, _ = engine.step(state, next(batches))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / k
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / k
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
@@ -311,9 +338,11 @@ def reset_counters() -> None:
     from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
-    for fn in (stale_accum, fused_adam, sparsify_topk, coherence_dots):
+    for fn in (stale_accum, fused_adam, sparsify_topk, coherence_dots,
+               paged_attention):
         fn.launches = 0
     fused_update.by_variant = dict.fromkeys(fused_update.by_variant, 0)
 
@@ -323,12 +352,14 @@ def counters() -> dict:
     from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
     out = {"stale_accum": stale_accum.launches,
            "fused_adam": fused_adam.launches,
            "sparsify_topk": sparsify_topk.launches,
-           "coherence_dots": coherence_dots.launches}
+           "coherence_dots": coherence_dots.launches,
+           "paged_attention": paged_attention.launches}
     for variant, n in fused_update.by_variant.items():
         out[f"fused_update.{variant}"] = n
     return out
@@ -1183,7 +1214,7 @@ def hook_cost(dev, params0, data, table, *, workers=WORKERS, batch=BATCH,
         hook.monitor, out = coh.observe(hook.monitor, g, kernels=True)
         torch.stack([out["mu"], out["grad_norm"]]).tolist()
         torch.cuda.synchronize(dev)
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
@@ -1223,6 +1254,436 @@ def coherence_timings(dev, width: int) -> dict:
     for name, row in rows.items():
         print(f"timing {name}: torch.mv (the dots alone) {row['mv_ms']!r} ms")
     return rows
+
+
+# -- phase 8: the serve path -------------------------------------------------
+
+# paged_attention, fp32 operands: the kernel's online softmax (per-chunk max
+# and rescale) and the plain version's one-shot softmax round differently;
+# outputs are convex combinations of O(1) values, so a few ulps of 1.
+TOL_PAGED = dict(rtol=1e-5, atol=1e-5)
+# bf16 q/k_new/v_new (the full-width cache dtype). The kernel reads the fp32
+# pages and computes in fp32, so against the plain version on the upcast
+# operands it differs by one bf16 rounding of the output (one ulp, at most
+# 2^-7 relative). Against the plain version on the bf16 operands (the JAX
+# oracle's numerics: gathered K/V and the probabilities rounded to bf16
+# first) outputs of size O(1) move by a few bf16 ulps: 0.05 absolute.
+TOL_PAGED_BF16_UP = dict(rtol=2 ** -7, atol=1e-5)
+TOL_PAGED_BF16 = dict(rtol=0.0, atol=0.05)
+# Routes agree (fp32 compute): greedy tokens of the paged route (kernel) and
+# the gather route (no kernel) are compared per request up to the first step
+# where either run's top-2 logit margin is below ROUTE_MARGIN. The routes'
+# logits differ by fp32 roundoff carried through 24 layers (~1e-5 on logits
+# of size O(1)); the margin sits 100x above that, and the smoke also fails
+# if the measured logit difference along the compared steps reaches it.
+ROUTE_MARGIN = 1e-3
+
+# The full-width serve cell: h2o-danube-1.8b (24 layers, d_model 2560, 32
+# heads over 8 kv heads, head_dim 80), random weights from seed 0.
+SERVE_ARCH = "h2o-danube-1.8b"
+SERVE = dict(slots=8, prompt_len=128, max_seq=512, page_tokens=8,
+             prefill_batch=8, temperature=0.0, seed=0)
+SERVE_REQUESTS = 16
+SERVE_NEW_TOKENS = (32, 96)         # max_new_tokens drawn in this range
+
+
+def paged_case(dev, *, heads, t, tokens, layers, s=8, seed=0):
+    """A random page pool at an arch's row width (``layers`` K blocks, then
+    V blocks, then slot_pos) with its page table and positions: slot 0
+    lazily allocated (its later page slots on the null page), slot S-1
+    empty (all null, position 0), the others at random positions up to
+    three ring lengths (wrapped rings). Returns (pool dict, layout kw)."""
+    import numpy as np
+    import torch
+    h, hkv, hd = heads
+    rng = np.random.default_rng(seed)
+    kvsz = hkv * hd
+    pps = -(-tokens // t)
+    n_pages = s * pps
+    width = 2 * layers * kvsz + layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pages = torch.randn((n_pages + 1, t, width), generator=gen, device=dev)
+    tables = rng.permutation(n_pages).reshape(s, pps).astype(np.int32)
+    tables[0, pps // 2:] = n_pages
+    tables[-1] = n_pages
+    pos = rng.integers(0, 3 * tokens, s)
+    pos[0], pos[-1] = (pps // 2) * t - 1, 0
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    pool = dict(q=rnd(s, h, hd), k_new=rnd(s, hkv, hd), v_new=rnd(s, hkv, hd),
+                pages=pages, tables=torch.from_numpy(tables).to(dev),
+                pos=torch.from_numpy(pos.astype(np.int32)).to(dev))
+    kw = dict(k_off=0, v_off=layers * kvsz, kv_heads=hkv, head_dim=hd,
+              tokens=tokens, page_tokens=t)
+    return pool, kw
+
+
+def _paged_args(pool, dtype=None):
+    ops = [pool[k] for k in ("q", "k_new", "v_new")]
+    if dtype is not None:
+        ops = [x.to(dtype) for x in ops]
+    return ops + [pool["pages"], pool["tables"], pool["pos"]]
+
+
+# (name, (H, Hkv, hd), T, tokens, layers, layer, windows). danube is the
+# main path's shape (its own window 4096 exceeds the 512-row ring: full
+# causal there); deepseek-7b's pool passes 2^31 elements (1,105 pages x 8
+# rows x 245,790 floats) and its T does not divide its 1,100-row ring.
+PAGED_GRID = (
+    ("h2o-danube-1.8b", (32, 8, 80), 8, 512, 24, 23, (4096, 16, 0)),
+    ("h2o-danube-1.8b T16", (32, 8, 80), 16, 512, 24, 5, (4096, 16)),
+    ("deepseek-7b", (32, 32, 128), 8, 1100, 30, 29, (0, 16)),
+    ("qwen3-14b", (40, 8, 128), 16, 512, 40, 1, (16, 4096, 0)),
+)
+
+
+def paged_kernel_checks(dev) -> dict:
+    """paged_attention vs its plain version over PAGED_GRID, fp32 and bf16
+    operands, and two calls bitwise. Returns the max abs errors at the main
+    path's shape (danube, T = 8, fp32 and bf16)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    errs = {}
+    for i, (name, heads, t, tokens, layers, layer, windows) in enumerate(
+            PAGED_GRID):
+        pool, kw = paged_case(dev, heads=heads, t=t, tokens=tokens,
+                              layers=layers, seed=10 + i)
+        for window in windows:
+            args = _paged_args(pool)
+            got = paged_attention(*args, layer, window=window, **kw)
+            want = ref.paged_attention(*args, layer, window=window, **kw)
+            e32 = check_close(f"paged_attention {name} w={window}", got,
+                              want, **TOL_PAGED)
+            again = paged_attention(*args, layer, window=window, **kw)
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: two calls on "
+                                     "the same inputs differ")
+            b16 = _paged_args(pool, torch.bfloat16)
+            got16 = paged_attention(*b16, layer, window=window, **kw)
+            up = [x.float() for x in b16[:3]] + b16[3:]
+            e_up = check_close(
+                f"paged_attention {name} w={window} bf16 vs upcast",
+                got16.float(), ref.paged_attention(*up, layer, window=window,
+                                                   **kw), **TOL_PAGED_BF16_UP)
+            e16 = check_close(
+                f"paged_attention {name} w={window} bf16",
+                got16.float(), ref.paged_attention(
+                    *b16, layer, window=window, **kw).float(),
+                **TOL_PAGED_BF16)
+            print(f"paged_attention {name} T={t} tokens={tokens} "
+                  f"layer={layer} window={window}: fp32 max_abs_err={e32!r} "
+                  f"(tol {TOL_PAGED}); bf16 vs upcast plain {e_up!r} (tol "
+                  f"{TOL_PAGED_BF16_UP}), vs bf16 plain {e16!r} (tol "
+                  f"{TOL_PAGED_BF16}); bitwise replay ok")
+            if i == 0:
+                errs["fp32"] = max(errs.get("fp32", 0.0), e32)
+                errs["bf16"] = max(errs.get("bf16", 0.0), e16)
+        del pool
+    torch.cuda.synchronize(dev)
+    return errs
+
+
+def paged_timings(dev) -> dict:
+    """paged_attention at the serve cell's shapes (danube, 8 slots, 8-row
+    pages, 512-row rings), each slot mid-run at position 176 with the 28
+    pages its request holds (lazy allocation: prompt 128 + up to 96 new
+    tokens) and the rest null; fp32 operands. Sets cycle through the 24
+    layers' column blocks (9.2 MB of K/V a call, 220 MB a cycle, past the
+    50 MB L2). Library call: F.scaled_dot_product_attention over the
+    already-gathered contiguous ring with the boolean mask (gather
+    excluded), a cross-check only."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    pool, kw = paged_case(dev, heads=(32, 8, 80), t=8, tokens=512,
+                          layers=24, seed=3)
+    s, pps = pool["tables"].shape
+    held = 28
+    tables = pool["tables"].clone()
+    tables[:, held:] = pool["pages"].shape[0] - 1
+    pool["tables"] = tables.contiguous()
+    pool["pos"] = torch.full((s,), 176, dtype=torch.int32, device=dev)
+    args = _paged_args(pool)
+    sets = [(layer,) for layer in range(24)]
+
+    # SDPA inputs per layer: the gathered ring with the new token written
+    # at the cursor, and the validity mask, exactly as the plain version
+    # builds them.
+    h, hkv, hd = 32, 8, 80
+    kvsz = hkv * hd
+    c = kw["tokens"]
+    tl = pool["tables"].long()
+    cur = pool["pos"].long() % c
+    rows = torch.arange(c, device=dev)
+    p = pool["pos"].long()[:, None]
+    spos = p - 1 - ((p - 1 - rows[None]) % c)
+    valid = (tl[:, rows // kw["page_tokens"]] != pool["pages"].shape[0] - 1)
+    valid = (valid & (spos >= 0)) | (rows[None] == cur[:, None])
+    sidx = torch.arange(s, device=dev)
+    qs = pool["q"][:, :, None]                         # [S, H, 1, hd]
+    rings = []
+    for layer in range(24):
+        ring = []
+        for off, new in ((kw["k_off"], pool["k_new"]),
+                         (kw["v_off"], pool["v_new"])):
+            col = off + layer * kvsz
+            g = pool["pages"][:, :, col:col + kvsz][tl].reshape(
+                s, -1, hkv, hd)[:, :c].clone()
+            g[sidx, cur] = new
+            ring.append(g.transpose(1, 2).contiguous())  # [S, Hkv, C, hd]
+        rings.append(tuple(ring))
+    mask = valid[:, None, None, :]
+    lib_sets = [(qs,) + rings[layer] for layer in range(24)]
+
+    out = {"paged_attention": {
+        "ms": time_ms(lambda layer: paged_attention(*args, layer, **kw),
+                      sets),
+        "plain_ms": time_ms(lambda layer: ref.paged_attention(*args, layer,
+                                                              **kw), sets),
+        "library_ms": time_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), lib_sets),
+        "bf16_wrapper_ms": time_ms(
+            lambda layer: paged_attention(*_paged_args(pool, torch.bfloat16),
+                                          layer, **kw), sets)}}
+    # Bytes the function must move: the K and V blocks of every non-null
+    # page in the tables, q, k_new, v_new and out (fp32), tables and pos.
+    non_null = int((tl != pool["pages"].shape[0] - 1).sum())
+    n_bytes = (non_null * kw["page_tokens"] * 2 * kvsz * 4
+               + (2 * s * h * hd + 2 * s * kvsz) * 4 + tl.numel() * 4 + s * 4)
+    # Operations: scores and the weighted sum, 4 flops per K/V element of
+    # each valid row and query head (the rows the positions make valid).
+    valid_rows = int(valid.sum())
+    n_flops = 4 * valid_rows * h * hd
+    out["paged_attention"]["bound"] = bound_ms(n_bytes, n_flops)
+    print(f"paged_attention timing inputs: S={s}, {non_null} non-null pages "
+          f"of {s * pps}, {valid_rows} valid rows, {n_bytes} bytes a call")
+    rows_ = summarize(out, n_bytes)
+    row = rows_["paged_attention"]
+    print(f"timing paged_attention: bf16 operands through the wrapper "
+          f"(casts included) {row['bf16_wrapper_ms']!r} ms")
+    # the SDPA cross-check computes the same function
+    lay = 7
+    got = paged_attention(*args, lay, **kw)
+    sd = F.scaled_dot_product_attention(qs, *rings[lay], attn_mask=mask,
+                                        enable_gqa=True)[:, :, 0]
+    err = check_close("SDPA cross-check", got, sd, **TOL_PAGED)
+    print(f"SDPA cross-check vs kernel: max_abs_err={err!r}")
+    del pool, rings, lib_sets
+    return rows_
+
+
+def serve_requests(vocab: int, n: int = SERVE_REQUESTS):
+    """``n`` synthetic requests (seed 1), all arriving at 0.0, with
+    max_new_tokens drawn in SERVE_NEW_TOKENS (numpy, seed 1)."""
+    import numpy as np
+    from repro_torch.serving import synthetic_requests
+    reqs = synthetic_requests(n, SERVE["prompt_len"], 1, vocab,
+                              arrivals=[0.0] * n, seed=1)
+    lo, hi = SERVE_NEW_TOKENS
+    gens = np.random.default_rng(1).integers(lo, hi + 1, n)
+    for r, g in zip(reqs, gens):
+        r.max_new_tokens = int(g)
+    return reqs
+
+
+def profile_decode(server, k: int = 5) -> dict:
+    """Device busy share of ``k`` decode steps of a full batch under
+    torch.profiler (the slots admitted and prefilled first, outside the
+    window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import AdmissionQueue
+
+    server._admit(AdmissionQueue(serve_requests(server.api.vocab_real,
+                                                server.cfg.slots)), 0.0)
+    inputs = server.step_inputs()
+    server.splan(*inputs)                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(k):
+            server.splan(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / k
+    events = device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / k
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    for i in server.batcher.active():
+        server._finish(i, [], 0.0, "done")
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "top": [(e.key[:60], e.self_device_time_total / 1e3 / k,
+                     e.count / k) for e in top]}
+
+
+def serve_run(dev, params, *, paged: str, overrides=None, record=False):
+    """One full serve of serve_requests() on a fresh Server (after a short
+    warm-up serve on another). Returns the report, the launch counters of
+    the measured run and, with ``record``, per request the (token, top-2
+    margin, logits) of each decode step."""
+    import torch
+    from repro_torch.engine import plan as planlib
+    from repro_torch.serving import Server, ServingConfig
+
+    cfg = ServingConfig(arch=SERVE_ARCH, reduced=False, paged=paged,
+                        overrides=overrides, **SERVE)
+    warm = Server(cfg, params=params, device=dev)
+    vocab = warm.api.vocab_real
+    warm_reqs = serve_requests(vocab, 2)
+    for r in warm_reqs:
+        r.max_new_tokens = 3
+    warm.run(warm_reqs)
+    del warm
+    server = Server(cfg, params=params, device=dev)
+    steps = {}
+    pick = planlib._pick
+    if record:
+        def recording_pick(logits, tokens, mask, gen, temp):
+            top2 = torch.topk(logits, 2, dim=-1).values.cpu()
+            lg = logits.cpu()
+            for i, st in enumerate(server.batcher.slots):
+                if st is not None:
+                    steps.setdefault(st.request.rid, []).append(
+                        (float(top2[i, 0] - top2[i, 1]), lg[i]))
+            return pick(logits, tokens, mask, gen, temp)
+        planlib._pick = recording_pick
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        report = server.run(serve_requests(vocab))
+        launches = counters()
+    finally:
+        planlib._pick = pick
+    return server, report, launches, steps
+
+
+def compare_routes(paged_rep, paged_steps, gather_rep, gather_steps) -> dict:
+    """Greedy tokens per request, paged route vs gather route, up to the
+    first step where either run's top-2 margin is below ROUTE_MARGIN."""
+    ptoks = {r.rid: r.tokens for r in paged_rep.completed}
+    gtoks = {r.rid: r.tokens for r in gather_rep.completed}
+    compared, stops, max_diff = 0, {}, 0.0
+    for rid in sorted(ptoks):
+        pt, gt = ptoks[rid], gtoks[rid]
+        if pt[0] != gt[0]:
+            raise AssertionError(f"rid {rid}: prefill tokens differ")
+        compared += 1
+        for j, ((pm, plg), (gm, glg)) in enumerate(
+                zip(paged_steps[rid], gather_steps[rid])):
+            if min(pm, gm) < ROUTE_MARGIN:
+                stops[rid] = (j + 1, min(pm, gm))
+                break
+            max_diff = max(max_diff, float((plg - glg).abs().max()))
+            if pt[j + 1] != gt[j + 1]:
+                raise AssertionError(
+                    f"rid {rid} token {j + 1}: paged {pt[j + 1]} vs gather "
+                    f"{gt[j + 1]} at top-2 margin {min(pm, gm)!r} >= "
+                    f"{ROUTE_MARGIN}")
+            compared += 1
+    if max_diff >= ROUTE_MARGIN:
+        raise AssertionError(f"route logits differ by {max_diff!r}, not "
+                             f"below the margin {ROUTE_MARGIN}")
+    total = sum(len(t) for t in ptoks.values())
+    print(f"routes agree (fp32): {compared} of {total} tokens compared, "
+          f"max logit difference {max_diff!r} (margin {ROUTE_MARGIN}); "
+          f"comparison stopped at a low margin for {len(stops)} requests: "
+          f"{ {rid: (tok, round(m, 6)) for rid, (tok, m) in stops.items()} }")
+    return {"compared": compared, "total": total, "max_logit_diff": max_diff,
+            "stops": stops}
+
+
+def serve_path(dev) -> dict:
+    """The full-width danube serve on the paged route (bf16 compute, fp32
+    params), its profile, the fp32 routes-agree leg and the bf16 gather
+    route's timing."""
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+
+    api = cfglib.get(SERVE_ARCH).api(reduced=False)
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params, _ = api.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tm.tree_leaves(params))
+    print(f"serve: {SERVE_ARCH} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} H {cfg.num_heads}/{cfg.num_kv_heads} hd "
+          f"{cfg.head_dim}, {n_params} params fp32 (init "
+          f"{time.perf_counter() - t0:.1f} s)")
+    gens = [r.max_new_tokens for r in serve_requests(cfg.vocab_real)]
+    out = {}
+
+    def run(label, paged, overrides=None, record=False):
+        server, rep, launches, steps = serve_run(
+            dev, params, paged=paged, overrides=overrides, record=record)
+        s = rep.summary()
+        got = {r.rid: len(r.tokens) for r in rep.completed}
+        if len(rep.completed) != SERVE_REQUESTS or \
+                [got[i] for i in range(SERVE_REQUESTS)] != gens:
+            raise AssertionError(f"{label}: requests or token counts wrong: "
+                                 f"{got} vs {gens}")
+        if not all(all(0 <= t < cfg.vocab_real for t in r.tokens)
+                   for r in rep.completed):
+            raise AssertionError(f"{label}: token outside the vocab")
+        want = cfg.num_layers * rep.decode_steps if paged == "on" else 0
+        others = {k: n for k, n in launches.items()
+                  if k != "paged_attention" and n}
+        if launches["paged_attention"] != want or others:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"paged_attention={want} and no other")
+        row = {"tokens_per_s": rep.tokens_per_s,
+               "ms_per_decode_step": 1e3 * rep.phase_s["decode"]
+               / rep.decode_steps,
+               "ttft_p50_s": s["ttft_p50_s"], "decode_steps": rep.decode_steps,
+               "joins": rep.joins, "evicts": rep.evicts,
+               "prefill_calls": rep.prefill_calls,
+               "phase_s": rep.phase_s, "wall_s": rep.wall_s,
+               "tokens": rep.tokens_total,
+               "launches": launches["paged_attention"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        print(f"serve {label}: {json.dumps(row)}")
+        out[label] = row
+        return server, rep, steps
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    server, _, _ = run("paged bf16", "on")
+    prof = profile_decode(server)
+    print(f"serve paged bf16 profile (5 decode steps, 8 slots): "
+          f"{json.dumps(prof)}")
+    out["profile"] = prof
+    del server
+    f32 = {"dtype": torch.float32}
+    _, prep, psteps = run("paged fp32", "on", f32, record=True)
+    _, grep, gsteps = run("gather fp32", "off", f32, record=True)
+    out["routes"] = compare_routes(prep, psteps, grep, gsteps)
+    del psteps, gsteps
+    run("gather bf16", "off")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_entry(timings: dict, serve: dict, errs: dict) -> dict:
+    t = timings["paged_attention"]
+    return {
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:163",
+        "launches": serve["paged bf16"]["launches"],
+        "launches_by_run": {k: serve[k]["launches"]
+                            for k in ("paged bf16", "paged fp32",
+                                      "gather fp32", "gather bf16")},
+        "max_abs_err": errs["fp32"], "max_abs_err_bf16": errs["bf16"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "eager_ms": t["eager_ms"], "bf16_wrapper_ms": t["bf16_wrapper_ms"]}
 
 
 def main() -> int:
@@ -1289,8 +1750,15 @@ def main() -> int:
     cost = hook_cost(dev, params0, data, table)
     timings.update(coherence_timings(dev, width))
 
+    # The serve path: paged_attention against its plain version, its
+    # timings, then the full-width danube serve.
+    paged_errs = paged_kernel_checks(dev)
+    timings.update(paged_timings(dev))
+    serve = serve_path(dev)
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     kernels.append(coherence_entry(timings, coh, coh_err))
+    kernels.append(paged_entry(timings, serve, paged_errs))
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -1302,6 +1770,8 @@ def main() -> int:
                        "gated without hooks":
                            cost["without_hooks_ms_per_step"]})
     print(json.dumps({"engine_ms_per_step": steps_line}))
+    print(json.dumps({"serve": {k: v for k, v in serve.items()
+                                if k != "profile"}}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,113 @@
+"""Architecture registry plumbing (port of ``repro/configs/base.py``): input
+shapes, the uniform model API and ``ArchDef``.
+
+Only the transformer family is ported (``transformer_api``); an arch of
+another family keeps its registry entry and raises ``NotImplementedError``
+from ``api()`` (ROADMAP A.10). ``init`` and ``init_cache`` take a
+``device``: CUDA unless the caller passes ``device="cpu"`` (``"meta"``
+makes shapes only).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch import treemath as tm
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    """Uniform functional surface over the model families."""
+    family: str
+    cfg: Any
+    init: Callable          # (seed, device=None) -> (params, axes)
+    loss: Callable          # (params, batch) -> scalar
+    prefill: Callable       # (params, batch) -> (logits, cache)
+    decode: Callable        # (params, token, cache, pos) -> (logits, cache)
+    init_cache: Callable    # (batch, seq_len, device=None) -> (cache, axes)
+    batch_spec: Callable    # (InputShape) -> {name: (shape, dtype)}
+    vocab_real: int
+    # (params, token [S,1], cache, pos [S], kv) -> (logits, 1-token cache):
+    # in-place paged decode against a serving.cache.PagedKV page pool.
+    # None = no paged path (the serve planner takes the gather route).
+    decode_paged: Optional[Callable] = None
+
+
+def transformer_api(cfg) -> ModelAPI:
+    from repro_torch.models import transformer as tr
+
+    def prefill(params, batch):
+        logits, _aux, cache = tr.forward(params, batch["tokens"], cfg,
+                                         return_cache=True)
+        return logits[:, -1:], cache
+
+    def batch_spec(shape: InputShape):
+        n = shape.seq_len + 1 if shape.kind == "train" else shape.seq_len
+        return {"tokens": ((shape.global_batch, n), torch.int32)}
+
+    return ModelAPI(
+        family="transformer", cfg=cfg,
+        init=lambda seed, device=None: tr.init(seed, cfg, device=device),
+        loss=lambda params, batch: tr.loss_fn(params, batch, cfg),
+        prefill=prefill,
+        decode=lambda params, token, cache, pos: tr.decode_step(
+            params, token, cache, pos, cfg),
+        decode_paged=lambda params, token, cache, pos, kv:
+            tr.decode_step_paged(params, token, cache, pos, kv, cfg),
+        init_cache=lambda b, s, device=None: tr.init_cache(cfg, b, s,
+                                                           device=device),
+        batch_spec=batch_spec,
+        vocab_real=cfg.vocab_real,
+    )
+
+
+_API_BUILDERS = {"transformer": transformer_api}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchDef:
+    """One assigned architecture. ``make_config(reduced, long_ctx)`` returns
+    the family config (None for an arch whose family is not ported)."""
+    arch_id: str
+    family: str                 # transformer | ssm | hybrid | encdec
+    arch_type: str              # dense | moe | ssm | hybrid | audio | vlm
+    citation: str
+    make_config: Optional[Callable[..., Any]] = None
+    notes: str = ""
+    train_optimizer: str = "adam"
+    stale_s_default: int = 4
+
+    def api(self, reduced: bool = False, long_ctx: bool = False,
+            overrides: Optional[dict] = None) -> ModelAPI:
+        if self.make_config is None or self.family not in _API_BUILDERS:
+            raise NotImplementedError(
+                f"arch {self.arch_id!r} ({self.family}, {self.arch_type}) is "
+                "not ported yet (ROADMAP A.10, the language-model stack)")
+        cfg = self.make_config(reduced=reduced, long_ctx=long_ctx)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return _API_BUILDERS[self.family](cfg)
+
+
+def count_params(api: ModelAPI) -> int:
+    params, _ = api.init(0, device="meta")
+    return sum(math.prod(x.shape) for x in tm.tree_leaves(params))

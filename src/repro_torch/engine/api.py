@@ -169,17 +169,22 @@ class Engine:
     _params_of: Callable = None    # inner -> params eval view
     _max_bound: int = 0
     _init_comp: Callable = None    # params -> comp state (None = no comp)
+    _init_params: Callable = None  # (seed, device) -> params (ModelAPI)
 
     def init(self, seed=0, params: Pytree = None,
              update_state: Pytree = None) -> EngineState:
-        """Initialise engine state from ``params`` (required: the engine is
-        built from a bare loss function). ``seed`` (an int, or a
-        ``torch.Generator`` on the engine's device) seeds the engine's
-        delay stream; ``update_state`` overrides the per-worker optimizer
-        state in ``simulate`` mode (defaults to ``optimizer.init(params)``)."""
+        """Initialise engine state. ``params`` overrides the model's own
+        initialiser (required when the engine was built from a bare loss
+        function). ``seed`` (an int, or a ``torch.Generator`` on the
+        engine's device) seeds that initialiser and the engine's delay
+        stream; ``update_state`` overrides the per-worker optimizer state in
+        ``simulate`` mode (defaults to ``optimizer.init(params)``)."""
         if params is None:
-            raise ValueError("engine built from a bare loss function: pass "
-                             "params=")
+            if self._init_params is None:
+                raise ValueError(
+                    "engine built from a bare loss function: pass params= "
+                    "(or build from a ModelAPI, which knows how to init)")
+            params = self._init_params(seed, self.device)
         params = tm.tree_map(lambda x: torch.as_tensor(x).to(self.device),
                              params)
         gen = (seed if isinstance(seed, torch.Generator)
@@ -249,19 +254,39 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _stacked_loss(api_loss):
+    """Adapt a ``ModelAPI.loss(params, batch) -> scalar`` to the engine's
+    worker-stacked contract: ``[P, ...]`` params and batches in, the ``[P]``
+    per-worker losses out (a loop over P, the JAX package's ``vmap``)."""
+    def loss(params, batch):
+        p = tm.tree_leaves(batch)[0].shape[0]
+        return torch.stack([api_loss(tm.tree_index(params, i),
+                                     tm.tree_index(batch, i))
+                            for i in range(p)])
+    return loss
+
+
 def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                  cfg: EngineConfig, mesh=None, *, update_fn=None,
                  server_apply=None, device=None) -> Engine:
     """Build an :class:`Engine` for any mode on ``device`` (CUDA unless
     ``device="cpu"``; raises without CUDA otherwise).
 
-    ``loss_fn(params, batch)`` (or ``(params, batch, gen)`` with
-    ``cfg.loss_takes_key``) must accept worker-stacked ``[P, ...]`` params
-    and batches and return the ``[P]`` per-worker losses, as
-    ``models.mlp.loss_fn`` does. ``update_fn`` bypasses the loss/optimizer
-    adaptation in ``simulate`` mode (see ``core.staleness.UpdateFn``).
+    ``loss_fn`` is a ``ModelAPI`` (anything with ``.loss`` and ``.init``:
+    its scalar loss is looped over the worker axis, and ``Engine.init`` can
+    then make the params) or a bare ``loss_fn(params, batch)`` (or
+    ``(params, batch, gen)`` with ``cfg.loss_takes_key``) that accepts
+    worker-stacked ``[P, ...]`` params and batches and returns the ``[P]``
+    per-worker losses, as ``models.mlp.loss_fn`` does. ``update_fn``
+    bypasses the loss/optimizer adaptation in ``simulate`` mode (see
+    ``core.staleness.UpdateFn``).
     """
     dev = device_lib.resolve(device)
+    init_params = None
+    if loss_fn is not None and hasattr(loss_fn, "loss"):
+        api = loss_fn
+        init_params = lambda seed, d: api.init(seed, device=d)[0]
+        loss_fn = _stacked_loss(api.loss)
     if mesh is not None:
         raise _not_ported("mesh=", "A.12, multi-GPU placement")
     if cfg.server_side or server_apply is not None:
@@ -328,7 +353,8 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     def engine(init_inner, step_inner, params_of, max_bound) -> Engine:
         return Engine(cfg=cfg, device=dev, meta=meta, _init_inner=init_inner,
                       _step_inner=step_inner, _params_of=params_of,
-                      _max_bound=max_bound, _init_comp=init_comp)
+                      _max_bound=max_bound, _init_comp=init_comp,
+                      _init_params=init_params)
 
     if mode == "simulate":
         custom_update = update_fn is not None

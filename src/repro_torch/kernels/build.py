@@ -47,6 +47,9 @@ SIGNATURES = {
         [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong),
     "repro_coherence_f32": (
         [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
+    "repro_paged_attention_f32": (
+        [_P] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
 }
 
 

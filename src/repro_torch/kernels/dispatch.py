@@ -7,7 +7,8 @@ The backend follows the tensor's device:
 * a CPU tensor runs the plain PyTorch version (``kernels/ref.py``).
 
 There is no interpret mode and no fallback on shape: the CUDA kernels mask
-their own ragged tail, so any D runs. Decisions are recorded into a report,
+their own ragged tail, so any D runs, and ``paged_attention`` takes any head
+width and column offset. Decisions are recorded into a report,
 ``report()`` / ``report_lines()``, which ``Engine.dispatch_report`` surfaces.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from repro_torch.kernels import coherence as _co
 from repro_torch.kernels import fused_adam as _fa
 from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparsify as _sp
 from repro_torch.kernels import stale_accum as _sa
@@ -135,3 +137,20 @@ def coherence_dots(history, g):
     if _backend("coherence_dots", history) == "ref":
         return ref.coherence_dots(history, g)
     return _co.coherence_dots(history, g)
+
+
+def paged_attention(q, k_new, v_new, pages, tables, pos, layer, *,
+                    k_off, v_off, kv_heads, head_dim, tokens, page_tokens,
+                    window=0, softmax_dtype=torch.float32):
+    """Serve-decode attention read in place from the packed page pool
+    (``serving/cache.py``). The CUDA kernel runs its softmax in fp32
+    whatever ``softmax_dtype`` says, as the Pallas kernel does; the plain
+    version honours it."""
+    kw = dict(k_off=k_off, v_off=v_off, kv_heads=kv_heads,
+              head_dim=head_dim, tokens=tokens, page_tokens=page_tokens,
+              window=window)
+    if _backend("paged_attention", pages) == "ref":
+        return ref.paged_attention(q, k_new, v_new, pages, tables, pos,
+                                   layer, softmax_dtype=softmax_dtype, **kw)
+    return _pa.paged_attention(q, k_new, v_new, pages, tables, pos, layer,
+                               **kw)

@@ -2,9 +2,13 @@
 ``repro/kernels/ref.py`` for the kernels this package has).
 
 These are what a CPU tensor runs, and what ``chip_smoke.py`` holds each CUDA
-kernel against on the card. All math is fp32.
+kernel against on the card. All math is fp32, except that
+``paged_attention`` rounds the gathered K/V to the cache dtype as the JAX
+oracle does.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -106,3 +110,58 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale=1.0,
     p_new = p.float() - update
     return (p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype),
             u) + extras
+
+
+def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
+                    k_off: int, v_off: int, kv_heads: int, head_dim: int,
+                    tokens: int, page_tokens: int, window: int = 0,
+                    softmax_dtype=torch.float32):
+    """Page-table decode attention, written as the JAX package's oracle
+    (``repro/kernels/ref.py::paged_attention``) writes it. q [S,H,hd];
+    k_new/v_new [S,Hkv,hd] (cache dtype); pages [P+1,T,W] packed pool
+    (null page = P); tables [S,PPS]; pos [S]; ``layer`` picks the per-layer
+    K/V column block at ``k_off + layer * Hkv*hd``.
+
+    The layer's columns are gathered through the page table into contiguous
+    [S, C] rings and cast to the cache dtype, the new token lands on the
+    ring cursor ``pos % C``, and the validity mask is the ring invariant
+    ``spos(r) = pos-1-((pos-1-r) % C)`` with null-page rows masked. Scores
+    and softmax run in ``softmax_dtype``; the output is in v_new's dtype."""
+    s, h, hd = q.shape
+    hkv = kv_heads
+    g = h // hkv
+    kvsz = hkv * hd
+    c = tokens
+    null = pages.shape[0] - 1
+    sdt = softmax_dtype
+    dev = q.device
+    tables = tables.long()
+    pos = pos.long()
+    k0 = k_off + layer * kvsz
+    v0 = v_off + layer * kvsz
+    # [S, PPS, T, kvsz] -> contiguous ring rows [S, C, Hkv, hd]; the padded
+    # tail rows of a last page fall off the [:c] slice.
+    kg = pages[:, :, k0:k0 + kvsz][tables].reshape(s, -1, hkv, hd)[:, :c]
+    vg = pages[:, :, v0:v0 + kvsz][tables].reshape(s, -1, hkv, hd)[:, :c]
+    kg, vg = kg.to(k_new.dtype), vg.to(v_new.dtype)
+    cur = pos % c
+    sidx = torch.arange(s, device=dev)
+    kg[sidx, cur] = k_new.to(kg.dtype)
+    vg[sidx, cur] = v_new.to(vg.dtype)
+
+    rows = torch.arange(c, device=dev)
+    spos = pos[:, None] - 1 - ((pos[:, None] - 1 - rows[None, :]) % c)
+    page_ok = tables[:, rows // page_tokens] != null
+    valid = page_ok & (spos >= 0)
+    if window:
+        valid = valid & (spos > pos[:, None] - window)
+    valid = valid | (rows[None, :] == cur[:, None])
+
+    qg = q.reshape(s, 1, hkv, g, hd)
+    scores = torch.einsum("bsngd,bknd->bngsk", qg.to(sdt), kg.to(sdt))
+    scores = scores / math.sqrt(hd)
+    neg = -3e38 if sdt == torch.float32 else -3e4
+    scores = scores.masked_fill(~valid[:, None, None, None, :], neg)
+    probs = torch.softmax(scores, dim=-1).to(vg.dtype)
+    out = torch.einsum("bngsk,bknd->bsngd", probs, vg)
+    return out.reshape(s, h, hd)

@@ -1,0 +1,147 @@
+"""Common layer building blocks (port of ``repro/models/layers.py``).
+
+Params are built as nested dicts whose leaves are ``Param(value, axes)``;
+``unzip`` splits one tree into (values, axes). The logical-axes trees are
+kept as plain tuples: nothing in the port reads them until multi-GPU
+placement (ROADMAP A.12).
+
+The initialisers draw from a ``torch.Generator``, so the weights differ from
+``jax.random``'s; tests carry JAX's weights across with
+``convert.params_from_jax``. On the ``meta`` device they only allocate
+shapes.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+class Param(NamedTuple):
+    value: torch.Tensor
+    axes: Tuple[Optional[str], ...]
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def unzip(tree: Any) -> Tuple[Any, Any]:
+    """(values, axes) of a tree whose leaves are ``Param``s."""
+    def walk(node, pick):
+        if is_param(node):
+            return pick(node)
+        if isinstance(node, dict):
+            return {k: walk(v, pick) for k, v in node.items()}
+        return node
+    return walk(tree, lambda p: p.value), walk(tree, lambda p: p.axes)
+
+
+def _fill(t: torch.Tensor, fn) -> torch.Tensor:
+    if t.device.type != "meta":
+        fn(t)
+    return t
+
+
+def dense_init(gen: torch.Generator, shape, axes, in_axis: int = 0,
+               scale: float = 1.0, dtype=torch.float32, device=None,
+               lead: Tuple[int, ...] = ()) -> Param:
+    """Truncated-normal fan-in init; ``in_axis`` marks the contraction dim
+    used for the fan-in (negative counts from the end). ``lead`` prepends
+    stacked axes (e.g. ``[L]`` layers), each slice drawn independently."""
+    std = scale / math.sqrt(max(shape[in_axis], 1))
+    w = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
+                    device=device)
+    _fill(w, lambda t: torch.nn.init.trunc_normal_(
+        t, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std))
+    return Param(w.to(dtype), axes)
+
+
+def embed_init(gen: torch.Generator, shape, axes, dtype=torch.float32,
+               device=None) -> Param:
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    _fill(w, lambda t: t.normal_(0.0, 0.02, generator=gen))
+    return Param(w.to(dtype), axes)
+
+
+def scale_init(shape, axes, value: float = 1.0, dtype=torch.float32,
+               device=None) -> Param:
+    return Param(torch.full(tuple(shape), value, dtype=dtype, device=device),
+                 axes)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def rotary(theta: float, positions: torch.Tensor,
+           head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotary position embedding tables: (cos, sin) of shape
+    [..., head_dim // 2] for the given positions."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    angles = positions.float()[..., None] * freqs          # [..., half]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., head_dim], rotated in the half-split layout (the first half
+    pairs with the second); cos/sin broadcast over the head axis."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    while cos.dim() < x1.dim():
+        cos = cos.unsqueeze(-2)
+        sin = sin.unsqueeze(-2)
+    rot1 = x1 * cos - x2 * sin
+    rot2 = x2 * cos + x1 * sin
+    return torch.cat([rot1, rot2], dim=-1).to(x.dtype)
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    return F.silu(x_gate) * x_up
+
+
+def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
+    """[q_len, kv_len] boolean mask; q positions are offset by
+    ``q_offset`` relative to kv position 0."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return k_pos <= q_pos
+
+
+def sliding_window_mask(q_len: int, kv_len: int, q_offset, window: int,
+                        device=None) -> torch.Tensor:
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return (k_pos <= q_pos) & (k_pos > q_pos - window)
+
+
+def stacked_axes(axes: Any) -> Any:
+    """Prefix every leaf's axes tuple with ``"layers"`` (the stacked layer
+    axis)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return ("layers",) + tuple(node)
+    return walk(axes)
+

@@ -1,0 +1,429 @@
+"""The serving runtime loop: admission -> prefill/join -> continuous decode
+(port of ``repro/serving/server.py``).
+
+One :class:`Server` owns the planned steps (``plan_prefill`` for
+admissions, ``plan_serve_step`` for the continuous batch) plus the paged
+cache and the batcher. The loop per iteration:
+
+1. **refresh** — swap in newer trainer-published params (snapshot.py),
+2. **expire** — reject queued requests whose deadline already passed,
+3. **admit**  — drain every arrived request that fits (a free slot AND page
+   budget), then prefill them together: grouped by padded prompt length,
+   in batches of up to ``prefill_batch`` chunked to powers of two, each
+   slot's cache packed token-major, grafted onto the empty ring template,
+   pages written, batch joined,
+4. **decode** — one step over all slots (masked lanes inert),
+5. **harvest** — append each active slot's token, stamp it with the
+   realized parameter staleness, evict finished / past-deadline requests
+   (their pages return to the free list for the next admission).
+
+Under the paged decode route (``ServingConfig.paged``) page allocation is
+lazy: a request claims only the pages its prompt + budget will touch, so
+``max_seq`` may exceed what ``num_pages`` could hold per slot eagerly.
+
+The server runs on CUDA unless constructed with ``device="cpu"``; sampling
+at ``temperature > 0`` draws from ``torch.Generator``s seeded from
+``cfg.seed``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch import device as device_lib
+from repro_torch.configs.base import InputShape
+from repro_torch.engine import plan as planlib
+from repro_torch.launch import mesh as meshlib
+from repro_torch.serving.batcher import ContinuousBatcher, SlotState
+from repro_torch.serving.cache import PagedDecodeCache, build_layout
+from repro_torch.serving.queue import AdmissionQueue, Clock, Request
+from repro_torch.serving.snapshot import SnapshotRefresher
+
+Pytree = Any
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    arch: str = "deepseek-7b"
+    reduced: bool = True
+    overrides: Optional[dict] = None
+    slots: int = 4                    # continuous-batch width
+    prompt_len: int = 16              # admission prefill length (pad/trunc)
+    max_seq: int = 64                 # decode-cache capacity per slot
+    page_tokens: int = 8              # ring rows per page
+    num_pages: Optional[int] = None   # default: slots * pages_per_slot
+    temperature: float = 0.0          # <= 0 -> greedy argmax
+    seed: int = 0
+    mesh: str = "1x1"                 # host mesh "DATAxMODEL" (1x1 only)
+    virtual_dt: Optional[float] = None  # fixed seconds/step clock for tests
+    paged: str = "auto"               # serve decode route: off | auto | on
+    prefill_batch: int = 1            # max requests prefilled per call
+    # Pad prompts up to a multiple of this instead of always prompt_len.
+    prefill_bucket: Optional[int] = None
+
+
+@dataclasses.dataclass
+class ServedRequest:
+    rid: int
+    tokens: List[int]
+    reason: str                       # "done" | "deadline"
+    arrival_s: float
+    join_s: float
+    finish_s: float
+    ttft_s: float
+    # per-token realized parameter staleness: (publisher steps behind,
+    # seconds since the served params were published); (0, None) without a
+    # refresher / before the first publish.
+    staleness: List[Tuple[int, Optional[float]]]
+
+    @property
+    def latency_s(self) -> float:
+        return self.finish_s - self.arrival_s
+
+
+@dataclasses.dataclass
+class ServeReport:
+    completed: List[ServedRequest]
+    expired_rids: List[int]
+    wall_s: float
+    decode_steps: int
+    joins: int
+    evicts: int
+    refreshes: int
+    prefill_calls: int = 0
+    # wall seconds by loop phase: admit (queue/pack/alloc, prefill excluded),
+    # prefill (prefill calls, synchronised), decode (serve steps + sync).
+    phase_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def tokens_total(self) -> int:
+        return sum(len(r.tokens) for r in self.completed)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens_total / self.wall_s if self.wall_s > 0 else 0.0
+
+    def _latency(self, q: float) -> Optional[float]:
+        lats = [r.latency_s for r in self.completed]
+        return float(np.percentile(lats, q)) if lats else None
+
+    def staleness_summary(self) -> Dict[str, Optional[float]]:
+        steps = [s for r in self.completed for s, _ in r.staleness]
+        ages = [a for r in self.completed for _, a in r.staleness
+                if a is not None]
+        return {
+            "mean_steps_behind": float(np.mean(steps)) if steps else None,
+            "max_steps_behind": int(np.max(steps)) if steps else None,
+            "mean_param_age_s": float(np.mean(ages)) if ages else None,
+        }
+
+    def summary(self) -> dict:
+        ttfts = [r.ttft_s for r in self.completed]
+        return {
+            "requests_completed": len(self.completed),
+            "requests_expired": len(self.expired_rids),
+            "tokens_total": self.tokens_total,
+            "tokens_per_s": round(self.tokens_per_s, 1),
+            "wall_s": round(self.wall_s, 3),
+            "decode_steps": self.decode_steps,
+            "joins": self.joins,
+            "evicts": self.evicts,
+            "refreshes": self.refreshes,
+            "prefill_calls": self.prefill_calls,
+            "phase_s": {k: round(v, 4) for k, v in self.phase_s.items()},
+            "ttft_p50_s": (round(float(np.percentile(ttfts, 50)), 4)
+                           if ttfts else None),
+            "ttft_p99_s": (round(float(np.percentile(ttfts, 99)), 4)
+                           if ttfts else None),
+            "latency_p50_s": (round(self._latency(50), 4)
+                              if self.completed else None),
+            "latency_p99_s": (round(self._latency(99), 4)
+                              if self.completed else None),
+            "staleness": self.staleness_summary(),
+        }
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Server:
+    """Continuous-batching request server over one architecture, on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: ServingConfig, params: Optional[Pytree] = None,
+                 refresher: Optional[SnapshotRefresher] = None, device=None):
+        self.cfg = cfg
+        self.device = device_lib.resolve(device)
+        self.arch = cfglib.get(cfg.arch)
+        self.api = self.arch.api(reduced=cfg.reduced, overrides=cfg.overrides)
+        meshlib.parse_host_mesh(cfg.mesh)            # only "1x1" runs
+        self.layout = build_layout(self.api, cfg.max_seq, cfg.page_tokens,
+                                   device=self.device)
+
+        self._pshape = InputShape("serve_prefill", cfg.prompt_len, 1, "prefill")
+        dshape = InputShape("serve_decode", cfg.max_seq, cfg.slots, "decode")
+        self.paged_route, self._paged_why = planlib.resolve_serve_paged(
+            self.api, self.layout, cfg.paged)
+        # The paged route masks null-page rows in the kernel, so requests
+        # claim only the pages they will touch; the gather route reads whole
+        # rings and needs every slot fully paged.
+        self._lazy_pages = self.paged_route == "paged"
+        self.cache = PagedDecodeCache(self.layout, cfg.slots, cfg.num_pages,
+                                      lazy=self._lazy_pages,
+                                      device=self.device)
+        self.splan = planlib.plan_serve_step(
+            self.arch, dshape, layout=self.layout,
+            num_pages=self.cache.num_pages, overrides=cfg.overrides,
+            reduced=cfg.reduced, paged=cfg.paged)
+        self._prefill_plans = {}
+
+        if params is None:
+            params, _ = self.api.init(cfg.seed, device=self.device)
+        self.params = params
+        self.refresher = refresher
+        self.batcher = ContinuousBatcher(cfg.slots)
+        self._gen = device_lib.generator(cfg.seed, self.device)
+        self.decode_steps = 0
+        self.prefill_calls = 0
+        self.phase_s = {"admit": 0.0, "prefill": 0.0, "decode": 0.0}
+
+    def dispatch_report(self) -> dict:
+        """Route + kernel dispatch decisions (``launch/serve.py``)."""
+        from repro_torch.kernels import dispatch
+        return {"paged": self.paged_route, "why": self._paged_why,
+                "decisions": dispatch.report()}
+
+    # -- params plumbing -----------------------------------------------------
+
+    def restore_params(self, ckpt_dir: str) -> int:
+        """Serve from the latest committed snapshot in ``ckpt_dir`` (either
+        package's format; leaves land on the served params' device).
+        Returns the snapshot step."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+        step = ckpt.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed snapshot in {ckpt_dir}")
+        self.params, step, _ = ckpt.restore(ckpt.step_path(ckpt_dir, step),
+                                            like=self.params)
+        if self.refresher is not None:
+            self.refresher.current_step = step
+        return step
+
+    def make_refresher(self, ckpt_dir: str, every_steps: int = 1,
+                       base_step: int = 0) -> SnapshotRefresher:
+        self.refresher = SnapshotRefresher(
+            ckpt_dir, like=self.params, every_steps=every_steps,
+            base_step=base_step)
+        return self.refresher
+
+    # -- admission -----------------------------------------------------------
+
+    def _bucket_len(self, r: Request) -> int:
+        """Padded prefill length for ``r``: prompt_len unless prefill_bucket
+        quantisation is on (then the next multiple of the bucket)."""
+        cap, q = self.cfg.prompt_len, self.cfg.prefill_bucket
+        if not q:
+            return cap
+        n = max(1, min(len(r.prompt), cap))
+        return min(cap, -(-n // q) * q)
+
+    def _get_prefill(self, length: int, batch: int) -> planlib.Plan:
+        """The prefill plan at (length, batch), cached per shape as the JAX
+        package caches its jitted plans."""
+        fn = self._prefill_plans.get((length, batch))
+        if fn is None:
+            fn = planlib.plan_prefill(
+                self.arch, InputShape(f"serve_prefill_{length}x{batch}",
+                                      length, batch, "prefill"),
+                overrides=self.cfg.overrides,
+                reduced=self.cfg.reduced)
+            self._prefill_plans[(length, batch)] = fn
+        return fn
+
+    def _prefill_inputs(self, reqs: Sequence[Request],
+                        length: int) -> Dict[str, torch.Tensor]:
+        spec = self.api.batch_spec(self._pshape)
+        extra = sorted(set(spec) - {"tokens"})
+        if extra:
+            raise NotImplementedError(
+                f"prefill features {extra} are not ported yet (ROADMAP A.10)")
+        prompts = np.zeros((len(reqs), length), np.int32)
+        for b, r in enumerate(reqs):
+            n = min(len(r.prompt), length)
+            prompts[b, :n] = np.asarray(r.prompt[:n], np.int32)
+        return {"tokens": torch.as_tensor(prompts, device=self.device)}
+
+    def _sample_first(self, logits: torch.Tensor, rid: int) -> int:
+        row = logits[0, -1].float()
+        if self.cfg.temperature > 0:
+            gen = device_lib.generator((self.cfg.seed << 20) + rid + 1,
+                                       self.device)
+            u = torch.rand(row.shape, generator=gen, device=self.device)
+            row = row / self.cfg.temperature - torch.log(-torch.log(u))
+        return int(torch.argmax(row))
+
+    def _pages_for(self, r: Request, length: int) -> Optional[List[int]]:
+        """Page slots ``r`` will touch (lazy/paged route); None = eager full
+        complement."""
+        if not self._lazy_pages:
+            return None
+        return self.cache.pages_needed(length, r.max_new_tokens)
+
+    def _admit(self, q: AdmissionQueue, now: float) -> None:
+        """Drain every arrived request that fits, then prefill them together,
+        grouped by padded length and chunked to power-of-two batches."""
+        free = [i for i, s in enumerate(self.batcher.slots) if s is None]
+        budget = self.cache.free_pages
+        picked: List[Tuple[int, Request, int]] = []
+        while free:
+            r = q.pop_ready(now)
+            if r is None:
+                break
+            length = self._bucket_len(r)
+            pages = self._pages_for(r, length)
+            need = (self.layout.pages_per_slot if pages is None
+                    else len(pages))
+            if need > budget:
+                q.push_front(r)
+                break
+            budget -= need
+            picked.append((free.pop(0), r, length))
+        groups: Dict[int, List[Tuple[int, Request]]] = {}
+        for slot, r, length in picked:
+            groups.setdefault(length, []).append((slot, r))
+        for length, group in groups.items():
+            i = 0
+            while i < len(group):
+                b = min(self.cfg.prefill_batch, len(group) - i)
+                b = 1 << (max(b, 1).bit_length() - 1)  # power-of-two chunks
+                self._join_group(group[i:i + b], length, now)
+                i += b
+
+    def _join_group(self, group: Sequence[Tuple[int, Request]], length: int,
+                    now: float) -> None:
+        t0 = time.monotonic()
+        reqs = [r for _, r in group]
+        logits, pcache = self._get_prefill(length, len(reqs))(
+            self.params, self._prefill_inputs(reqs, length))
+        _sync(self.device)
+        elapsed = time.monotonic() - t0
+        self.prefill_calls += 1
+        self.phase_s["prefill"] += elapsed
+        lay = self.layout
+        for b, (slot, r) in enumerate(group):
+            first = self._sample_first(logits[b:b + 1], r.rid)
+            rows, res = lay.pack_rows(lay.slice_batch(pcache, b))
+            if lay.has_tokens and rows.shape[0] < lay.tokens:
+                # Prompt shorter than the ring: graft onto the empty template
+                # (both rings index rows by pos % C, and prefill rows
+                # [0, C_p) hold positions [0, C_p)).
+                grafted = lay.empty_rows.clone()
+                grafted[: rows.shape[0]] = rows
+                rows = grafted
+            self.cache.alloc(slot, self._pages_for(r, length))
+            self.cache.write_rows(slot, rows, res)
+            self.batcher.join(slot, SlotState(
+                request=r, next_token=first, pos=length,
+                remaining=r.max_new_tokens - 1, join_s=now,
+                ttft_s=elapsed, tokens=[first],
+                staleness=[self._staleness()]))
+
+    def _staleness(self) -> Tuple[int, Optional[float]]:
+        if self.refresher is None:
+            return (0, None)
+        return self.refresher.staleness()
+
+    def step_inputs(self) -> tuple:
+        """The serve step's arguments for the current batch:
+        ``(params, pages, resident, tables, tokens, pos, mask, gen, temp)``."""
+        tokens, pos, mask = self.batcher.arrays()
+        dev = self.device
+        return (self.params, self.cache.pages, self.cache.resident,
+                self.cache.table_device(), torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(pos, device=dev),
+                torch.as_tensor(mask, device=dev), self._gen,
+                float(self.cfg.temperature))
+
+    # -- the loop ------------------------------------------------------------
+
+    def run(self, requests: Sequence[Request],
+            max_steps: int = 1_000_000) -> ServeReport:
+        q = AdmissionQueue(requests)
+        clock = Clock(self.cfg.virtual_dt)
+        completed: List[ServedRequest] = []
+        expired: List[int] = []
+        self.prefill_calls = 0
+        self.phase_s = {"admit": 0.0, "prefill": 0.0, "decode": 0.0}
+        t0 = time.monotonic()
+
+        while q.pending or self.batcher.any_active:
+            now = clock.now()
+            if self.refresher is not None:
+                fresh = self.refresher.maybe_refresh(self.decode_steps)
+                if fresh is not None:
+                    self.params = fresh
+
+            expired.extend(r.rid for r in q.expire(now))
+
+            t_admit = time.monotonic()
+            p_before = self.phase_s["prefill"]
+            self._admit(q, now)
+            self.phase_s["admit"] += ((time.monotonic() - t_admit)
+                                      - (self.phase_s["prefill"] - p_before))
+
+            # max_new_tokens == 1 is satisfied by the prefill token alone
+            for i in self.batcher.active():
+                if self.batcher.slots[i].remaining <= 0:
+                    self._finish(i, completed, now, "done")
+
+            if not self.batcher.any_active:
+                clock.idle()
+                continue
+
+            t_dec = time.monotonic()
+            next_tok, self.cache.pages, self.cache.resident = self.splan(
+                *self.step_inputs())
+            next_np = next_tok.cpu().numpy()          # sync for honest timing
+            self.phase_s["decode"] += time.monotonic() - t_dec
+            self.decode_steps += 1
+            clock.tick()
+            now = clock.now()
+            stale = self._staleness()
+            for i in self.batcher.active():
+                s = self.batcher.slots[i]
+                s.next_token = int(next_np[i])
+                s.pos += 1
+                s.remaining -= 1
+                s.tokens.append(s.next_token)
+                s.staleness.append(stale)
+                past_deadline = (s.request.deadline_s is not None
+                                 and now >= s.request.deadline_s)
+                if s.remaining <= 0 or past_deadline:
+                    self._finish(i, completed, now,
+                                 "done" if s.remaining <= 0 else "deadline")
+
+            if self.decode_steps >= max_steps:
+                break
+
+        return ServeReport(
+            completed=completed, expired_rids=expired,
+            wall_s=time.monotonic() - t0, decode_steps=self.decode_steps,
+            joins=self.batcher.joins, evicts=self.batcher.evicts,
+            refreshes=(self.refresher.refreshes if self.refresher else 0),
+            prefill_calls=self.prefill_calls, phase_s=dict(self.phase_s))
+
+    def _finish(self, slot: int, completed: List[ServedRequest], now: float,
+                reason: str) -> None:
+        s = self.batcher.evict(slot)
+        self.cache.free(slot)
+        completed.append(ServedRequest(
+            rid=s.request.rid, tokens=list(s.tokens), reason=reason,
+            arrival_s=s.request.arrival_s, join_s=s.join_s, finish_s=now,
+            ttft_s=s.ttft_s, staleness=list(s.staleness)))

@@ -165,6 +165,23 @@ def tree_allfinite(a: Pytree) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in tree_leaves(a))
 
 
+def tree_moveaxis(a: Pytree, axes, dst: int = 0, lead_ndim: int = 0) -> Pytree:
+    """Per-leaf ``torch.movedim``: ``axes`` is a flat sequence (leaf order)
+    of source axis indices, ``None`` leaving that leaf untouched. Both the
+    source axes and ``dst`` are offset by ``lead_ndim``, so the same spec
+    works on leaves that carry extra leading (slot/worker) axes. The serving
+    plane rotates each decode-cache leaf token-major with it before
+    packing."""
+    leaves, treedef = tree_flatten(a)
+    if len(leaves) != len(axes):
+        raise ValueError(f"axes spec has {len(axes)} entries for "
+                         f"{len(leaves)} leaves")
+    moved = [x if ax is None else torch.movedim(x, ax + lead_ndim,
+                                                dst + lead_ndim)
+             for x, ax in zip(leaves, axes)]
+    return tree_unflatten(treedef, moved)
+
+
 # -- packed flat views (the kernel substrate) ---------------------------------
 #
 # The kernels work on contiguous [D] / [S, D] views, not pytrees. A PackSpec

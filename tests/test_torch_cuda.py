@@ -19,6 +19,7 @@ from repro_torch.kernels import coherence as tco
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import fused_update as tfu
+from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import sparsify as tsp
 from repro_torch.kernels import stale_accum as tsa
 
@@ -32,6 +33,10 @@ TOL_ADAM = dict(rtol=1e-5, atol=1e-7)
 # and their tree) is under 64 roundings at these shapes, so C = 64 is its
 # worst-case bound; the plain version's sums are held to the same bound.
 COHERENCE_C = 64
+# paged_attention, fp32 operands: the kernel's online softmax and the plain
+# version's one-shot softmax round differently; outputs are convex
+# combinations of O(1) values, so a few ulps of 1.
+TOL_PAGED = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -243,3 +248,93 @@ def test_observe_with_the_kernel_matches_plain_on_the_card(cuda_device):
         st_p, b = tcoh.observe(st_p, g, kernels=False)
         for key in ("mu", "cos_by_lag", "grad_norm"):
             torch.testing.assert_close(a[key], b[key], rtol=1e-5, atol=1e-6)
+
+
+def _paged_case(dev, s=8, h=32, hkv=8, hd=80, t=8, tokens=37, layers=3,
+                layer=2, pos=None, dtype=torch.float32, k_off=0, lazy=True,
+                seed=0):
+    """Random page pool and operands: slot 0 lazily allocated (its later
+    page slots on the null page), the last slot empty (all null, position
+    0); rings wrapped (pos > tokens) on some slots; ``k_off`` shifts the K
+    block (and the V block after it) off any alignment."""
+    rng = np.random.default_rng(seed)
+    kvsz = hkv * hd
+    pps = -(-tokens // t)
+    n_pages = s * pps
+    width = k_off + 2 * layers * kvsz + layers   # K blocks, V blocks, slot_pos
+    pages = rng.standard_normal((n_pages + 1, t, width)).astype(np.float32)
+    tables = rng.permutation(n_pages).reshape(s, pps).astype(np.int32)
+    if lazy:
+        tables[0, pps // 2:] = n_pages
+        tables[-1] = n_pages
+    if pos is None:
+        pos = rng.integers(0, 3 * tokens, s)
+        pos[0], pos[-1] = min(pos[0], (pps // 2) * t - 1), 0
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    return dict(q=f(s, h, hd), k_new=f(s, hkv, hd), v_new=f(s, hkv, hd),
+                pages=torch.from_numpy(pages).to(dev),
+                tables=torch.from_numpy(tables).to(dev),
+                pos=torch.from_numpy(np.asarray(pos, np.int32)).to(dev),
+                layer=layer, kw=dict(k_off=k_off, v_off=k_off + layers * kvsz,
+                                     kv_heads=hkv, head_dim=hd, tokens=tokens,
+                                     page_tokens=t))
+
+
+def _paged_args(c):
+    return (c["q"], c["k_new"], c["v_new"], c["pages"], c["tables"],
+            c["pos"], c["layer"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 8, 80), (32, 32, 128), (40, 8, 128),
+                                   (6, 3, 40)])
+@pytest.mark.parametrize("t,tokens", [(8, 64), (16, 64), (8, 37)])
+@pytest.mark.parametrize("window", [0, 16, 4096])
+def test_paged_attention_kernel_matches_plain(cuda_device, heads, t, tokens,
+                                              window):
+    """fp32 operands at the danube, deepseek-7b and qwen3-14b head shapes
+    and an odd width (Hkv 3, hd 40), with wrapped rings, null pages, T not
+    dividing the ring and K/V blocks at an unaligned offset."""
+    h, hkv, hd = heads
+    c = _paged_case(cuda_device, h=h, hkv=hkv, hd=hd, t=t, tokens=tokens,
+                    k_off=3 if hkv == 3 else 0, seed=t + tokens + window)
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*_paged_args(c), window=window, **c["kw"])
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before + 1
+    want = ref.paged_attention(*_paged_args(c), window=window, **c["kw"])
+    torch.testing.assert_close(got, want, **TOL_PAGED)
+    again = tpa.paged_attention(*_paged_args(c), window=window, **c["kw"])
+    assert torch.equal(got, again)        # fixed order, no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 16])
+def test_paged_attention_kernel_bf16(cuda_device, window):
+    """bf16 q/k_new/v_new (the full-width cache dtype): the kernel reads the
+    fp32 pages and runs in fp32, so it equals the plain version on the
+    upcast operands up to one bf16 rounding of the output (one ulp, at most
+    2^-7 relative); the plain
+    version on the bf16 operands (the JAX oracle's numerics) rounds the
+    gathered K/V and the probabilities to bf16 first, which moves outputs
+    of size O(1) by at most a few bf16 ulps (2^-8 each)."""
+    c = _paged_case(cuda_device, dtype=torch.bfloat16, seed=5 + window)
+    got = tpa.paged_attention(*_paged_args(c), window=window, **c["kw"])
+    assert got.dtype == torch.bfloat16
+    up = dict(c, q=c["q"].float(), k_new=c["k_new"].float(),
+              v_new=c["v_new"].float())
+    want32 = ref.paged_attention(*_paged_args(up), window=window, **c["kw"])
+    torch.testing.assert_close(got.float(), want32, rtol=2 ** -7, atol=1e-5)
+    want = ref.paged_attention(*_paged_args(c), window=window, **c["kw"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_paged_attention_dispatch_routes_cuda(cuda_device):
+    dispatch.reset_report()
+    c = _paged_case(cuda_device, h=4, hkv=1, hd=32, t=4, tokens=24)
+    before = tpa.paged_attention.launches
+    dispatch.paged_attention(*_paged_args(c), window=16, **c["kw"])
+    assert tpa.paged_attention.launches == before + 1
+    assert dispatch.report()["paged_attention"] == "cuda"
