@@ -1285,6 +1285,18 @@ SERVE = dict(slots=8, prompt_len=128, max_seq=512, page_tokens=8,
              prefill_batch=8, temperature=0.0, seed=0)
 SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = (32, 96)         # max_new_tokens drawn in this range
+# Routes-agree legs where the kernel's ring and window masks bite at full
+# width (fp32, the first 8 requests: one prefill batch): (label,
+# ServingConfig changes, model overrides). "wrap": a 160-row ring under
+# 128-token prompts and 32-96 new tokens, so most rings wrap, and the
+# cursor row then holds position pos - 160, which the kernel drops as the
+# gather route's overwrite does; danube's own window (4096) stays
+# inactive. "window 96": the window cut below the prompt, so the ring is
+# 96 rows, the prefill keeps its last 96 positions and every decode step
+# masks by the window.
+ROUTE_LEGS = (("wrap", {"max_seq": 160}, {}),
+              ("window 96", {}, {"swa_window": 96}))
+ROUTE_LEG_REQUESTS = 8
 
 
 def paged_case(dev, *, heads, t, tokens, layers, s=8, seed=0):
@@ -1386,13 +1398,14 @@ def paged_kernel_checks(dev) -> dict:
 
 def paged_timings(dev) -> dict:
     """paged_attention at the serve cell's shapes (danube, 8 slots, 8-row
-    pages, 512-row rings), each slot mid-run at position 176 with the 28
-    pages its request holds (lazy allocation: prompt 128 + up to 96 new
-    tokens) and the rest null; fp32 operands. Sets cycle through the 24
-    layers' column blocks (9.2 MB of K/V a call, 220 MB a cycle, past the
-    50 MB L2). Library call: F.scaled_dot_product_attention over the
+    pages, 512-row rings), slots 0-6 mid-run at position 176 with the 28
+    pages a request holds (lazy allocation: prompt 128 + up to 96 new
+    tokens) and the rest null, slot 7 empty; fp32 operands. Sets cycle
+    through the 24 layers' column blocks (6.3 MB of K/V read a call, 151 MB
+    a cycle, past the 50 MB L2). Library call: F.scaled_dot_product_attention over the
     already-gathered contiguous ring with the boolean mask (gather
-    excluded), a cross-check only."""
+    excluded), a cross-check only. The bound counts the bytes of the rows
+    the call attends over, not of every row its held pages hold."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1450,18 +1463,25 @@ def paged_timings(dev) -> dict:
         "bf16_wrapper_ms": time_ms(
             lambda layer: paged_attention(*_paged_args(pool, torch.bfloat16),
                                           layer, **kw), sets)}}
-    # Bytes the function must move: the K and V blocks of every non-null
-    # page in the tables, q, k_new, v_new and out (fp32), tables and pos.
+    # Bytes the function must move: the K and V blocks of the rows it
+    # attends over in the pool (written rows of held pages; the cursor
+    # row's K/V comes from k_new), the table entries of the page slots
+    # those positions fall in (an entry is read to learn whether its page
+    # is held), q, k_new, v_new and out (fp32), and pos.
     non_null = int((tl != pool["pages"].shape[0] - 1).sum())
-    n_bytes = (non_null * kw["page_tokens"] * 2 * kvsz * 4
-               + (2 * s * h * hd + 2 * s * kvsz) * 4 + tl.numel() * 4 + s * 4)
+    in_ring = (spos >= 0) & (rows[None] != cur[:, None])
+    pool_rows = int((valid & in_ring).sum())
+    entries = int(in_ring.reshape(s, pps, kw["page_tokens"]).any(-1).sum())
+    n_bytes = (pool_rows * 2 * kvsz * 4
+               + (2 * s * h * hd + 2 * s * kvsz) * 4 + entries * 4 + s * 4)
     # Operations: scores and the weighted sum, 4 flops per K/V element of
-    # each valid row and query head (the rows the positions make valid).
+    # each attended row (pool rows and the new token) and query head.
     valid_rows = int(valid.sum())
     n_flops = 4 * valid_rows * h * hd
     out["paged_attention"]["bound"] = bound_ms(n_bytes, n_flops)
     print(f"paged_attention timing inputs: S={s}, {non_null} non-null pages "
-          f"of {s * pps}, {valid_rows} valid rows, {n_bytes} bytes a call")
+          f"of {s * pps}, {pool_rows} pool rows and {s} new tokens attended, "
+          f"{entries} table entries read, {n_bytes} bytes a call")
     rows_ = summarize(out, n_bytes)
     row = rows_["paged_attention"]
     print(f"timing paged_attention: bf16 operands through the wrapper "
@@ -1523,17 +1543,19 @@ def profile_decode(server, k: int = 5) -> dict:
                      e.count / k) for e in top]}
 
 
-def serve_run(dev, params, *, paged: str, overrides=None, record=False):
-    """One full serve of serve_requests() on a fresh Server (after a short
-    warm-up serve on another). Returns the report, the launch counters of
-    the measured run and, with ``record``, per request the (token, top-2
-    margin, logits) of each decode step."""
+def serve_run(dev, params, *, paged: str, overrides=None, record=False,
+              serve_kw=None, n=SERVE_REQUESTS):
+    """One full serve of serve_requests(n) on a fresh Server (after a short
+    warm-up serve on another), with SERVE changed by ``serve_kw``. Returns
+    the server, the report, the launch counters of the measured run and,
+    with ``record``, per request the (top-2 margin, logits) of each decode
+    step."""
     import torch
     from repro_torch.engine import plan as planlib
     from repro_torch.serving import Server, ServingConfig
 
     cfg = ServingConfig(arch=SERVE_ARCH, reduced=False, paged=paged,
-                        overrides=overrides, **SERVE)
+                        overrides=overrides, **{**SERVE, **(serve_kw or {})})
     warm = Server(cfg, params=params, device=dev)
     vocab = warm.api.vocab_real
     warm_reqs = serve_requests(vocab, 2)
@@ -1557,19 +1579,22 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False):
     try:
         torch.cuda.synchronize()
         reset_counters()
-        report = server.run(serve_requests(vocab))
+        report = server.run(serve_requests(vocab, n))
         launches = counters()
     finally:
         planlib._pick = pick
     return server, report, launches, steps
 
 
-def compare_routes(paged_rep, paged_steps, gather_rep, gather_steps) -> dict:
+def compare_routes(label, paged_rep, paged_steps, gather_rep, gather_steps,
+                   ring: int) -> dict:
     """Greedy tokens per request, paged route vs gather route, up to the
-    first step where either run's top-2 margin is below ROUTE_MARGIN."""
+    first step where either run's top-2 margin is below ROUTE_MARGIN.
+    Decode step j of a request runs at position prompt_len + j; those at a
+    position >= ``ring`` (the ring's rows) read a wrapped ring."""
     ptoks = {r.rid: r.tokens for r in paged_rep.completed}
     gtoks = {r.rid: r.tokens for r in gather_rep.completed}
-    compared, stops, max_diff = 0, {}, 0.0
+    compared, wrapped, stops, max_diff = 0, 0, {}, 0.0
     for rid in sorted(ptoks):
         pt, gt = ptoks[rid], gtoks[rid]
         if pt[0] != gt[0]:
@@ -1587,22 +1612,24 @@ def compare_routes(paged_rep, paged_steps, gather_rep, gather_steps) -> dict:
                     f"{gt[j + 1]} at top-2 margin {min(pm, gm)!r} >= "
                     f"{ROUTE_MARGIN}")
             compared += 1
+            wrapped += SERVE["prompt_len"] + j >= ring
     if max_diff >= ROUTE_MARGIN:
-        raise AssertionError(f"route logits differ by {max_diff!r}, not "
-                             f"below the margin {ROUTE_MARGIN}")
+        raise AssertionError(f"{label}: route logits differ by {max_diff!r}, "
+                             f"not below the margin {ROUTE_MARGIN}")
     total = sum(len(t) for t in ptoks.values())
-    print(f"routes agree (fp32): {compared} of {total} tokens compared, "
-          f"max logit difference {max_diff!r} (margin {ROUTE_MARGIN}); "
-          f"comparison stopped at a low margin for {len(stops)} requests: "
+    print(f"routes agree ({label}): {compared} of {total} tokens compared, "
+          f"{wrapped} of them from a wrapped {ring}-row ring, max logit "
+          f"difference {max_diff!r} (margin {ROUTE_MARGIN}); comparison "
+          f"stopped at a low margin for {len(stops)} requests: "
           f"{ {rid: (tok, round(m, 6)) for rid, (tok, m) in stops.items()} }")
-    return {"compared": compared, "total": total, "max_logit_diff": max_diff,
-            "stops": stops}
+    return {"compared": compared, "wrapped": wrapped, "total": total,
+            "max_logit_diff": max_diff, "stops": stops}
 
 
 def serve_path(dev) -> dict:
     """The full-width danube serve on the paged route (bf16 compute, fp32
-    params), its profile, the fp32 routes-agree leg and the bf16 gather
-    route's timing."""
+    params), its profile, the fp32 routes-agree legs (the serve cell, then
+    ROUTE_LEGS) and the bf16 gather route's timing."""
     import torch
     from repro_torch import configs as cfglib
     from repro_torch import treemath as tm
@@ -1620,15 +1647,16 @@ def serve_path(dev) -> dict:
     gens = [r.max_new_tokens for r in serve_requests(cfg.vocab_real)]
     out = {}
 
-    def run(label, paged, overrides=None, record=False):
+    def run(label, paged, overrides=None, record=False, serve_kw=None,
+            n=SERVE_REQUESTS):
         server, rep, launches, steps = serve_run(
-            dev, params, paged=paged, overrides=overrides, record=record)
+            dev, params, paged=paged, overrides=overrides, record=record,
+            serve_kw=serve_kw, n=n)
         s = rep.summary()
         got = {r.rid: len(r.tokens) for r in rep.completed}
-        if len(rep.completed) != SERVE_REQUESTS or \
-                [got[i] for i in range(SERVE_REQUESTS)] != gens:
+        if len(rep.completed) != n or [got[i] for i in range(n)] != gens[:n]:
             raise AssertionError(f"{label}: requests or token counts wrong: "
-                                 f"{got} vs {gens}")
+                                 f"{got} vs {gens[:n]}")
         if not all(all(0 <= t < cfg.vocab_real for t in r.tokens)
                    for r in rep.completed):
             raise AssertionError(f"{label}: token outside the vocab")
@@ -1660,10 +1688,23 @@ def serve_path(dev) -> dict:
     out["profile"] = prof
     del server
     f32 = {"dtype": torch.float32}
-    _, prep, psteps = run("paged fp32", "on", f32, record=True)
+    server, prep, psteps = run("paged fp32", "on", f32, record=True)
     _, grep, gsteps = run("gather fp32", "off", f32, record=True)
-    out["routes"] = compare_routes(prep, psteps, grep, gsteps)
-    del psteps, gsteps
+    out["routes"] = compare_routes("fp32", prep, psteps, grep, gsteps,
+                                   server.layout.tokens)
+    del server, psteps, gsteps
+    for leg, serve_kw, over in ROUTE_LEGS:
+        legs = [run(f"{route} fp32 {leg}", mode, {**f32, **over}, record=True,
+                    serve_kw=serve_kw, n=ROUTE_LEG_REQUESTS)
+                for route, mode in (("paged", "on"), ("gather", "off"))]
+        (server, prep, psteps), (_, grep, gsteps) = legs
+        got = compare_routes(f"fp32 {leg}", prep, psteps, grep, gsteps,
+                             server.layout.tokens)
+        if not got["wrapped"]:
+            raise AssertionError(f"routes {leg}: no compared token came from "
+                                 "a wrapped ring")
+        out[f"routes {leg}"] = got
+        del legs, server, psteps, gsteps
     run("gather bf16", "off")
     del params
     torch.cuda.empty_cache()
@@ -1677,9 +1718,8 @@ def paged_entry(timings: dict, serve: dict, errs: dict) -> dict:
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:163",
         "launches": serve["paged bf16"]["launches"],
-        "launches_by_run": {k: serve[k]["launches"]
-                            for k in ("paged bf16", "paged fp32",
-                                      "gather fp32", "gather bf16")},
+        "launches_by_run": {k: v["launches"] for k, v in serve.items()
+                            if "launches" in v},
         "max_abs_err": errs["fp32"], "max_abs_err_bf16": errs["bf16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -47,11 +47,6 @@
 // order and there are no atomics, so two calls on the same inputs are equal
 // bit for bit. Masked rows and null pages are never read. Offsets are
 // size_t (a full deepseek-7b pool passes 2^31 elements).
-//
-// A first version (one 128-thread block per (slot, kv head) staging each
-// page through shared memory, one thread per score, three barriers per
-// page) ran at 1.6% of the bound on the serve cell's shape; PERF.md keeps
-// its numbers.
 #include <cuda_runtime.h>
 
 #include <cmath>

@@ -141,16 +141,15 @@ def coherence_dots(history, g):
 
 def paged_attention(q, k_new, v_new, pages, tables, pos, layer, *,
                     k_off, v_off, kv_heads, head_dim, tokens, page_tokens,
-                    window=0, softmax_dtype=torch.float32):
+                    window=0):
     """Serve-decode attention read in place from the packed page pool
-    (``serving/cache.py``). The CUDA kernel runs its softmax in fp32
-    whatever ``softmax_dtype`` says, as the Pallas kernel does; the plain
-    version honours it."""
+    (``serving/cache.py``). Both the CUDA kernel and the plain version take
+    their scores and softmax in fp32, as the Pallas kernel does."""
     kw = dict(k_off=k_off, v_off=v_off, kv_heads=kv_heads,
               head_dim=head_dim, tokens=tokens, page_tokens=page_tokens,
               window=window)
     if _backend("paged_attention", pages) == "ref":
         return ref.paged_attention(q, k_new, v_new, pages, tables, pos,
-                                   layer, softmax_dtype=softmax_dtype, **kw)
+                                   layer, **kw)
     return _pa.paged_attention(q, k_new, v_new, pages, tables, pos, layer,
                                **kw)

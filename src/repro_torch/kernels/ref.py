@@ -114,8 +114,7 @@ def fused_update(p, m, v, stale, weights, lr, b1, b2, eps, step, scale=1.0,
 
 def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
                     k_off: int, v_off: int, kv_heads: int, head_dim: int,
-                    tokens: int, page_tokens: int, window: int = 0,
-                    softmax_dtype=torch.float32):
+                    tokens: int, page_tokens: int, window: int = 0):
     """Page-table decode attention, written as the JAX package's oracle
     (``repro/kernels/ref.py::paged_attention``) writes it. q [S,H,hd];
     k_new/v_new [S,Hkv,hd] (cache dtype); pages [P+1,T,W] packed pool
@@ -126,14 +125,15 @@ def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
     [S, C] rings and cast to the cache dtype, the new token lands on the
     ring cursor ``pos % C``, and the validity mask is the ring invariant
     ``spos(r) = pos-1-((pos-1-r) % C)`` with null-page rows masked. Scores
-    and softmax run in ``softmax_dtype``; the output is in v_new's dtype."""
+    and softmax run in fp32, as the CUDA kernel's do (the oracle's
+    ``softmax_dtype`` is every config's fp32 ``attn_softmax_dtype``); the
+    output is in v_new's dtype."""
     s, h, hd = q.shape
     hkv = kv_heads
     g = h // hkv
     kvsz = hkv * hd
     c = tokens
     null = pages.shape[0] - 1
-    sdt = softmax_dtype
     dev = q.device
     tables = tables.long()
     pos = pos.long()
@@ -158,10 +158,9 @@ def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
     valid = valid | (rows[None, :] == cur[:, None])
 
     qg = q.reshape(s, 1, hkv, g, hd)
-    scores = torch.einsum("bsngd,bknd->bngsk", qg.to(sdt), kg.to(sdt))
+    scores = torch.einsum("bsngd,bknd->bngsk", qg.float(), kg.float())
     scores = scores / math.sqrt(hd)
-    neg = -3e38 if sdt == torch.float32 else -3e4
-    scores = scores.masked_fill(~valid[:, None, None, None, :], neg)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], -3e38)
     probs = torch.softmax(scores, dim=-1).to(vg.dtype)
     out = torch.einsum("bngsk,bknd->bsngd", probs, vg)
     return out.reshape(s, h, hd)

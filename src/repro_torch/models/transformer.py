@@ -407,7 +407,8 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     leaves arrive as ``None``; their data lives in the page pool behind
     ``kv``, a ``serving.cache.PagedKV``). Each layer's attention goes
     through ``kv.attend`` (the CUDA page-table kernel, or its plain version
-    on the CPU). Returns (logits [S,1,V], the one-token cache update: k/v
+    on the CPU; both take the softmax in fp32, as the Pallas kernel does,
+    whatever ``attn_softmax_dtype`` says). Returns (logits [S,1,V], the one-token cache update: k/v
     ``[S, L, 1, 1, Hkv, hd]`` and slot_pos ``[S, L, 1]``, ready for the
     serve step's single-row page scatter)."""
     _check_supported(cfg)
@@ -425,8 +426,7 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
         k = L.apply_rotary(k, cos, sin)
         kc = k[:, 0].to(cfg.dtype)                            # [S, Hkv, hd]
         vc = v[:, 0].to(cfg.dtype)
-        out = kv.attend(i, q[:, 0], kc, vc, window=window,
-                        softmax_dtype=cfg.attn_softmax_dtype)
+        out = kv.attend(i, q[:, 0], kc, vc, window=window)
         h = h + torch.einsum("bshk,hkd->bsd", out[:, None],
                              lp["attn"]["wo"].to(cfg.dtype))
         f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)

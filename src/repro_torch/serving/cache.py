@@ -249,8 +249,7 @@ class PagedKV:
     pos: torch.Tensor       # [S] int32 absolute decode positions
     layout: PageLayout
 
-    def attend(self, layer: int, q, k_new, v_new, *, window: int = 0,
-               softmax_dtype=torch.float32):
+    def attend(self, layer: int, q, k_new, v_new, *, window: int = 0):
         """q [S,H,hd], k_new/v_new [S,Hkv,hd] (cache dtype) -> attention
         output [S,H,hd], over the ``k`` and ``v`` cache leaves."""
         views = {n: (off, shape) for n, off, shape in self.layout.leaf_views}
@@ -268,7 +267,7 @@ class PagedKV:
             q, k_new, v_new, self.pages, self.tables, self.pos, layer,
             k_off=k_off, v_off=v_off, kv_heads=hkv, head_dim=hd,
             tokens=self.layout.tokens, page_tokens=self.layout.page_tokens,
-            window=window, softmax_dtype=softmax_dtype)
+            window=window)
 
 
 def build_layout(api, max_seq: int, page_tokens: int = 8,

@@ -1,6 +1,6 @@
 """The port's paged serve plane (twin of ``tests/test_serving_paged.py``):
 route resolution (off/auto/on), the paged route against the gather route
-(greedy and sampled), lazy allocation serving ``max_seq`` past the gathered
+(greedy and sampled, and on a wrapped ring without a window), lazy allocation serving ``max_seq`` past the gathered
 pool capacity, batched prefill admission in power-of-two chunks, the fp32
 page-packing int-leaf guard and the packed row's column offsets.
 
@@ -87,6 +87,19 @@ def test_paged_matches_gather(arch, temperature):
     if temperature:
         greedy, _ = _served(make_server(arch=arch, paged="on"))
         assert out["on"] != greedy       # the draws change the tokens
+
+
+def test_paged_matches_gather_on_wrapped_ring():
+    """deepseek-7b has no window: with a ring as long as the prompt every
+    decode step reads a wrapped ring, whose cursor row holds position
+    pos - PROMPT, which the paged route drops as the gather route's
+    overwrite does (a route that kept it would change these tokens)."""
+    out = {}
+    for mode in ("on", "off"):
+        srv = make_server(paged=mode, max_seq=PROMPT)
+        assert srv.layout.tokens == PROMPT and not srv.api.cfg.swa_window
+        out[mode], _ = _served(srv)
+    assert out["on"] == out["off"]
 
 
 def test_greedy_pinned_under_paged_on():

@@ -8,13 +8,15 @@ over 1 kv head). The JAX package's ``init`` makes the weights and
 numpy. Compared: ``forward`` logits (naive and chunked attention), the
 prefill cache (including a prompt longer than the window), four
 ``decode_step``s, ``decode_step_paged`` through a ``PagedKV`` on a filled
-page pool, and ``loss_fn`` with its gradient.
+page pool (positions below and past the ring length), and ``loss_fn`` with its gradient.
 
 Tolerance: every comparison holds max |port - jax| <= 1e-5 x max |jax| (the
 two packages sum the same fp32 products in different orders). Logits are
 compared over the real vocab (the padded tail is -1e9 in both).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from repro import configs as jcfg
+from repro.kernels import dispatch as jdispatch
 from repro.models import transformer as jtr
 from repro.serving import cache as jcache
 from repro_torch import configs as tcfg
@@ -155,6 +158,21 @@ def test_decode_steps(models):
 def test_decode_step_paged_on_filled_pool(models):
     """One batched-position decode step through each package's PagedKV on
     the same random pool (positions below the ring length)."""
+    _paged_step_matches(models, lambda c: [c - 1, 9, 4])
+
+
+def test_decode_step_paged_on_wrapped_ring(models, monkeypatch):
+    """As above with every slot past its ring length. The cursor row then
+    holds position pos - C, which the port drops as the JAX oracle does;
+    the JAX side is held to its oracle (the Pallas kernel keeps that row
+    once a ring has wrapped without a window: ROADMAP C, pinned in
+    tests/test_torch_paged_attention.py)."""
+    monkeypatch.setattr(jdispatch, "CONFIG", dataclasses.replace(
+        jdispatch.CONFIG, interpret_max_elements=0))
+    _paged_step_matches(models, lambda c: [c + 3, 2 * c + 1, c])
+
+
+def _paged_step_matches(models, positions):
     _, japi, tapi, jp, tp = models
     jlay = jcache.build_layout(japi, MAX_SEQ, 4)
     tlay = tcache.build_layout(tapi, MAX_SEQ, 4, device="cpu")
@@ -165,7 +183,7 @@ def test_decode_step_paged_on_filled_pool(models):
         (n_pages + 1, tlay.page_tokens, tlay.width))).astype(np.float32)
     tables = rng.permutation(n_pages).reshape(s, pps).astype(np.int32)
     tables[1, 3:] = n_pages                                # lazy slot
-    pos = np.array([tlay.tokens - 1, 9, 4], np.int32)
+    pos = np.array(positions(tlay.tokens), np.int32)
     token = rng.integers(0, 500, (s, 1)).astype(np.int32)
     jkv = jlay.paged_kv(jnp.asarray(pages), jnp.asarray(tables),
                         jnp.asarray(pos))
