@@ -53,7 +53,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device-busy share of 5 decode steps under ``torch.profiler``; the
    same stream at fp32 on the paged and the gather route (no kernel), whose
    greedy tokens must agree up to the first near-tie; and the gather route
-   at bf16, timed for the record.
+   at bf16, timed for the record;
+9. the train path: ``flash_attention`` against its plain version at the
+   head shapes of h2o-danube-1.8b, deepseek-7b and qwen3-14b (full causal
+   at 2048, a 4096 window over 5120 keys, right-aligned Sq of 1, 17 and
+   128 over 2085 keys, bidirectional; fp32 and bf16; two calls bitwise),
+   timed beside its bound, its plain version and
+   ``F.scaled_dot_product_attention``; the full-width, full-depth
+   h2o-danube-1.8b (~1.83 B params, remat on) trained through the train
+   CLI (``repro_torch.launch.train.main``) in sync mode with
+   ``--kernels on`` (``fused_adam``), profiled, then ``--kernels off``;
+   on its trained params, every layer's attention sent through
+   ``dispatch.flash_attention`` and held against the model's own
+   attention; the same width cut to 4 layers in the ring legs through the
+   CLI (stale-psum, ssp, simulate, stale-psum top-k, SGD top-k with
+   inverse LR scaling, and stale-psum with ``--coherence``, a checkpoint
+   that restores bit for bit and a recorded trace that replays), each on
+   against off; qwen2-moe-a2.7b at full width with 1 layer, stale-psum
+   over the aggregate ring through ``make_train_engine``, on against off;
+   and kernels 1-5 timed at the LM width.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -71,9 +89,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit.
+# Published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit:
+# memory, fp32 outside the tensor cores, dense bf16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # The main path's shapes: depth-3 DNN, P = 8 workers, s = 16.
 DEPTH, WORKERS, STALENESS, BATCH, STEPS = 3, 8, 16, 32, 50
@@ -336,13 +356,14 @@ def profile_steps(engine, state, batches, k: int) -> dict:
 def reset_counters() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.coherence import coherence_dots
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
     for fn in (stale_accum, fused_adam, sparsify_topk, coherence_dots,
-               paged_attention):
+               paged_attention, flash_attention):
         fn.launches = 0
     fused_update.by_variant = dict.fromkeys(fused_update.by_variant, 0)
 
@@ -350,6 +371,7 @@ def reset_counters() -> None:
 def counters() -> dict:
     """Every kernel wrapper's launch count, fused_update by variant."""
     from repro_torch.kernels.coherence import coherence_dots
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.fused_update import fused_update
     from repro_torch.kernels.paged_attention import paged_attention
@@ -359,7 +381,8 @@ def counters() -> dict:
            "fused_adam": fused_adam.launches,
            "sparsify_topk": sparsify_topk.launches,
            "coherence_dots": coherence_dots.launches,
-           "paged_attention": paged_attention.launches}
+           "paged_attention": paged_attention.launches,
+           "flash_attention": flash_attention.launches}
     for variant, n in fused_update.by_variant.items():
         out[f"fused_update.{variant}"] = n
     return out
@@ -701,9 +724,9 @@ def time_ms(fn, arg_sets, reps: int = 60):
     return device, eager
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1726,6 +1749,813 @@ def paged_entry(timings: dict, serve: dict, errs: dict) -> dict:
         "eager_ms": t["eager_ms"], "bf16_wrapper_ms": t["bf16_wrapper_ms"]}
 
 
+# -- phase 9: the train path -------------------------------------------------
+
+# flash_attention, fp32 operands: the kernel's online softmax (a running max
+# and rescale per 32-key tile) and the plain version's one-shot softmax
+# round differently; outputs are convex combinations of O(1) values.
+TOL_FLASH = dict(rtol=1e-5, atol=1e-5)
+# bf16 operands: kernel and plain version compute in fp32 from the same
+# bf16 values and round the output to bf16 once, so they differ by at most
+# one bf16 rounding (one ulp, 2^-7 relative at most).
+TOL_FLASH_BF16 = dict(rtol=2 ** -7, atol=1e-5)
+# Against the model's own attention (``_attend``) at the model's bf16
+# compute: the model rounds the probabilities to bf16 before the weighted
+# sum (a relative error <= 2^-9 on each term) and rounds the output to
+# bf16, so |kernel - model| <= 2^-8 * max|v| + one output ulp (2^-8 of
+# max|out|). The limit is 2^-7 * (max|v| + max|out|).
+FLASH_MODEL_REL = 2 ** -7
+# (arch, (H, Hkv, hd)): the danube leg's heads, deepseek-7b's MHA and
+# qwen3-14b's 40-over-8 GQA.
+FLASH_HEADS = (("h2o-danube-1.8b", (32, 8, 80)),
+               ("deepseek-7b", (32, 32, 128)),
+               ("qwen3-14b", (40, 8, 128)))
+# (label, B, Sq, Sk, causal, window): full causal, a window that bites
+# (danube's 4096 over 5120 keys), right-aligned queries over a key count
+# that is not a multiple of the 32-key tile, and no mask at all.
+FLASH_CASES = (("2048 causal", 1, 2048, 2048, True, 0),
+               ("5120 window 4096", 1, 5120, 5120, True, 4096),
+               ("Sq 1 of Sk 2085", 2, 1, 2085, True, 0),
+               ("Sq 17 of Sk 2085", 2, 17, 2085, True, 0),
+               ("Sq 128 of Sk 2085", 2, 128, 2085, True, 0),
+               ("2048 bidirectional", 1, 2048, 2048, False, 0))
+
+# The train phase. The full-config leg: h2o-danube-1.8b at full width and
+# depth (24 layers, ~1.83 B params, fp32 params, bf16 compute, remat on)
+# through the train CLI in sync mode with the fused-Adam opt-in. Memory
+# (fp32, 7.32 GB a copy of the params): params, Adam m and v (22.0 GB);
+# during the update the packed gradient, the zero p, the kernel's p', m',
+# v' and the new params (six more copies, 43.9 GB): ~66 GB at the peak,
+# under 80 GB. The backward pass holds params, moments, gradients (29.3
+# GB) and, with remat, each layer's input (8 x 1024 x 2560 bf16, 42 MB x
+# 24) plus one layer's recomputed activations and the logits (8 x 1024 x
+# 32000: ~1 GB in fp32 per copy, a few copies): ~40 GB. So batch 8 at
+# seq 1024 fits; batch 16 would double the activations only. Measured on
+# the H100: a peak of 66.0 GB (PERF.md, PR 15).
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_FULL = dict(batch=8, seq=1024, steps=4, timed=3, profile=2)
+# Ring legs: the same width with the depth cut to 4 of 24 layers (~0.44 B
+# params, 1.77 GB a copy), P = 2 workers, s = 3: a [3, 2, D] ring of
+# 10.6 GB, [2, D] per-worker gradients, packed copies and (compressed)
+# residuals and EF operands, under ~50 GB for any leg.
+TRAIN_RING = dict(layers=4, workers=2, stale=3, batch=4, seq=256, steps=4,
+                  timed=3, profile=2)
+# (name, CLI flags, launches per step with kernels on, with kernels off).
+TRAIN_LEGS = (
+    ("stale-psum adam", dict(mode="stale-psum"), dict(fused_update_plain=1),
+     {}),
+    ("ssp adam", dict(mode="ssp"), dict(fused_update_plain=1), {}),
+    ("simulate adam", dict(mode="simulate"),
+     dict(stale_accum=1, fused_adam=1), {}),
+    ("stale-psum adam topk", dict(mode="stale-psum", compress="topk:0.1"),
+     dict(fused_update_ef=1), dict(sparsify_topk=1)),
+    ("stale-psum sgd topk+inverse",
+     dict(mode="stale-psum", optimizer="sgd", compress="topk:0.1",
+          lr_scale="inverse"),
+     dict(sparsify_topk=1, stale_accum=1), dict(sparsify_topk=1)),
+    ("stale-psum adam coherence", dict(mode="stale-psum", coherence=True),
+     dict(fused_update_plain=1, coherence_dots=1), {}),
+)
+# The MoE leg: qwen2-moe-a2.7b at full width (d_model 2048, 64 experts of
+# which 60 are real, top-4, the 5632-wide shared expert, vocab 151,936)
+# with 1 of 24 layers (~1.23 B params, 4.9 GB a copy), stale-psum over the
+# aggregate ring (one [D] row a slot, s = 2) through make_train_engine.
+MOE_ARCH = "qwen2-moe-a2.7b"
+TRAIN_MOE = dict(layers=1, workers=2, stale=2, batch=4, seq=256, steps=4)
+# Kernels on vs off on the LM legs, over their few steps: the two layouts
+# round Adam's update differently, the gradients then part at roundoff
+# (bf16 compute, and the embedding's backward accumulates in no fixed
+# order), and Adam turns that into up to 2 * lr on elements whose gradient
+# lies within that roundoff of zero. How far that takes a leg is measured
+# in the same run: its sound witness is the kernels-off leg run again from
+# the initial params nudged up by one ulp, held against the kernels-off
+# leg. On vs off may part at most WITNESS_FACTOR times as far as the
+# witness, in the per-step loss (``loss``) and in the relative L2 distance
+# of the two runs' updates (``rel``: params minus the shared init), and
+# never less than LM_FLOOR (for legs whose runs agree to the bit). On the
+# H100 the witness parts 5-18% in ``rel`` over 4 steps, and on vs off
+# reaches at most 0.39 of the witness on any leg and either metric
+# (PERF.md, PR 15), so a factor of 2 leaves 5x room.
+WITNESS_FACTOR = 2.0
+LM_FLOOR = dict(loss=1e-5, rel=1e-5)
+
+
+def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Query-key pairs a (batch, head) attends over under the masks."""
+    if not causal and not window:
+        return sq * sk
+    pos = [i + sk - sq for i in range(sq)]
+    lo = [max(0, p - window + 1) if window else 0 for p in pos]
+    return sum(p + 1 - a for p, a in zip(pos, lo))
+
+
+def flash_inputs(dev, b, sq, sk, heads, dtype, seed):
+    import torch
+    h, hkv, hd = heads
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=dev).to(dtype)
+    return rnd(b, sq, h, hd), rnd(b, sk, hkv, hd), rnd(b, sk, hkv, hd)
+
+
+def flash_kernel_checks(dev) -> dict:
+    """flash_attention vs its plain version over FLASH_HEADS x FLASH_CASES,
+    fp32 and bf16 operands, two calls bitwise. Returns the max abs errors
+    at the danube heads."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    errs = {"fp32": 0.0, "bf16": 0.0}
+    for i, (arch, heads) in enumerate(FLASH_HEADS):
+        for j, (label, b, sq, sk, causal, window) in enumerate(FLASH_CASES):
+            q, k, v = flash_inputs(dev, b, sq, sk, heads, torch.float32,
+                                   seed=100 * i + j)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            e32 = check_close(f"flash_attention {arch} {label}", got,
+                              ref.flash_attention(q, k, v, causal=causal,
+                                                  window=window), **TOL_FLASH)
+            if not torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                                    window=window)):
+                raise AssertionError(f"flash_attention {arch} {label}: two "
+                                     "calls on the same inputs differ")
+            q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            e16 = check_close(f"flash_attention {arch} {label} bf16",
+                              got.float(), ref.flash_attention(
+                                  q, k, v, causal=causal,
+                                  window=window).float(), **TOL_FLASH_BF16)
+            print(f"flash_attention {arch} {heads} {label} (B={b} Sq={sq} "
+                  f"Sk={sk}): fp32 max_abs_err={e32!r} (tol {TOL_FLASH}); "
+                  f"bf16 {e16!r} (tol {TOL_FLASH_BF16}); bitwise replay ok")
+            if i == 0:
+                errs["fp32"] = max(errs["fp32"], e32)
+                errs["bf16"] = max(errs["bf16"], e16)
+            del q, k, v, got
+    torch.cuda.synchronize(dev)
+    return errs
+
+
+def flash_timings(dev) -> dict:
+    """flash_attention at the danube leg's attention shape (B = 8, 1024
+    tokens, 32 heads over 8, hd 80, bf16, causal; danube's window 4096
+    exceeds the sequence) and at B = 1, 2048 tokens in fp32: kernel, plain
+    version and F.scaled_dot_product_attention with the same mask (a
+    cross-check only; the port never calls it). Bound: max(4 * B * H * hd
+    * attended pairs / peak for the operand type, (q + k + v + out) bytes
+    / 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rows = {}
+    for label, b, s, dtype, peak in (
+            ("bf16 B8 S1024", TRAIN_FULL["batch"], TRAIN_FULL["seq"],
+             torch.bfloat16, PEAK_BF16_FLOPS),
+            ("fp32 B1 S2048", 1, 2048, torch.float32, PEAK_FP32_FLOPS)):
+        h, hkv, hd = FLASH_HEADS[0][1]
+        sets = [flash_inputs(dev, b, s, s, (h, hkv, hd), dtype, seed=7 + i)
+                for i in range(2)]
+        lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in qkv)
+                    for qkv in sets]
+        out = {"ms": time_ms(lambda q, k, v: flash_attention(
+                   q, k, v, causal=True, window=4096), sets, reps=20),
+               "plain_ms": time_ms(lambda q, k, v: ref.flash_attention(
+                   q, k, v, causal=True, window=4096), sets, reps=20),
+               "library_ms": time_ms(
+                   lambda q, k, v: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True), lib_sets,
+                   reps=20)}
+        pairs = attended_pairs(s, s, True, 4096)
+        n_flops = 4 * b * h * hd * pairs
+        n_bytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * sets[0][0].element_size()
+        out["bound"] = bound_ms(n_bytes, n_flops, peak)
+        print(f"flash_attention timing inputs {label}: {pairs} pairs a "
+              f"(batch, head), {n_flops} flops, {n_bytes} bytes")
+        row = summarize({f"flash_attention {label}": out}, b * s)
+        # SDPA rounds its probabilities to the operand type before the
+        # weighted sum, as the model's attention does: the same limit.
+        q, k, v = sets[0]
+        sd = F.scaled_dot_product_attention(*lib_sets[0], is_causal=True,
+                                            enable_gqa=True).transpose(1, 2)
+        got = flash_attention(q, k, v, causal=True, window=4096).float()
+        err = max_abs(got, sd.float())
+        lim = (FLASH_MODEL_REL * (float(v.float().abs().max())
+                                  + float(sd.float().abs().max()))
+               if dtype == torch.bfloat16 else TOL_FLASH["atol"]
+               + TOL_FLASH["rtol"] * float(sd.abs().max()))
+        print(f"SDPA cross-check {label} vs kernel: max_abs_err={err!r} "
+              f"(limit {lim!r})")
+        if err > lim:
+            raise AssertionError(f"SDPA cross-check {label}: {err!r} > "
+                                 f"{lim!r}")
+        rows.update(row)
+        del sets, lib_sets
+    return rows
+
+
+def cut_arch(arch_id: str, layers: int) -> str:
+    """Register ``arch_id`` with its depth cut to ``layers`` (every width
+    kept) under a new id, so the train CLI can run it; returns the id."""
+    import dataclasses
+    from repro_torch import configs as cfglib
+    base = cfglib.get(arch_id)
+    cut_id = f"{arch_id}-{layers}l"
+
+    def make_config(reduced=False, long_ctx=False):
+        return dataclasses.replace(
+            base.make_config(reduced=reduced, long_ctx=long_ctx),
+            num_layers=layers)
+
+    cfglib.REGISTRY[cut_id] = dataclasses.replace(
+        base, arch_id=cut_id, make_config=make_config,
+        notes=f"{arch_id} with {layers} layers (depth cut)")
+    return cut_id
+
+
+def cli_argv(arch: str, **flags) -> list:
+    argv = ["--arch", arch]
+    for key, value in flags.items():
+        flag = "--" + key.replace("_", "-")
+        argv += [flag] if value is True else [flag, str(value)]
+    return argv
+
+
+def to_host(tree):
+    from repro_torch import treemath as tm
+    return tm.tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def train_cli(dev, argv: list, *, batch: int, seq: int, workers: int = 0,
+              timed: int = 0, profile: int = 0, params=None) -> dict:
+    """One run of the train CLI (``repro_torch.launch.train.main``) with
+    every launch counter zeroed just before and read just after; the
+    final params come back on the host. Then ``timed`` more steps on the
+    host clock between syncs and ``profile`` steps under the profiler."""
+    import gc
+    import torch
+    from repro_torch.launch import train
+
+    if dev.type == "cpu":             # a rehearsal at reduced size
+        argv = argv + ["--cpu"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    reset_counters()
+    t0 = time.perf_counter()
+    ret = train.main(argv, params=params)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = counters()
+    # Only the local name keeps the final state (at full width a second
+    # reference would hold a second copy of params and moments).
+    engine, result = ret.pop("engine"), ret.pop("result")
+    state, result.state = result.state, None
+    out = {"launches": launches, "wall_s": wall,
+           "losses": [row["loss"] for row in result.history],
+           "history": result.history,
+           "params": to_host(engine.params(state)),
+           "meta": engine.meta["kernels"], "start_mem_gb": start_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if timed or profile:
+        batches = train_batches(argv, batch, seq, workers)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = engine.step(state, next(batches))
+        torch.cuda.synchronize(dev)
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / max(timed, 1)
+        # Hand the state over without keeping a reference here.
+        box = [state]
+        del state
+        out["profile"] = (profile_steps(engine, box.pop(), batches, profile)
+                          if profile else None)
+    else:
+        del state
+    del ret, result, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_batches(argv: list, batch: int, seq: int, workers: int):
+    """An endless iterator of fresh CLI-style batches (seed 7) for the
+    arch named in ``argv``."""
+    from repro_torch import configs as cfglib
+    from repro_torch.launch import train
+    api = cfglib.get(argv[argv.index("--arch") + 1]).api()
+    next_batch = train.make_batch_fn(api, batch, seq, 7, workers=workers)
+    while True:
+        yield next_batch()
+
+
+def init_params(dev, arch: str, seed: int = 0):
+    """The CLI's initial params of ``arch`` (its engine inits from the
+    seed on ``dev``), on the host."""
+    import torch
+    from repro_torch import configs as cfglib
+    params, _ = cfglib.get(arch).api().init(seed, device=dev)
+    host = to_host(params)
+    del params
+    torch.cuda.empty_cache()
+    return host
+
+
+def lm_distance(dev, on: dict, off: dict, p0) -> dict:
+    """How far two LM runs part: the max per-step loss difference, and the
+    relative L2 distance of their updates (params minus the shared init
+    ``p0``), leaf by leaf on the card."""
+    import torch
+    from repro_torch import treemath as tm
+    dloss = max(abs(a - b) for a, b in zip(on["losses"], off["losses"]))
+    diff = norm = 0.0
+    for a, b, c in zip(tm.tree_leaves(on["params"]),
+                       tm.tree_leaves(off["params"]), tm.tree_leaves(p0)):
+        a, b, c = (x.to(dev).double() for x in (a, b, c))
+        diff += float(((a - b) ** 2).sum())
+        norm += float(((b - c) ** 2).sum())
+        del a, b, c
+    torch.cuda.empty_cache()
+    return {"loss": dloss, "rel": (diff ** 0.5) / max(norm ** 0.5, 1e-30)}
+
+
+def nudged(params):
+    """Every param moved up by one ulp: a roundoff-sized perturbation."""
+    import torch
+    from repro_torch import treemath as tm
+    return tm.tree_map(
+        lambda x: torch.nextafter(x, torch.full_like(x, float("inf"))),
+        params)
+
+
+def check_lm_pair(dev, name, on, off, witness, p0, failures: list) -> dict:
+    """Holds ``on`` against ``off`` within WITNESS_FACTOR times how far
+    ``witness`` (off from nudged params) parts from ``off``; records a
+    failure instead of raising, so one run reports every leg."""
+    import math
+    dist = lm_distance(dev, on, off, p0)
+    wit = lm_distance(dev, witness, off, p0)
+    limit = {k: max(WITNESS_FACTOR * wit[k], LM_FLOOR[k]) for k in dist}
+    print(f"train {name}: on vs off {json.dumps(dist)}; witness (off from "
+          f"one ulp up) vs off {json.dumps(wit)}; limit {json.dumps(limit)}; "
+          f"losses on {on['losses']} off {off['losses']} witness "
+          f"{witness['losses']}")
+    for run in (on, off, witness):
+        if not all(math.isfinite(x) for x in run["losses"]):
+            failures.append(f"{name}: non-finite loss")
+    over = [key for key in dist if dist[key] > limit[key]]
+    if over:
+        failures.append(f"{name}: kernels on and off part further than the "
+                        f"witness allows ({over})")
+    return {"on_vs_off": dist, "witness": wit, "limit": limit}
+
+
+def check_counts(name, run, want, failures: list) -> None:
+    print(f"train {name}: launches {run['launches']} (expected {want}); "
+          f"routing {run['meta']}")
+    if run["launches"] != want:
+        failures.append(f"{name}: launch counts {run['launches']} != {want}")
+
+
+def flash_route(dev, params, cfg, tokens, failures: list) -> dict:
+    """The full-width danube forward with every layer's attention sent
+    through ``dispatch.flash_attention`` (the route the JAX package gives
+    its flash kernel), with the launch counters zeroed just before and read
+    just after. The residual stream goes on with the model's own attention
+    (``_attend``, bf16 compute), so each layer's kernel output can then be
+    held against it on the same q/k/v, and, with the operands cast up,
+    against ``_attend`` in fp32."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tr
+
+    window = cfg.swa_window or 0
+    b, s = tokens.shape
+    mask = (L.sliding_window_mask(s, s, 0, window, dev) if window
+            else L.causal_mask(s, s, 0, dev))[None]
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+    cos, sin = L.rotary(cfg.rope_theta, positions, cfg.head_dim)
+    layers = []
+    with torch.no_grad():
+        reset_counters()
+        h = params["embed"].to(cfg.dtype)[tokens.long()]
+        for i in range(cfg.num_layers):
+            lp = tr._layer(params, i)
+            a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = tr._project_qkv(lp["attn"], a_in, a_in, cfg)
+            q, k = L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin)
+            got = dispatch.flash_attention(q, k, v, causal=True,
+                                           window=window)
+            want = tr._attend(q, k, v, mask, cfg)
+            layers.append((q, k, v, got, want))
+            h = h + torch.einsum("bshk,hkd->bsd", want,
+                                 lp["attn"]["wo"].to(cfg.dtype))
+            f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+            h = h + tr._ffn(lp, f_in, cfg)[0]
+        torch.cuda.synchronize(dev)
+        launches = counters()
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        err16 = err32 = 0.0
+        for i, (q, k, v, got, want) in enumerate(layers):
+            e16 = max_abs(got.float(), want.float())
+            lim = FLASH_MODEL_REL * (float(v.float().abs().max())
+                                     + float(want.float().abs().max()))
+            if e16 > lim:
+                failures.append(f"flash_attention vs the model's attention, "
+                                f"layer {i}: {e16!r} > {lim!r}")
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            got32 = flash_attention(q32, k32, v32, causal=True, window=window)
+            want32 = tr._attend(q32, k32, v32, mask, cfg32)
+            e32 = max_abs(got32, want32)
+            if not torch.allclose(got32, want32, **TOL_FLASH):
+                failures.append(f"flash_attention vs _attend fp32, layer "
+                                f"{i}: max_abs_err {e32!r}")
+            err16, err32 = max(err16, e16), max(err32, e32)
+    others = {k: n for k, n in launches.items() if k != "flash_attention" and n}
+    if launches["flash_attention"] != cfg.num_layers or others:
+        failures.append(f"flash_attention route: launches {launches}")
+    print(f"flash_attention route: {cfg.num_layers} layers of the trained "
+          f"{TRAIN_ARCH} at B={b}, S={s}: launches {launches}; vs the "
+          f"model's attention max_abs_err bf16 {err16!r} (limit "
+          f"{FLASH_MODEL_REL} x (max|v| + max|out|)), fp32 {err32!r} "
+          f"(tol {TOL_FLASH})")
+    return {"launches": launches["flash_attention"],
+            "model_err_bf16": err16, "model_err_fp32": err32}
+
+
+def full_config_leg(dev, failures: list) -> dict:
+    """The full-config danube leg through the train CLI, kernels on (the
+    main path) then off, and the flash_attention route on the trained
+    params."""
+    import gc
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+
+    f = TRAIN_FULL
+    flags = dict(steps=f["steps"], batch=f["batch"], seq=f["seq"], stale=0,
+                 workers=1, log_every=1, seed=0)
+    p0 = init_params(dev, TRAIN_ARCH)
+    n_params = sum(x.numel() for x in tm.tree_leaves(p0))
+    on = train_cli(dev, cli_argv(TRAIN_ARCH, kernels="on", **flags),
+                   batch=f["batch"], seq=f["seq"], timed=f["timed"],
+                   profile=f["profile"])
+    check_counts("full danube on", on, expect(f["steps"], fused_adam=1),
+                 failures)
+    print(f"train full danube: {n_params} params, losses {on['losses']}, "
+          f"ms_per_step {on['ms_per_step']!r} (mean of {f['timed']} steps "
+          f"after {f['steps']}, host clock between syncs), peak memory "
+          f"{on['peak_mem_gb']:.1f} GB ({on['start_mem_gb']:.2f} GB "
+          f"allocated before the run), CLI wall {on['wall_s']:.1f} s")
+    print(f"profile train full danube: {json.dumps(on['profile'])}")
+    cfg = cfglib.get(TRAIN_ARCH).api().cfg
+    params = tm.tree_map(lambda x: x.to(dev), on["params"])
+    tokens = next(train_batches(cli_argv(TRAIN_ARCH), 2, f["seq"], 0))
+    tokens = torch.as_tensor(tokens["tokens"][:, :-1], device=dev)
+    route = flash_route(dev, params, cfg, tokens, failures)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    off_argv = cli_argv(TRAIN_ARCH, kernels="off", **flags)
+    off = train_cli(dev, off_argv, batch=f["batch"], seq=f["seq"])
+    check_counts("full danube off", off, expect(f["steps"]), failures)
+    witness = train_cli(dev, off_argv, batch=f["batch"], seq=f["seq"],
+                        params=nudged(p0))
+    dist = check_lm_pair(dev, "full danube", on, off, witness, p0, failures)
+    out = {"n_params": n_params, "losses_on": on["losses"],
+           "losses_off": off["losses"], "distance": dist,
+           "ms_per_step": on["ms_per_step"], "profile": on["profile"],
+           "peak_mem_gb": on["peak_mem_gb"], "launches": on["launches"],
+           "route": route}
+    del on, off, witness, p0
+    gc.collect()
+    return out
+
+
+def ring_legs(dev, tmp: str, failures: list) -> dict:
+    """The cut-depth danube legs through the train CLI, each kernels on
+    against kernels off; the coherence leg also checkpoints (the snapshot
+    restores bit for bit) and records a trace (which then replays)."""
+    import gc
+    import torch
+    from repro_torch import treemath as tm
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    r = TRAIN_RING
+    arch = cut_arch(TRAIN_ARCH, r["layers"])
+    p0 = init_params(dev, arch)
+    n_params = sum(x.numel() for x in tm.tree_leaves(p0))
+    print(f"train ring legs: {arch}, {n_params} params, P={r['workers']}, "
+          f"s={r['stale']}, batch {r['batch']} x seq {r['seq']}, "
+          f"{r['steps']} steps")
+    base = dict(steps=r["steps"], batch=r["batch"], seq=r["seq"],
+                stale=r["stale"], workers=r["workers"], log_every=1, seed=0)
+    out = {"arch": arch, "n_params": n_params}
+    for i, (name, flags, per_on, per_off) in enumerate(TRAIN_LEGS):
+        runs = {}
+        for kernels in ("on", "off"):
+            extra = dict(flags)
+            if flags.get("coherence") and kernels == "on":
+                extra.update(ckpt_dir=os.path.join(tmp, "ckpt"),
+                             ckpt_every=r["steps"],
+                             trace_out=os.path.join(tmp, "trace.jsonl"))
+            timing = (i == 0 and kernels == "on")
+            workers = r["workers"] if flags["mode"] == "simulate" else 0
+            runs[kernels] = train_cli(
+                dev, cli_argv(arch, kernels=kernels, **base, **extra),
+                batch=r["batch"], seq=r["seq"], workers=workers,
+                timed=r["timed"] if timing else 0,
+                profile=r["profile"] if timing else 0)
+        on, off = runs["on"], runs["off"]
+        runs["witness"] = train_cli(
+            dev, cli_argv(arch, kernels="off", **base, **flags),
+            batch=r["batch"], seq=r["seq"], params=nudged(p0))
+        row = {"distance": check_lm_pair(dev, name, on, off, runs["witness"],
+                                         p0, failures),
+               "launches": on["launches"], "losses_on": on["losses"],
+               "peak_mem_gb": on["peak_mem_gb"], "wall_s": on["wall_s"]}
+        check_counts(f"{name} on", on, expect(r["steps"], **per_on),
+                     failures)
+        check_counts(f"{name} off", off, expect(r["steps"], **per_off),
+                     failures)
+        if "ms_per_step" in on:
+            row["ms_per_step"] = on["ms_per_step"]
+            row["profile"] = on["profile"]
+            print(f"train {name}: ms_per_step {on['ms_per_step']!r} (mean "
+                  f"of {r['timed']} steps after {r['steps']}); profile "
+                  f"{json.dumps(on['profile'])}")
+        if flags.get("coherence"):
+            mu_on = [h.get("mu") for h in on["history"]]
+            mu_off = [h.get("mu") for h in off["history"]]
+            print(f"train {name}: mu on {mu_on} off {mu_off}")
+            if None in mu_on or any(abs(a - b) > 1e-3
+                                    for a, b in zip(mu_on, mu_off)):
+                failures.append(f"{name}: mu on {mu_on} vs off {mu_off}")
+            path = ckpt.step_path(os.path.join(tmp, "ckpt"), r["steps"])
+            like = on["params"]
+            restored, step, _ = ckpt.restore(path, like)
+            same = all(torch.equal(a, b.cpu()) for a, b in zip(
+                tm.tree_leaves(on["params"]), tm.tree_leaves(restored)))
+            print(f"train {name}: checkpoint of step {step} restores bit "
+                  f"for bit: {same}")
+            if not same or step != r["steps"]:
+                failures.append(f"{name}: checkpoint does not restore")
+            del restored
+            replay = train_cli(dev, cli_argv(
+                arch, kernels="on", mode="stale-psum", steps=2,
+                batch=r["batch"], seq=r["seq"], stale=r["stale"],
+                workers=r["workers"], log_every=1,
+                trace=os.path.join(tmp, "trace.jsonl")),
+                batch=r["batch"], seq=r["seq"])
+            staleness = [h["mean_staleness"] for h in replay["history"]]
+            print(f"train {name}: the recorded trace replays through "
+                  f"--trace: losses {replay['losses']}, mean staleness "
+                  f"{staleness}")
+            row["replay_losses"] = replay["losses"]
+            del replay
+        out[name] = row
+        del runs, on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    del p0
+    return out
+
+
+def moe_leg(dev, failures: list) -> dict:
+    """qwen2-moe-a2.7b at full width, depth cut, stale-psum over the
+    aggregate ring through make_train_engine, kernels on against off;
+    losses and the final params' MoE aux loss finite and close."""
+    import gc
+    import math
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine import Trainer
+    from repro_torch.engine.plan import make_train_engine
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tr
+
+    m = TRAIN_MOE
+    arch = cut_arch(MOE_ARCH, m["layers"])
+    api = cfglib.get(arch).api()
+    shape = InputShape("train_moe", m["seq"], m["batch"], "train")
+    probe = next(train_batches(cli_argv(arch), m["batch"], m["seq"], 0))
+    probe = torch.as_tensor(probe["tokens"][:, :-1], device=dev)
+    p0 = init_params(dev, arch)
+    runs = {}
+    for label, kernels, start in (("on", "on", None), ("off", "off", None),
+                                  ("witness", "off", nudged(p0))):
+        engine = make_train_engine(
+            arch, shape, mode="stale-psum", stale_s=m["stale"],
+            num_workers=m["workers"], per_worker_delays=False,
+            kernels=kernels, megakernel="auto" if kernels == "on" else "off",
+            device=dev)
+        reset_counters()
+        # The Trainer inits the state itself (seed 0, or the nudged
+        # params), so no reference here holds the initial state.
+        res = Trainer(engine).run(
+            train.make_batch_fn(api, m["batch"], m["seq"], 0), m["steps"],
+            init_seed=0, params=start, log_every=1)
+        torch.cuda.synchronize(dev)
+        launches = counters()
+        params = engine.params(res.state)
+        with torch.no_grad():
+            aux = float(tr.forward(params, probe, api.cfg)[1])
+        runs[label] = {"losses": [h["loss"] for h in res.history],
+                         "params": to_host(params), "aux": aux,
+                         "launches": launches, "meta": engine.meta["kernels"],
+                         "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                         / 1e9}
+        del engine, res, params, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    n_params = sum(x.numel() for x in tm.tree_leaves(p0))
+    dist = check_lm_pair(dev, f"moe {arch}", on, off, runs["witness"], p0,
+                         failures)
+    check_counts("moe on", on, expect(m["steps"], fused_update_plain=1),
+                 failures)
+    check_counts("moe off", off, expect(m["steps"]), failures)
+    wit = runs["witness"]["aux"]
+    aux_limit = max(WITNESS_FACTOR * abs(wit - off["aux"]), LM_FLOOR["loss"])
+    print(f"train moe {arch}: {n_params} params, aux loss on {on['aux']!r} "
+          f"off {off['aux']!r} witness {wit!r} (limit on vs off "
+          f"{aux_limit!r})")
+    if not (math.isfinite(on["aux"]) and on["aux"] > 0
+            and abs(on["aux"] - off["aux"]) <= aux_limit):
+        failures.append(f"moe: aux loss on {on['aux']!r} off {off['aux']!r}")
+    out = {"arch": arch, "n_params": n_params, "distance": dist,
+           "losses_on": on["losses"], "aux_on": on["aux"],
+           "aux_off": off["aux"], "launches": on["launches"],
+           "peak_mem_gb": on["peak_mem_gb"]}
+    del runs, on, off, p0
+    gc.collect()
+    return out
+
+
+def lm_kernel_timings(dev, width: int, workers: int) -> dict:
+    """Kernels 1-5 at the ring legs' LM width (D_pad = ``width``, P =
+    ``workers``): stale_accum over the [P, D] ring rows (the SGD top-k
+    leg's aggregate), fused_adam over [P * D] (simulate), fused_update
+    plain and ef over P rows, sparsify_topk over [P, D], coherence_dots
+    at W = 4 (the coherence leg's window). One set each: every call reads
+    GBs, past the 50 MB L2."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coherence import coherence_dots
+    from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.kernels.fused_update import fused_update
+    from repro_torch.kernels.sparsify import sparsify_topk
+    from repro_torch.kernels.stale_accum import stale_accum
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    d, p = width, workers
+    out = {}
+    sets = [(torch.zeros(d, device=dev), rnd(p, d),
+             torch.full((p,), 1.0 / p, device=dev))]
+    out["stale_accum"] = {
+        "ms": time_ms(stale_accum, sets, reps=10),
+        "plain_ms": time_ms(ref.stale_accum, sets, reps=10),
+        "library_ms": time_ms(lambda x, buf, w: torch.addmv(x, buf.t(), w),
+                              sets, reps=10),
+        "bound": bound_ms((p * d + 2 * d + p) * 4, 2 * p * d)}
+    del sets
+    n = p * d
+    sets = [(torch.zeros(n, device=dev), 0.1 * rnd(n),
+             0.01 * torch.rand(n, generator=gen, device=dev), rnd(n))]
+    steps = torch.full((1,), 10.0, device=dev)
+    out["fused_adam"] = {
+        "ms": time_ms(lambda a, b, c, g: fused_adam(
+            a, b, c, g, 1e-3, 0.9, 0.999, 1e-8, 10), sets, reps=10),
+        "plain_ms": time_ms(lambda a, b, c, g: ref.fused_adam(
+            a, b, c, g, 1e-3, 0.9, 0.999, 1e-8, 10), sets, reps=10),
+        "library_ms": time_ms(lambda a, b, c, g: torch._fused_adam_(
+            [a], [g], [b], [c], [], [steps], lr=1e-3, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False), sets, reps=10),
+        "bound": bound_ms(7 * n * 4, 16 * n)}
+    del sets
+    torch.cuda.empty_cache()
+    for label, variant in (("plain", "plain"), ("ef", "ef")):
+        ops = update_operands(dev, p, d, seed=300)
+
+        def kernel(ops, variant=variant):
+            args, kw = variant_args(ops, variant, True)
+            return fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                                ops["scale"], **kw)
+
+        def plain(ops, variant=variant):
+            args, kw = variant_args(ops, variant, True)
+            return ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
+                                    ops["scale"], **kw)
+
+        out[f"fused_update.{label}"] = {
+            "ms": time_ms(kernel, [(ops,)], reps=10),
+            "plain_ms": time_ms(plain, [(ops,)], reps=10),
+            "library_ms": (None, None),
+            "bound": update_bound(ops, variant, True)}
+        if label == "ef":
+            out["sparsify_topk"] = {
+                "ms": time_ms(lambda o: sparsify_topk(o["acc"], o["thr"]),
+                              [(ops,)], reps=10),
+                "plain_ms": time_ms(lambda o: ref.sparsify_mask(
+                    o["acc"], o["thr"]), [(ops,)], reps=10),
+                "library_ms": (None, None),
+                "bound": bound_ms(3 * p * d * 4 + p * 4, 3 * p * d)}
+        del ops
+        torch.cuda.empty_cache()
+    w = 4
+    sets = [(rnd(w, d), rnd(d))]
+    out["coherence_dots"] = {
+        "ms": time_ms(coherence_dots, sets, reps=10),
+        "plain_ms": time_ms(ref.coherence_dots, sets, reps=10),
+        "library_ms": time_ms(lambda hh, g: torch.mv(hh, g), sets, reps=10),
+        "bound": bound_ms(((w + 1) * d + 2 * w + 1) * 4, (4 * w + 2) * d)}
+    del sets
+    torch.cuda.empty_cache()
+    return {f"{k} lm": v for k, v in summarize(out, d).items()}
+
+
+def train_path(dev, tmp: str) -> dict:
+    """Phase 9: flash_attention against its plain version and timed; the
+    full-config danube leg (with the flash route); the cut-depth ring legs;
+    the MoE leg; kernels 1-5 timed at the LM width. Every leg runs before
+    any failure is raised."""
+    import gc
+    import torch
+    # Full-width training needs the card empty: free whatever earlier
+    # phases left to the cyclic collector.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train phase: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          "allocated at its start")
+    failures = []
+    out = {"flash_errs": flash_kernel_checks(dev)}
+    out["flash_timings"] = flash_timings(dev)
+    out["full"] = full_config_leg(dev, failures)
+    out["ring"] = ring_legs(dev, tmp, failures)
+    out["moe"] = moe_leg(dev, failures)
+    from repro_torch import treemath as tm
+    from repro_torch.kernels import dispatch
+    width = tm.padded_size(out["ring"]["n_params"], dispatch.PACK_ALIGN)
+    out["lm_timings"] = lm_kernel_timings(dev, width, TRAIN_RING["workers"])
+    if failures:
+        raise AssertionError("train phase: " + "; ".join(failures))
+    return out
+
+
+def flash_entry(train: dict) -> dict:
+    t = train["flash_timings"]["flash_attention bf16 B8 S1024"]
+    t32 = train["flash_timings"]["flash_attention fp32 B1 S2048"]
+    route = train["full"]["route"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:101",
+        "launches": route["launches"],
+        "max_abs_err": train["flash_errs"]["fp32"],
+        "max_abs_err_bf16": train["flash_errs"]["bf16"],
+        "model_err_bf16": route["model_err_bf16"],
+        "model_err_fp32": route["model_err_fp32"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "eager_ms": t["eager_ms"],
+        "variants": {"fp32 B1 S2048": {key: t32[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}}
+
+
+def add_lm_rows(kernels: list, train: dict) -> None:
+    """Beside each of kernels 1-5, its times at the LM width and its
+    launches on every train-phase leg."""
+    legs = {"full danube": train["full"]["launches"],
+            f"moe {train['moe']['arch']}": train["moe"]["launches"]}
+    legs.update({name: row["launches"] for name, row in train["ring"].items()
+                 if isinstance(row, dict) and "launches" in row})
+    for entry in kernels:
+        name = entry["name"]
+        key = {"fused_update": "fused_update.plain lm"}.get(name, f"{name} lm")
+        if key not in train["lm_timings"]:
+            continue
+        t = train["lm_timings"][key]
+        entry["lm_width"] = {
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "launches_by_leg": {
+                leg: sum(n for k, n in c.items() if k.split(".")[0] == name)
+                for leg, c in legs.items()}}
+        if name == "fused_update":
+            ef = train["lm_timings"]["fused_update.ef lm"]
+            entry["lm_width"]["ef"] = {k: ef[k] for k in (
+                "ms", "plain_ms", "bound_ms")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1796,9 +2626,16 @@ def main() -> int:
     timings.update(paged_timings(dev))
     serve = serve_path(dev)
 
+    # The train path: flash_attention, then LM training through the train
+    # CLI (full-config danube, cut-depth ring legs) and the MoE leg.
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_path(dev, tmp)
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     kernels.append(coherence_entry(timings, coh, coh_err))
     kernels.append(paged_entry(timings, serve, paged_errs))
+    kernels.append(flash_entry(train))
+    add_lm_rows(kernels, train)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -1812,6 +2649,12 @@ def main() -> int:
     print(json.dumps({"engine_ms_per_step": steps_line}))
     print(json.dumps({"serve": {k: v for k, v in serve.items()
                                 if k != "profile"}}))
+    print(json.dumps({"train": {
+        "full": {k: v for k, v in train["full"].items() if k != "profile"},
+        "ring": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"}
+                     if isinstance(v, dict) else v)
+                 for k, v in train["ring"].items()},
+        "moe": train["moe"]}}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

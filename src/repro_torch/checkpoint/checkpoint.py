@@ -28,26 +28,28 @@ from repro_torch import treemath as tm
 Pytree = Any
 
 
+def _walk_names(node, path: str, names: List[str], leaves: list) -> None:
+    # Module-level, not a self-calling closure, so no reference cycle keeps
+    # the leaves alive after the caller is done with them.
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_names(node[k], f"{path}[{k!r}]", names, leaves)
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            _walk_names(child, f"{path}[{i}]", names, leaves)
+    else:
+        names.append(path)
+        leaves.append(node)
+
+
 def _leaf_names(tree: Pytree):
     """(names, leaves) in the JAX leaf order, each name spelled as
     ``jax.tree_util.keystr`` spells its path."""
     names: List[str] = []
     leaves: list = []
-
-    def walk(node, path: str) -> None:
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{path}[{k!r}]")
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, f"{path}[{i}]")
-        else:
-            names.append(path)
-            leaves.append(node)
-
-    walk(tree, "")
+    _walk_names(tree, "", names, leaves)
     return names, leaves
 
 

@@ -212,12 +212,10 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             d = torch.clamp(d, max=int(bound))
         return torch.clamp(d, max=state.step)
 
-    def fused_tail(state, losses, gtree, bound, comp):
+    def fused_tail(state, losses, gvec, bound, comp):
         per = cfg.per_worker_delays
         write = state.step % slots
         spec = tm.pack_spec(state.params)
-        gvec = tm.tree_pack(gtree, lead_ndim=1 if per else 0,
-                            pad_to=dispatch.PACK_ALIGN)
         dev = gvec.device
         shape = (p,) if per else ()
         if cfg.s == 0:
@@ -296,8 +294,13 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             loss, gmean = mean_grad(loss_fn, state.params, batch)
             losses, grads = loss.reshape(1), None
         if cfg.fused_update:
-            return fused_tail(state, losses, grads if per else gmean, bound,
-                              comp)
+            # Pack, then drop the gradient tree before the fused pass: at
+            # full width every [(P,) D] copy the tail holds at once counts.
+            gvec = tm.tree_pack(grads if per else gmean,
+                                lead_ndim=1 if per else 0,
+                                pad_to=dispatch.PACK_ALIGN)
+            grads = gmean = None
+            return fused_tail(state, losses, gvec, bound, comp)
 
         write = state.step % slots
         gbuf = state.gbuf
@@ -435,9 +438,8 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     if fused:
         _require_adam(optimizer, "fused=True")
 
-    def fused_tail(state, loss, grads, comp):
+    def fused_tail(state, loss, gvec, comp):
         spec = tm.pack_spec(state.params)
-        gvec = tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN)
         dev = gvec.device
         cmetrics = {}
         factor = 1.0
@@ -487,7 +489,11 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     def step(state: SyncTrainState, batch, comp: Pytree = None):
         loss, grads = mean_grad(loss_fn, state.params, batch)
         if fused:
-            return fused_tail(state, loss, grads, comp)
+            # Pack, then drop the gradient tree before the fused pass: at
+            # full width every [D] copy the tail holds at once counts.
+            gvec = tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN)
+            del grads
+            return fused_tail(state, loss, gvec, comp)
         cmetrics = {}
         if compensator is not None:
             grads, comp, cmetrics = compensator.sparsify_tree(comp, grads)

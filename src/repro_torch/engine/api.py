@@ -26,16 +26,22 @@ Every mode honours the compensation layer (``lr_scale``, ``compress``,
 ``EngineState.comp`` (``()`` when both knobs are ``"none"``).
 
 Routing: ``kernels="off"`` keeps the tree layouts in plain torch; ``"auto"``
-and ``"on"`` run the packed ring through the CUDA kernels (one device, so no
-placement veto). An Adam-spec optimizer on the packed path runs the
-megakernel tail (``fused_update`` in the ring modes and in sync with a
-compensation knob, ``fused_adam`` in simulate and in plain dense sync)
-unless ``megakernel="off"``.
+and ``"on"`` run the packed ring through the CUDA kernels. On one device
+the only placement veto is the JAX package's FSDP one
+(``kernel_placement_ok``): an FSDP arch keeps the tree layout under
+``"auto"`` and refuses ``"on"``. An Adam-spec optimizer on the packed path
+runs the megakernel tail (``fused_update`` in the ring modes and in sync
+with a compensation knob, ``fused_adam`` in simulate and in plain dense
+sync) unless ``megakernel="off"``.
 
 Delays: any ``DelaySpec`` in the sampled modes (samplers, ``Schedule``,
 ``MultiPod``; a ``Trace`` with an explicit ``bound``); ``ssp`` takes a
 ``Trace`` (measured wall-times), a ``Schedule`` or ``delay=None`` (the
 lognormal speed model).
+
+``arch=`` and ``shape=`` are accepted as the JAX signature has them; with
+no mesh, ``arch`` feeds the placement verdict and ``shape`` is unused (it
+sizes the JAX package's sharding plan).
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
 A.12) and ``server_side`` (A.2).
@@ -63,6 +69,11 @@ from repro_torch.optim import optimizers as optlib
 Pytree = Any
 
 MODES = ("simulate", "stale-psum", "ssp", "sync")
+
+# Archs whose params the JAX package shards over the data axis
+# (``repro/sharding/rules.py``): a packed view mixes leaves, so they keep
+# the tree layout, and make_train_engine gives them the aggregate ring.
+FSDP_ARCHS = {"kimi-k2-1t-a32b", "deepseek-67b"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +265,22 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def kernel_placement_ok(kernels: str, arch=None,
+                        mesh=None) -> Tuple[bool, str]:
+    """Can packed flat [D] views keep this arch's placement? Returns
+    ``(ok, why_not)``. On one device only two vetoes of the JAX verdict
+    apply: ``kernels="off"``, and FSDP archs (whose params the JAX package
+    shards over 'data'; ``"on"`` does not override that one). The
+    model-axis veto needs a mesh (ROADMAP A.12)."""
+    if mesh is not None:
+        raise _not_ported("mesh=", "A.12, multi-GPU placement")
+    if kernels == "off":
+        return False, "config off"
+    if getattr(arch, "arch_id", arch) in FSDP_ARCHS:
+        return False, "FSDP placement"
+    return True, ""
+
+
 def _stacked_loss(api_loss):
     """Adapt a ``ModelAPI.loss(params, batch) -> scalar`` to the engine's
     worker-stacked contract: ``[P, ...]`` params and batches in, the ``[P]``
@@ -268,7 +295,8 @@ def _stacked_loss(api_loss):
 
 def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                  cfg: EngineConfig, mesh=None, *, update_fn=None,
-                 server_apply=None, device=None) -> Engine:
+                 server_apply=None, arch=None, shape=None,
+                 device=None) -> Engine:
     """Build an :class:`Engine` for any mode on ``device`` (CUDA unless
     ``device="cpu"``; raises without CUDA otherwise).
 
@@ -279,7 +307,9 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     worker-stacked ``[P, ...]`` params and batches and returns the ``[P]``
     per-worker losses, as ``models.mlp.loss_fn`` does. ``update_fn``
     bypasses the loss/optimizer adaptation in ``simulate`` mode (see
-    ``core.staleness.UpdateFn``).
+    ``core.staleness.UpdateFn``). ``arch`` (an ``ArchDef`` or arch id)
+    feeds the placement verdict; ``shape`` is accepted and unused without a
+    mesh, as in the JAX package.
     """
     dev = device_lib.resolve(device)
     init_params = None
@@ -296,16 +326,26 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         raise TypeError(f"loss_fn must be callable, got {type(loss_fn)!r}")
 
     mode = cfg.mode
-    # One device, so nothing vetoes the packed path: the ring (stale-psum,
-    # ssp) and the simulate pending ring go packed unless kernels="off".
-    kernel_delivery = cfg.kernels != "off"
+    # The ring (stale-psum, ssp) and the simulate pending ring go packed
+    # unless kernels="off" or the arch's placement vetoes it.
+    kernel_delivery, why = False, ""
+    if cfg.kernels != "off":
+        kernel_delivery, why = kernel_placement_ok(cfg.kernels, arch)
     if mode == "sync":
         delivery = "none"   # sync is buffer-free
     else:
+        if not kernel_delivery and cfg.kernels == "on":
+            raise ValueError(
+                f"kernels='on' is unsupported for FSDP arch "
+                f"{getattr(arch, 'arch_id', arch)!r}: the packed ring "
+                "buffer cannot keep the 'embed'->data placement; use "
+                "kernels='auto' (falls back to tree math)")
         delivery = "packed" if kernel_delivery else "tree"
     meta = {"mode": mode, "workers": cfg.num_workers, "s": cfg.s,
             "device": str(dev),
             "kernels": {"config": cfg.kernels, "delivery": delivery}}
+    if why and mode != "sync":
+        meta["kernels"]["fallback"] = why
     if cfg.delay is not None:
         meta["delay_spec"] = repr(cfg.delay)
 
@@ -368,7 +408,7 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         if custom_update:
             mega = resolve_mega(False, "custom update_fn (opaque update math)")
         else:
-            mega = resolve_mega(kernel_delivery, "tree delivery")
+            mega = resolve_mega(kernel_delivery, why or "tree delivery")
         sim_cfg = staleness.StalenessConfig(
             num_workers=cfg.num_workers, delay=cfg.delay or UniformDelay(cfg.s),
             kernels=kernel_delivery)
@@ -409,8 +449,10 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         raise ValueError(f"{mode} mode needs (loss, optimizer)")
 
     if mode == "sync":
-        # No ring, but the megakernel still fuses the packed Adam tail.
-        mega = resolve_mega(kernel_delivery, "kernels='off'")
+        # No ring, but the megakernel still fuses the packed Adam tail,
+        # under the same placement verdict.
+        sync_ok, sync_why = kernel_placement_ok(cfg.kernels, arch)
+        mega = resolve_mega(sync_ok, sync_why or "kernels='off'")
         sync_raw = stale_sync.make_sync_train_step_lean(
             loss_fn, optimizer, compensator=compensator, fused=mega)
 
@@ -426,7 +468,7 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             sync_step_inner, lambda inner: inner.params, 0)
 
     # Gradient ring modes: stale-psum and ssp.
-    mega = resolve_mega(kernel_delivery, "tree delivery")
+    mega = resolve_mega(kernel_delivery, why or "tree delivery")
     if mode == "ssp":
         if cfg.delay is not None:
             # A Trace or Schedule replaces the sampled speed model

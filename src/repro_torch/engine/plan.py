@@ -1,11 +1,15 @@
-"""Serve-side step planning (port of the serve half of
-``repro/engine/plan.py``).
+"""Step planning (port of ``repro/engine/plan.py``).
 
 A :class:`Plan` is the step callable plus its ``meta``. There is no jit, no
 mesh and no shardings: the port runs eagerly on one GPU, so a plan is the
-function the JAX package would lower. The training plans wait for multi-GPU
-placement (ROADMAP A.12).
+function the JAX package would lower.
 
+* ``make_train_engine``: one call from (arch x shape) to a train engine on
+  one device, with the JAX package's ``stale_s``/``mode`` semantics. The
+  JAX package also attaches a sharding plan to the engine
+  (``attach_train_plan``: state and batch shardings, donation, a lowered
+  step); that waits for multi-GPU placement (ROADMAP A.12), and
+  ``mesh=`` raises.
 * ``plan_prefill`` / ``plan_decode``: inference steps over an arch.
 * ``resolve_serve_paged`` + ``plan_serve_step``: the serving plane's
   continuous-batching decode step, on the gather route (the reference) or
@@ -34,6 +38,70 @@ class Plan:
     def __call__(self, *args):
         with torch.no_grad():
             return self.fn(*args)
+
+
+def make_train_engine(arch: Union[str, ArchDef], shape: ShapeLike,
+                      mesh=None, *, ecfg=None, mode: Optional[str] = None,
+                      stale_s: Optional[int] = None,
+                      num_workers: Optional[int] = None,
+                      optimizer_name: Optional[str] = None,
+                      remat_override: Optional[bool] = None,
+                      overrides: Optional[dict] = None,
+                      reduced: bool = False, device=None,
+                      **engine_kw):
+    """One call from (arch x shape) to a train engine on ``device`` (CUDA
+    unless ``device="cpu"``).
+
+    ``stale_s`` keeps the JAX package's semantics: None/0 -> the
+    synchronous baseline, >= 1 -> the paper's stale-psum step with that
+    bound (unless ``mode`` selects another regime). FSDP archs get the
+    aggregate ring (``per_worker_delays=False``) in stale-psum, as in the
+    JAX package. Extra ``engine_kw`` land on ``EngineConfig``; a full
+    ``ecfg`` controls everything. With no mesh the worker count defaults
+    to 1, the JAX package's data extent of a one-device mesh. The fused
+    Adam opt-in follows the engine's placement verdict."""
+    from repro_torch.engine.api import (FSDP_ARCHS, EngineConfig,
+                                        build_engine, kernel_placement_ok)
+    from repro_torch.optim import optimizers as optlib
+
+    arch = cfglib.get(arch) if isinstance(arch, str) else arch
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    assert shape.kind == "train", shape.name
+    overrides = dict(overrides or {})
+    if remat_override is not None:
+        overrides["remat"] = remat_override
+    api = arch.api(reduced=reduced, overrides=overrides or None)
+    opt_name = optimizer_name or arch.train_optimizer
+
+    if ecfg is not None:
+        clashing = {k: v for k, v in dict(
+            mode=mode, stale_s=stale_s, num_workers=num_workers,
+            **engine_kw).items() if v is not None}
+        if clashing:
+            raise ValueError(
+                f"ecfg= fully specifies the engine; also passing "
+                f"{sorted(clashing)} would be silently ignored")
+    if ecfg is None:
+        if mode in (None, "auto"):
+            mode = "sync" if not stale_s else "stale-psum"
+        s = 0 if mode == "sync" else (
+            stale_s if stale_s is not None else arch.stale_s_default)
+        kw = dict(engine_kw)
+        if mode == "stale-psum":
+            kw.setdefault("per_worker_delays", arch.arch_id not in FSDP_ARCHS)
+        ecfg = EngineConfig(
+            mode=mode, s=s, num_workers=num_workers or 1,
+            buffer_dtype=getattr(api.cfg, "param_dtype", torch.float32), **kw)
+
+    fuse_adam = (opt_name == "adam"
+                 and kernel_placement_ok(ecfg.kernels, arch, mesh)[0])
+    opt = optlib.get_optimizer(opt_name, **({"kernel": True} if fuse_adam
+                                            else {}))
+    engine = build_engine(api, opt, ecfg, mesh=mesh, arch=arch, shape=shape,
+                          device=device)
+    engine.meta.update(arch=arch.arch_id, shape=shape.name,
+                       optimizer=opt_name)
+    return engine
 
 
 def _resolve(arch, shape, reduced, overrides):

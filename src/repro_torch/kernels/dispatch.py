@@ -7,8 +7,10 @@ The backend follows the tensor's device:
 * a CPU tensor runs the plain PyTorch version (``kernels/ref.py``).
 
 There is no interpret mode and no fallback on shape: the CUDA kernels mask
-their own ragged tail, so any D runs, and ``paged_attention`` takes any head
-width and column offset. Decisions are recorded into a report,
+their own ragged tail, so any D runs, ``paged_attention`` takes any head
+width and column offset, and ``flash_attention`` any Sq <= Sk and head width
+up to 256 (the JAX dispatcher sends sequence lengths that do not divide its
+blocks to the oracle). Decisions are recorded into a report,
 ``report()`` / ``report_lines()``, which ``Engine.dispatch_report`` surfaces.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import coherence as _co
+from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import fused_adam as _fa
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import paged_attention as _pa
@@ -153,3 +156,18 @@ def paged_attention(q, k_new, v_new, pages, tables, pos, layer, *,
                                    layer, **kw)
     return _pa.paged_attention(q, k_new, v_new, pages, tables, pos, layer,
                                **kw)
+
+
+def flash_attention(q, k, v, causal=True, window=0):
+    """Blockwise attention over a whole sequence: q [B,Sq,H,hd], k/v
+    [B,Sk,Hkv,hd] -> [B,Sq,H,hd] in q's dtype (causal and sliding-window
+    masks, GQA, q right-aligned to the keys). The decision records the
+    shape, since the JAX dispatcher decides on it."""
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    shape = f"B={b} Sq={sq} Sk={sk} H={h}/Hkv={hkv} hd={hd}"
+    if fuses(q):
+        _decide("flash_attention", "cuda", shape)
+        return _fl.flash_attention(q, k, v, causal=causal, window=window)
+    _decide("flash_attention", "ref", f"cpu tensor; {shape}")
+    return ref.flash_attention(q, k, v, causal=causal, window=window)

@@ -4,7 +4,7 @@
 These are what a CPU tensor runs, and what ``chip_smoke.py`` holds each CUDA
 kernel against on the card. All math is fp32, except that
 ``paged_attention`` rounds the gathered K/V to the cache dtype as the JAX
-oracle does.
+oracle does, and ``flash_attention`` returns q's dtype.
 """
 from __future__ import annotations
 
@@ -164,3 +164,35 @@ def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
     probs = torch.softmax(scores, dim=-1).to(vg.dtype)
     out = torch.einsum("bngsk,bknd->bsngd", probs, vg)
     return out.reshape(s, h, hd)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """Attention over the whole sequence, the JAX oracle's function.
+
+    q [B,Sq,H,hd], k/v [B,Sk,Hkv,hd] -> [B,Sq,H,hd] in q's dtype. GQA: q
+    head h reads kv head h // (H // Hkv). q is right-aligned to the kv
+    sequence (q row i sits at position i + Sk - Sq). ``causal`` keeps keys
+    at or before the query's position; ``window > 0`` implies causal and
+    also drops keys at or before ``position - window``. Scores, softmax and
+    the weighted sum run in fp32."""
+    b, sq, h, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    g = h // hkv
+    if scale is None:
+        # As the oracle computes it: 1 / sqrt(hd) in fp32.
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    qg = q.reshape(b, sq, hkv, g, hd).float()
+    scores = torch.einsum("bsngd,bknd->bngsk", qg, k.float()) * scale
+    dev = q.device
+    q_pos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal or window:
+        mask = k_pos <= q_pos
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngsk,bknd->bsngd", probs, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)

@@ -1,9 +1,9 @@
-"""Decoder transformer, the dense self-attention path (port of
+"""Decoder transformer, the self-attention path (port of
 ``repro/models/transformer.py``).
 
-Dense FFN, GQA, qk-norm, RoPE and the sliding window, with the reference's
-parameter and cache layouts kept as they are so that ``convert.params_from_jax``
-and the checkpoint format carry over unchanged:
+Dense or MoE FFN, GQA, qk-norm, RoPE and the sliding window, with the
+reference's parameter and cache layouts kept as they are so that
+``convert.params_from_jax`` and the checkpoint format carry over unchanged:
 
   * layer params are stacked ``[L, ...]`` leaves under ``params["layers"]``
     with JAX's dict keys; the JAX package's ``lax.scan`` over layers is a
@@ -13,10 +13,13 @@ and the checkpoint format carry over unchanged:
     (-1 = empty); one code path serves full-causal and sliding-window
     attention, prefill and single-token decode.
 
-``cfg.remat`` changes no number and the port ignores it (nothing on this
-path trains an LM at full width yet). MoE FFNs and periodic cross-attention
-raise ``NotImplementedError`` (ROADMAP A.10); ``cfg.tp`` and the attention
-sharding modes matter only to multi-GPU placement (A.12).
+``cfg.remat`` recomputes each layer's activations in the backward pass
+(``torch.utils.checkpoint`` per layer, as the JAX package wraps each scanned
+layer in ``jax.checkpoint``): it changes no number, only the memory a
+training step holds. The MoE FFN (``models/moe.py``) runs its one-device
+path. Periodic cross-attention raises ``NotImplementedError`` (ROADMAP
+A.10); ``cfg.tp`` and the attention sharding modes matter only to multi-GPU
+placement (A.12).
 """
 from __future__ import annotations
 
@@ -25,10 +28,12 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import treemath as tm
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 NEG_INF = -1e9
 
@@ -36,6 +41,17 @@ NEG_INF = -1e9
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP A.10, the language-model stack)")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    num_experts: int          # padded to a multiple of tp
+    num_experts_real: int
+    top_k: int
+    d_ff: int                 # per-expert hidden width
+    shared_d_ff: int = 0      # total hidden width of always-on shared experts
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +68,7 @@ class TransformerConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     swa_window: Optional[int] = None     # sliding-window size (None = full)
-    moe: Optional[Any] = None            # MoE settings: not ported (A.10)
+    moe: Optional[MoESettings] = None
     causal: bool = True                  # False => encoder (bidirectional)
     cross_attn_period: Optional[int] = None  # not ported (A.10)
     cross_tokens: int = 0
@@ -61,7 +77,7 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     norm_eps: float = 1e-6
-    remat: bool = True                   # ignored by the port
+    remat: bool = True                   # recompute layers in backward
     logit_softcap: float = 0.0
     # "naive": materialise the [S, S] scores; "chunked": online softmax over
     # kv blocks of ``attn_chunk``.
@@ -89,8 +105,6 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise _not_ported("the MoE FFN (models/moe.py)")
     if cfg.num_cross_layers:
         raise _not_ported("periodic cross-attention (cross_attn_period)")
 
@@ -126,11 +140,16 @@ def _init_layers(gen, cfg: TransformerConfig, dev):
     if cfg.qk_norm:
         attn["q_norm"] = scale((hd,), (None,))
         attn["k_norm"] = scale((hd,), (None,))
-    return {"ln1": scale((d,), ("embed",)), "attn": attn,
-            "ln2": scale((d,), ("embed",)),
-            "mlp": {"w_gate": dense((d, f), ("embed", "mlp")),
-                    "w_up": dense((d, f), ("embed", "mlp")),
-                    "w_down": dense((f, d), ("mlp", "embed"))}}
+    layer = {"ln1": scale((d,), ("embed",)), "attn": attn,
+             "ln2": scale((d,), ("embed",))}
+    if cfg.moe is not None:
+        layer["moe"] = moe_lib.init_moe(gen, d, cfg.moe, pdt, device=dev,
+                                        lead=lead)
+    else:
+        layer["mlp"] = {"w_gate": dense((d, f), ("embed", "mlp")),
+                        "w_up": dense((d, f), ("embed", "mlp")),
+                        "w_down": dense((f, d), ("mlp", "embed"))}
+    return layer
 
 
 def init(key, cfg: TransformerConfig, device=None) -> Tuple[Any, Any]:
@@ -308,13 +327,16 @@ def _self_attention_decode(p, x, cache_k, cache_v, slot_pos, pos: int,
 # --------------------------------------------------------------- ffn -------
 
 def _ffn(p_layer, x, cfg: TransformerConfig):
+    """-> (y, aux loss): the MoE FFN's load-balance loss, 0 for a dense
+    FFN."""
     if cfg.moe is not None:
-        raise _not_ported("the MoE FFN (models/moe.py)")
+        return moe_lib.moe_ffn(p_layer["moe"], x, cfg.moe, cfg.dtype)
     p = p_layer["mlp"]
     dt = cfg.dtype
     gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
-    return torch.einsum("bsf,fd->bsd", L.swiglu(gate, up), p["w_down"].to(dt))
+    y = torch.einsum("bsf,fd->bsd", L.swiglu(gate, up), p["w_down"].to(dt))
+    return y, torch.zeros((), device=x.device)
 
 
 # ----------------------------------------------------------- forward -------
@@ -335,6 +357,16 @@ def _logits(params, h, cfg: TransformerConfig):
     return logits + vmask.to(logits.dtype)
 
 
+def _layer_body(h, lp, positions, cfg: TransformerConfig):
+    """One decoder layer over the full sequence -> (h, k, v, aux)."""
+    a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+    attn_out, (k, v) = _self_attention_full(lp["attn"], a_in, positions, cfg)
+    h = h + attn_out
+    f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    ffn_out, aux = _ffn(lp, f_in, cfg)
+    return h + ffn_out, k, v, aux
+
+
 def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
             return_cache: bool = False):
     """Full-sequence forward. tokens [B,S] -> (logits [B,S,V], aux loss),
@@ -343,19 +375,23 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
     b, s = tokens.shape
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    # With remat each layer keeps only its input for the backward pass and
+    # runs again there (only while autograd records).
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
+    aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        attn_out, (k, v) = _self_attention_full(lp["attn"], a_in, positions,
-                                                cfg)
-        h = h + attn_out
-        f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _ffn(lp, f_in, cfg)
+        body = lambda h, lp=lp: _layer_body(h, lp, positions, cfg)
+        if remat:
+            h, k, v, layer_aux = torch.utils.checkpoint.checkpoint(
+                body, h, use_reentrant=False)
+        else:
+            h, k, v, layer_aux = body(h)
+        aux = aux + layer_aux
         ks.append(k)
         vs.append(v)
     logits = _logits(params, h, cfg)
-    aux = torch.zeros((), device=tokens.device)
     if not return_cache:
         return logits, aux
 
@@ -389,7 +425,7 @@ def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
             cache["slot_pos"][i], pos, cfg)
         h = h + attn_out
         f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _ffn(lp, f_in, cfg)
+        h = h + _ffn(lp, f_in, cfg)[0]
         nk.append(ck)
         nv.append(cv)
         nspos.append(spos)
@@ -430,7 +466,7 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
         h = h + torch.einsum("bshk,hkd->bsd", out[:, None],
                              lp["attn"]["wo"].to(cfg.dtype))
         f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _ffn(lp, f_in, cfg)
+        h = h + _ffn(lp, f_in, cfg)[0]
         ks.append(kc)
         vs.append(vc)
     new_cache = {

@@ -34,38 +34,44 @@ class TreeDef:
 _LEAF = TreeDef("leaf")
 
 
+def _flatten_into(node, leaves: List[Any]) -> TreeDef:
+    # A module-level helper, not a closure: a nested function that calls
+    # itself through its closure forms a reference cycle with the leaves
+    # list, which then keeps every leaf (GBs at full width) alive until the
+    # cyclic garbage collector happens to run.
+    if node is None:
+        return TreeDef("none")
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys,
+                       tuple(_flatten_into(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, (), tuple(_flatten_into(c, leaves) for c in node))
+    leaves.append(node)
+    return _LEAF
+
+
 def tree_flatten(tree: Pytree) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        if node is None:
-            return TreeDef("none")
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, (), tuple(walk(c) for c in node))
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(td: TreeDef, it):
+    # Module-level for the same reason as _flatten_into: a self-calling
+    # closure would hold the leaf iterator, and so every leaf, in a cycle.
+    if td.kind == "leaf":
+        return next(it)
+    if td.kind == "none":
+        return None
+    if td.kind == "dict":
+        return {k: _build(c, it) for k, c in zip(td.keys, td.children)}
+    kids = [_build(c, it) for c in td.children]
+    return kids if td.kind == "list" else tuple(kids)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Pytree:
-    it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        if td.kind == "none":
-            return None
-        if td.kind == "dict":
-            return {k: build(c) for k, c in zip(td.keys, td.children)}
-        kids = [build(c) for c in td.children]
-        return kids if td.kind == "list" else tuple(kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Pytree) -> list:

@@ -192,3 +192,21 @@ def test_publisher_refresher_race(tmp_path):
     assert not t.is_alive()
     assert reads >= 5
     assert not torn, f"torn snapshots observed: {torn[:3]}"
+
+
+def test_leaf_names_keep_no_leaf_alive(tmp_path):
+    """Saving walks the tree without leaving a reference cycle: with the
+    cyclic collector off, the saved params die with the caller's last
+    reference."""
+    import gc
+    import weakref
+    from repro_torch.checkpoint import checkpoint as tckpt
+    gc.disable()
+    try:
+        tree = {"w": torch.ones(4), "layers": {"b": torch.zeros(2)}}
+        refs = [weakref.ref(x) for x in (tree["w"], tree["layers"]["b"])]
+        tckpt.save(str(tmp_path / "step_1"), tree, step=1)
+        del tree
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import coherence as tcoh
 from repro_torch.kernels import coherence as tco
 from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import flash_attention as tfl
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import paged_attention as tpa
@@ -37,6 +38,10 @@ COHERENCE_C = 64
 # version's one-shot softmax round differently; outputs are convex
 # combinations of O(1) values, so a few ulps of 1.
 TOL_PAGED = dict(rtol=1e-5, atol=1e-5)
+# flash_attention, fp32 operands: the kernel's online softmax (a running max
+# and rescale per 32-key tile) and the plain version's one-shot softmax
+# round differently; outputs are convex combinations of O(1) values.
+TOL_FLASH = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -338,3 +343,71 @@ def test_paged_attention_dispatch_routes_cuda(cuda_device):
     dispatch.paged_attention(*_paged_args(c), window=16, **c["kw"])
     assert tpa.paged_attention.launches == before + 1
     assert dispatch.report()["paged_attention"] == "cuda"
+
+
+def _flash_case(dev, b, sq, sk, h, hkv, hd, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    return f(b, sq, h, hd), f(b, sk, hkv, hd), f(b, sk, hkv, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 8, 80), (32, 32, 128), (40, 8, 128),
+                                   (6, 3, 17), (4, 1, 256)])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (1, 300), (17, 77),
+                                   (100, 260), (64, 64 + 31)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_flash_attention_kernel_matches_plain(cuda_device, heads, sq, sk,
+                                              causal, window):
+    """fp32 at the danube, deepseek-7b and qwen3-14b head shapes, an odd
+    head width and the widest; right-aligned q, Sk not a multiple of the
+    32-key tile, a window that bites, and no mask at all."""
+    h, hkv, hd = heads
+    q, k, v = _flash_case(cuda_device, 2, sq, sk, h, hkv, hd,
+                          seed=sq + sk + hd + window)
+    before = tfl.flash_attention.launches
+    got = tfl.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfl.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **TOL_FLASH)
+    again = tfl.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)        # fixed order, no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 40])
+def test_flash_attention_kernel_bf16(cuda_device, window):
+    """bf16 operands: the kernel computes in fp32 from the same bf16 values
+    the plain version upcasts, so the two differ by at most one bf16
+    rounding of the output (one ulp, 2^-7 relative at most)."""
+    q, k, v = _flash_case(cuda_device, 2, 96, 160, 32, 8, 80,
+                          dtype=torch.bfloat16, seed=9 + window)
+    got = tfl.flash_attention(q, k, v, causal=True, window=window)
+    assert got.dtype == torch.bfloat16
+    want32 = ref.flash_attention(q.float(), k.float(), v.float(),
+                                 causal=True, window=window)
+    torch.testing.assert_close(got.float(), want32, rtol=2 ** -7, atol=1e-5)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_dispatch_and_operand_checks(cuda_device):
+    dispatch.reset_report()
+    q, k, v = _flash_case(cuda_device, 1, 40, 70, 4, 2, 32)
+    before = tfl.flash_attention.launches
+    dispatch.flash_attention(q, k, v, causal=True, window=16)
+    assert tfl.flash_attention.launches == before + 1
+    assert dispatch.report()["flash_attention"].startswith("cuda")
+    with pytest.raises(ValueError, match="Sq=70 > Sk=40"):
+        tfl.flash_attention(k.repeat(1, 1, 2, 1), q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="one dtype"):
+        tfl.flash_attention(q.double(), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfl.flash_attention(*_flash_case(cuda_device, 1, 4, 4, 2, 1, 257))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfl.flash_attention(q, k.cpu(), v)

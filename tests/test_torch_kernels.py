@@ -237,7 +237,8 @@ def test_build_declares_every_c_entry_point():
     srcs = build.sources()
     assert {s.name for s in srcs} == {"stale_accum.cu", "fused_adam.cu",
                                       "fused_update.cu", "sparsify.cu",
-                                      "coherence.cu", "paged_attention.cu"}
+                                      "coherence.cu", "paged_attention.cu",
+                                      "flash_attention.cu"}
     names = set()
     for src in srcs:
         names |= set(re.findall(r'extern "C" (?:int|long long) (\w+)\(',

@@ -123,3 +123,21 @@ def test_tree_map_rejects_mismatched_structures():
     with pytest.raises(ValueError):
         tm.tree_map(torch.add, {"a": torch.zeros(1)},
                     {"b": torch.zeros(1)})
+
+
+def test_flatten_keeps_no_leaf_alive_after_the_caller_drops_it():
+    """tree_flatten / tree_map leave no reference cycle behind: with the
+    cyclic collector off, a leaf dies as soon as the caller drops it (a
+    cycle would keep every leaf of a full-width tree allocated)."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        tree = {"a": torch.ones(3), "b": [torch.zeros(2), (torch.ones(1),)]}
+        refs = [weakref.ref(x) for x in tm.tree_leaves(tree)]
+        mapped = tm.tree_map(lambda x: x + 1, tree)
+        mapped_refs = [weakref.ref(x) for x in tm.tree_leaves(mapped)]
+        del tree, mapped
+        assert all(r() is None for r in refs + mapped_refs)
+    finally:
+        gc.enable()
