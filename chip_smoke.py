@@ -262,20 +262,55 @@ def variant_args(ops: dict, variant: str, ring: bool = True):
     return args, kw
 
 
+def same(name, a, b) -> None:
+    import torch
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: kernel and plain version differ "
+                             f"(max abs {max_abs(a, b)!r})")
+
+
+def check_update(name, ops, variant, ring=True) -> float:
+    """fused_update ``variant`` vs its plain version on ``ops``: p/m/v
+    within TOL_UPDATE; u, the split and the momentum bitwise; sent + resid
+    == acc. Returns the p/m/v max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_update import fused_update
+    args, kw = variant_args(ops, variant, ring)
+    got = fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10, ops["scale"], **kw)
+    want = ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10, ops["scale"],
+                            **kw)
+    err = max(check_close(f"{name} {k}", a, b, **TOL_UPDATE)
+              for k, a, b in zip("pmv", got, want))
+    for k, a, b in zip(("u", "sent", "resid", "mom"), got[3:], want[3:]):
+        same(f"{name} {k}", a, b)
+    if variant != "plain":
+        same(f"{name} sent + resid vs acc", got[4] + got[5], ops["acc"])
+    print(f"{name}: p/m/v max_abs_err={err!r} (tol {TOL_UPDATE}); "
+          f"u, split and momentum bitwise equal")
+    return err
+
+
+def check_sparsify(name, ops) -> None:
+    """sparsify_topk vs its plain version on ``ops``: bitwise, and sent +
+    resid == acc."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparsify import sparsify_topk
+    sent, resid = sparsify_topk(ops["acc"], ops["thr"])
+    want = ref.sparsify_mask(ops["acc"], ops["thr"])
+    same(f"{name} sent", sent, want[0])
+    same(f"{name} resid", resid, want[1])
+    same(f"{name} sent + resid vs acc", sent + resid, ops["acc"])
+    kept = float((sent != 0).float().mean())
+    print(f"{name}: bitwise equal, sent + resid == acc; kept {kept!r}")
+
+
 def ring_kernel_checks(dev, d: int) -> dict:
     """fused_update (three variants) and sparsify_topk against their plain
     versions on ``dev``: R = 8 and R = 1 at the ring path's packed width D,
     and R = 3 at a ragged D; the EF variants also in the sync tail's form
     (no ring rows) at R = 1. Returns the max abs error at R = 8, width D."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_update import VARIANTS, fused_update
-    from repro_torch.kernels.sparsify import sparsify_topk
-
-    def same(name, a, b):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: kernel and plain version differ "
-                                 f"(max abs {max_abs(a, b)!r})")
+    from repro_torch.kernels.fused_update import VARIANTS
 
     errs = {"fused_update": 0.0, "sparsify_topk": 0.0}
     for r, width in ((8, d), (1, d), (3, 1_000_003)):
@@ -284,34 +319,12 @@ def ring_kernel_checks(dev, d: int) -> dict:
         if r == 1:
             forms += [(variant, False) for variant in VARIANTS[1:]]
         for variant, ring in forms:
-            args, kw = variant_args(ops, variant, ring)
-            got = fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
-                               ops["scale"], **kw)
-            want = ref.fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
-                                    ops["scale"], **kw)
-            name = (f"fused_update {variant} R={r} D={width}"
-                    f"{'' if ring else ' (no ring)'}")
-            err = max(check_close(f"{name} {k}", a, b, **TOL_UPDATE)
-                      for k, a, b in zip("pmv", got, want))
-            for k, a, b in zip(("u", "sent", "resid", "mom"), got[3:],
-                               want[3:]):
-                same(f"{name} {k}", a, b)
-            if variant != "plain":
-                same(f"{name} sent + resid vs acc", got[4] + got[5],
-                     ops["acc"])
-            print(f"{name}: p/m/v max_abs_err={err!r} (tol {TOL_UPDATE}); "
-                  f"u, split and momentum bitwise equal")
+            err = check_update(f"fused_update {variant} R={r} D={width}"
+                               f"{'' if ring else ' (no ring)'}", ops,
+                               variant, ring)
             if r == 8 and width == d:
                 errs["fused_update"] = max(errs["fused_update"], err)
-        sent, resid = sparsify_topk(ops["acc"], ops["thr"])
-        want = ref.sparsify_mask(ops["acc"], ops["thr"])
-        same(f"sparsify_topk R={r} D={width} sent", sent, want[0])
-        same(f"sparsify_topk R={r} D={width} resid", resid, want[1])
-        same(f"sparsify_topk R={r} D={width} sent + resid vs acc",
-             sent + resid, ops["acc"])
-        kept = float((sent != 0).float().mean())
-        print(f"sparsify_topk R={r} D={width}: bitwise equal, "
-              f"sent + resid == acc; kept {kept!r}")
+        check_sparsify(f"sparsify_topk R={r} D={width}", ops)
     torch.cuda.synchronize(dev)
     return errs
 
@@ -709,6 +722,9 @@ def time_ms(fn, arg_sets, reps: int = 60):
     torch.cuda.synchronize()
     eager = start.elapsed_time(end) / reps
 
+    # The graph allocates from its own pool: give it back what the eager
+    # calls left cached (at the LM's D their outputs are GBs).
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(reps):
@@ -1835,9 +1851,19 @@ TRAIN_MOE = dict(layers=1, workers=2, stale=2, batch=4, seq=256, steps=4)
 # never less than LM_FLOOR (for legs whose runs agree to the bit). On the
 # H100 the witness parts 5-18% in ``rel`` over 4 steps, and on vs off
 # reaches at most 0.39 of the witness on any leg and either metric
-# (PERF.md, PR 15), so a factor of 2 leaves 5x room.
+# (PERF.md), so a factor of 2 leaves 5x room. The limit never exceeds
+# LM_CEILING, however far a witness parts. On the H100 on vs off reached
+# at most 6e-4 in loss and 0.034 in rel (the MoE leg, whose routing makes
+# its witness the most chaotic: 0.177 in rel), 4x and 6x below it. The
+# kernels themselves are held at these widths elementwise, at the phase
+# 3, 5 and 6 tolerances (``lm_kernels``, ``full_adam_check``); this limit
+# checks the legs' wiring end to end.
 WITNESS_FACTOR = 2.0
 LM_FLOOR = dict(loss=1e-5, rel=1e-5)
+LM_CEILING = dict(loss=2.5e-3, rel=0.2)
+# The MoE leg's aux loss (~0.012) under the same scheme: the witness parts
+# it by 3.5e-5, on vs off by 3e-6 (PERF.md).
+AUX_CEILING = 5e-4
 
 
 def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -1988,7 +2014,7 @@ def to_host(tree):
 
 
 def train_cli(dev, argv: list, *, batch: int, seq: int, workers: int = 0,
-              timed: int = 0, profile: int = 0, params=None) -> dict:
+              timed: int = 0, profile: int = 0) -> dict:
     """One run of the train CLI (``repro_torch.launch.train.main``) with
     every launch counter zeroed just before and read just after; the
     final params come back on the host. Then ``timed`` more steps on the
@@ -2004,7 +2030,7 @@ def train_cli(dev, argv: list, *, batch: int, seq: int, workers: int = 0,
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     reset_counters()
     t0 = time.perf_counter()
-    ret = train.main(argv, params=params)
+    ret = train.main(argv)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = counters()
@@ -2089,6 +2115,58 @@ def nudged(params):
         params)
 
 
+def witness_run(dev, argv: list, params) -> dict:
+    """The kernels-off CLI run of ``argv`` again from ``params`` in place
+    of the seeded init: the EngineConfig, optimizer, batches and (with
+    ``--coherence``) probe hook that the CLI builds from ``argv``, through
+    make_train_engine and ``Trainer.run(params=...)``. Returns its losses
+    and final params (on the host)."""
+    import gc
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import coherence as coh
+    from repro_torch.engine import CoherenceHook, EngineConfig, Trainer
+    from repro_torch.engine.plan import make_train_engine
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args(argv)
+    assert args.kernels == "off" and not (args.delay or args.trace
+                                          or args.lr or args.reduced), argv
+    mode = args.mode
+    if mode == "auto":
+        mode = "sync" if args.stale == 0 else "stale-psum"
+    ecfg = EngineConfig(mode=mode, num_workers=args.workers, s=args.stale,
+                        kernels="off", compress=args.compress,
+                        lr_scale=args.lr_scale,
+                        ssp_steps=max(args.steps, 1), ssp_seed=args.seed)
+    shape = InputShape(f"train_cli_{args.seq}", args.seq, args.batch, "train")
+    engine = make_train_engine(args.arch, shape, ecfg=ecfg,
+                               optimizer_name=args.optimizer, device=dev)
+    api = cfglib.get(args.arch).api()
+    hooks = []
+    if args.coherence:
+        hooks.append(CoherenceHook(
+            api.loss, train.make_batch_fn(api, args.batch, args.seq,
+                                          args.seed + 1)(),
+            dim=sum(x.numel() for x in tm.tree_leaves(params)),
+            window=max(args.stale, 4), every=args.log_every,
+            controller=(coh.CoherenceController(s_max=args.stale)
+                        if args.stale else None)))
+    res = Trainer(engine, hooks=hooks).run(
+        train.make_batch_fn(api, args.batch, args.seq, args.seed,
+                            workers=args.workers if mode == "simulate" else 0),
+        args.steps, init_seed=args.seed, params=params,
+        log_every=args.log_every)
+    out = {"losses": [row["loss"] for row in res.history],
+           "params": to_host(engine.params(res.state))}
+    del engine, res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_lm_pair(dev, name, on, off, witness, p0, failures: list) -> dict:
     """Holds ``on`` against ``off`` within WITNESS_FACTOR times how far
     ``witness`` (off from nudged params) parts from ``off``; records a
@@ -2096,7 +2174,8 @@ def check_lm_pair(dev, name, on, off, witness, p0, failures: list) -> dict:
     import math
     dist = lm_distance(dev, on, off, p0)
     wit = lm_distance(dev, witness, off, p0)
-    limit = {k: max(WITNESS_FACTOR * wit[k], LM_FLOOR[k]) for k in dist}
+    limit = {k: min(max(WITNESS_FACTOR * wit[k], LM_FLOOR[k]), LM_CEILING[k])
+             for k in dist}
     print(f"train {name}: on vs off {json.dumps(dist)}; witness (off from "
           f"one ulp up) vs off {json.dumps(wit)}; limit {json.dumps(limit)}; "
           f"losses on {on['losses']} off {off['losses']} witness "
@@ -2119,48 +2198,47 @@ def check_counts(name, run, want, failures: list) -> None:
 
 
 def flash_route(dev, params, cfg, tokens, failures: list) -> dict:
-    """The full-width danube forward with every layer's attention sent
-    through ``dispatch.flash_attention`` (the route the JAX package gives
-    its flash kernel), with the launch counters zeroed just before and read
-    just after. The residual stream goes on with the model's own attention
-    (``_attend``, bf16 compute), so each layer's kernel output can then be
-    held against it on the same q/k/v, and, with the operands cast up,
-    against ``_attend`` in fp32."""
+    """The full-width danube forward (``transformer.forward``) with each
+    layer's attention also sent through ``dispatch.flash_attention`` (the
+    route the JAX package gives its flash kernel) on the q/k/v the model's
+    own attention (``_attend``, bf16 compute) receives, and the launch
+    counters zeroed just before and read just after. The model goes on
+    with its own attention's output; each layer's kernel output is then
+    held against it, and, with the operands cast up, against ``_attend``
+    in fp32."""
     import dataclasses
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as tr
 
     window = cfg.swa_window or 0
     b, s = tokens.shape
-    mask = (L.sliding_window_mask(s, s, 0, window, dev) if window
-            else L.causal_mask(s, s, 0, dev))[None]
-    positions = torch.arange(s, device=dev)[None].expand(b, s)
-    cos, sin = L.rotary(cfg.rope_theta, positions, cfg.head_dim)
     layers = []
+    attend = tr._attend
+
+    def recording(q, k, v, mask, cfg_):
+        want = attend(q, k, v, mask, cfg_)
+        got = dispatch.flash_attention(q, k, v, causal=cfg.causal,
+                                       window=window)
+        layers.append((q, k, v, mask, got, want))
+        return want
+
     with torch.no_grad():
         reset_counters()
-        h = params["embed"].to(cfg.dtype)[tokens.long()]
-        for i in range(cfg.num_layers):
-            lp = tr._layer(params, i)
-            a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = tr._project_qkv(lp["attn"], a_in, a_in, cfg)
-            q, k = L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin)
-            got = dispatch.flash_attention(q, k, v, causal=True,
-                                           window=window)
-            want = tr._attend(q, k, v, mask, cfg)
-            layers.append((q, k, v, got, want))
-            h = h + torch.einsum("bshk,hkd->bsd", want,
-                                 lp["attn"]["wo"].to(cfg.dtype))
-            f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-            h = h + tr._ffn(lp, f_in, cfg)[0]
+        tr._attend = recording
+        try:
+            tr.forward(params, tokens, cfg)
+        finally:
+            tr._attend = attend
         torch.cuda.synchronize(dev)
         launches = counters()
+        if len(layers) != cfg.num_layers:
+            failures.append(f"flash_attention route: the model attended "
+                            f"{len(layers)} times, not {cfg.num_layers}")
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         err16 = err32 = 0.0
-        for i, (q, k, v, got, want) in enumerate(layers):
+        for i, (q, k, v, mask, got, want) in enumerate(layers):
             e16 = max_abs(got.float(), want.float())
             lim = FLASH_MODEL_REL * (float(v.float().abs().max())
                                      + float(want.float().abs().max()))
@@ -2168,8 +2246,9 @@ def flash_route(dev, params, cfg, tokens, failures: list) -> dict:
                 failures.append(f"flash_attention vs the model's attention, "
                                 f"layer {i}: {e16!r} > {lim!r}")
             q32, k32, v32 = q.float(), k.float(), v.float()
-            got32 = flash_attention(q32, k32, v32, causal=True, window=window)
-            want32 = tr._attend(q32, k32, v32, mask, cfg32)
+            got32 = flash_attention(q32, k32, v32, causal=cfg.causal,
+                                    window=window)
+            want32 = attend(q32, k32, v32, mask, cfg32)
             e32 = max_abs(got32, want32)
             if not torch.allclose(got32, want32, **TOL_FLASH):
                 failures.append(f"flash_attention vs _attend fp32, layer "
@@ -2223,8 +2302,7 @@ def full_config_leg(dev, failures: list) -> dict:
     off_argv = cli_argv(TRAIN_ARCH, kernels="off", **flags)
     off = train_cli(dev, off_argv, batch=f["batch"], seq=f["seq"])
     check_counts("full danube off", off, expect(f["steps"]), failures)
-    witness = train_cli(dev, off_argv, batch=f["batch"], seq=f["seq"],
-                        params=nudged(p0))
+    witness = witness_run(dev, off_argv, nudged(p0))
     dist = check_lm_pair(dev, "full danube", on, off, witness, p0, failures)
     out = {"n_params": n_params, "losses_on": on["losses"],
            "losses_off": off["losses"], "distance": dist,
@@ -2271,9 +2349,8 @@ def ring_legs(dev, tmp: str, failures: list) -> dict:
                 timed=r["timed"] if timing else 0,
                 profile=r["profile"] if timing else 0)
         on, off = runs["on"], runs["off"]
-        runs["witness"] = train_cli(
-            dev, cli_argv(arch, kernels="off", **base, **flags),
-            batch=r["batch"], seq=r["seq"], params=nudged(p0))
+        runs["witness"] = witness_run(
+            dev, cli_argv(arch, kernels="off", **base, **flags), nudged(p0))
         row = {"distance": check_lm_pair(dev, name, on, off, runs["witness"],
                                          p0, failures),
                "launches": on["launches"], "losses_on": on["losses"],
@@ -2382,7 +2459,8 @@ def moe_leg(dev, failures: list) -> dict:
                  failures)
     check_counts("moe off", off, expect(m["steps"]), failures)
     wit = runs["witness"]["aux"]
-    aux_limit = max(WITNESS_FACTOR * abs(wit - off["aux"]), LM_FLOOR["loss"])
+    aux_limit = min(max(WITNESS_FACTOR * abs(wit - off["aux"]),
+                        LM_FLOOR["loss"]), AUX_CEILING)
     print(f"train moe {arch}: {n_params} params, aux loss on {on['aux']!r} "
           f"off {off['aux']!r} witness {wit!r} (limit on vs off "
           f"{aux_limit!r})")
@@ -2398,27 +2476,32 @@ def moe_leg(dev, failures: list) -> dict:
     return out
 
 
-def lm_kernel_timings(dev, width: int, workers: int) -> dict:
+def lm_kernels(dev, width: int, workers: int) -> dict:
     """Kernels 1-5 at the ring legs' LM width (D_pad = ``width``, P =
-    ``workers``): stale_accum over the [P, D] ring rows (the SGD top-k
-    leg's aggregate), fused_adam over [P * D] (simulate), fused_update
-    plain and ef over P rows, sparsify_topk over [P, D], coherence_dots
-    at W = 4 (the coherence leg's window). One set each: every call reads
-    GBs, past the 50 MB L2."""
+    ``workers``), each held against its plain version on the inputs it is
+    timed on, at the tolerances of phases 3, 5 and 6, then timed beside it:
+    stale_accum over the [P, D] ring rows (the SGD top-k leg's aggregate),
+    fused_adam over [P * D] (simulate), fused_update plain and ef over P
+    rows, sparsify_topk over [P, D], coherence_dots at W = 4 (the
+    coherence leg's window). One set each: every call reads GBs, past the
+    50 MB L2. Returns the timings and the max abs errors."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.fused_update import fused_update
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
 
     gen = torch.Generator(device=dev).manual_seed(5)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     d, p = width, workers
-    out = {}
-    sets = [(torch.zeros(d, device=dev), rnd(p, d),
-             torch.full((p,), 1.0 / p, device=dev))]
+    out, errs = {}, {}
+    sets = [(rnd(d), rnd(p, d), torch.full((p,), 1.0 / p, device=dev))]
+    errs["stale_accum"] = check_close(
+        f"stale_accum lm S={p} D={d}", stale_accum(*sets[0]),
+        ref.stale_accum(*sets[0]), **TOL_ACCUM)
+    print(f"stale_accum lm S={p} D={d}: max_abs_err="
+          f"{errs['stale_accum']!r} (tol {TOL_ACCUM})")
     out["stale_accum"] = {
         "ms": time_ms(stale_accum, sets, reps=10),
         "plain_ms": time_ms(ref.stale_accum, sets, reps=10),
@@ -2427,8 +2510,16 @@ def lm_kernel_timings(dev, width: int, workers: int) -> dict:
         "bound": bound_ms((p * d + 2 * d + p) * 4, 2 * p * d)}
     del sets
     n = p * d
-    sets = [(torch.zeros(n, device=dev), 0.1 * rnd(n),
+    sets = [(rnd(n), 0.1 * rnd(n),
              0.01 * torch.rand(n, generator=gen, device=dev), rnd(n))]
+    got = fused_adam(*sets[0], 1e-3, 0.9, 0.999, 1e-8, 10)
+    want = ref.fused_adam(*sets[0], 1e-3, 0.9, 0.999, 1e-8, 10)
+    errs["fused_adam"] = max(check_close(f"fused_adam lm D={n} {k}", a, b,
+                                         **TOL_ADAM)
+                             for k, a, b in zip("pmv", got, want))
+    print(f"fused_adam lm D={n}: max_abs_err={errs['fused_adam']!r} "
+          f"(tol {TOL_ADAM})")
+    del got, want
     steps = torch.full((1,), 10.0, device=dev)
     out["fused_adam"] = {
         "ms": time_ms(lambda a, b, c, g: fused_adam(
@@ -2444,8 +2535,11 @@ def lm_kernel_timings(dev, width: int, workers: int) -> dict:
     torch.cuda.empty_cache()
     for label, variant in (("plain", "plain"), ("ef", "ef")):
         ops = update_operands(dev, p, d, seed=300)
+        errs[f"fused_update.{label}"] = check_update(
+            f"fused_update {variant} lm R={p} D={d}", ops, variant)
 
         def kernel(ops, variant=variant):
+            from repro_torch.kernels.fused_update import fused_update
             args, kw = variant_args(ops, variant, True)
             return fused_update(*args, 1e-3, 0.9, 0.999, 1e-8, 10,
                                 ops["scale"], **kw)
@@ -2461,6 +2555,8 @@ def lm_kernel_timings(dev, width: int, workers: int) -> dict:
             "library_ms": (None, None),
             "bound": update_bound(ops, variant, True)}
         if label == "ef":
+            check_sparsify(f"sparsify_topk lm R={p} D={d}", ops)
+            errs["sparsify_topk"] = 0.0
             out["sparsify_topk"] = {
                 "ms": time_ms(lambda o: sparsify_topk(o["acc"], o["thr"]),
                               [(ops,)], reps=10),
@@ -2472,6 +2568,17 @@ def lm_kernel_timings(dev, width: int, workers: int) -> dict:
         torch.cuda.empty_cache()
     w = 4
     sets = [(rnd(w, d), rnd(d))]
+    got = coherence_dots(*sets[0])
+    exc = coherence_excess(got, *sets[0])
+    errs["coherence_dots"] = max(max_abs(a, b) for a, b in zip(
+        got, ref.coherence_dots(*sets[0])))
+    print(f"coherence_dots lm W={w} D={d}: error vs fp64 {exc!r} x eps x "
+          f"sum|terms| (tol {COHERENCE_C}); max_abs_err vs plain "
+          f"{errs['coherence_dots']!r}")
+    if exc > COHERENCE_C:
+        raise AssertionError(f"coherence_dots lm W={w} D={d}: outside the "
+                             "fp64 tolerance")
+    del got
     out["coherence_dots"] = {
         "ms": time_ms(coherence_dots, sets, reps=10),
         "plain_ms": time_ms(ref.coherence_dots, sets, reps=10),
@@ -2479,14 +2586,54 @@ def lm_kernel_timings(dev, width: int, workers: int) -> dict:
         "bound": bound_ms(((w + 1) * d + 2 * w + 1) * 4, (4 * w + 2) * d)}
     del sets
     torch.cuda.empty_cache()
-    return {f"{k} lm": v for k, v in summarize(out, d).items()}
+    return {"timings": {f"{k} lm": v for k, v in summarize(out, d).items()},
+            "errs": errs}
+
+
+def full_adam_check(dev, d: int, chunk: int = 1 << 26) -> dict:
+    """fused_adam at the full-config leg's D (every param of h2o-danube-1.8b
+    in one flat [D]): the kernel runs once over the whole of D, and its
+    output is held against the plain version slice by slice (Adam is
+    elementwise), at TOL_ADAM; then the kernel is timed beside its bound.
+    The plain version's temporaries at this D would not fit beside the
+    operands, so its time is the one at the LM width."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adam import fused_adam
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ops = (torch.randn(d, generator=gen, device=dev),
+           0.1 * torch.randn(d, generator=gen, device=dev),
+           0.01 * torch.rand(d, generator=gen, device=dev),
+           torch.randn(d, generator=gen, device=dev))
+    got = fused_adam(*ops, 1e-3, 0.9, 0.999, 1e-8, 3)
+    err = 0.0
+    for lo in range(0, d, chunk):
+        want = ref.fused_adam(*(x[lo:lo + chunk] for x in ops), 1e-3, 0.9,
+                              0.999, 1e-8, 3)
+        err = max(err, max(check_close(
+            f"fused_adam D={d} [{lo}:{lo + chunk}] {k}", a[lo:lo + chunk], b,
+            **TOL_ADAM) for k, a, b in zip("pmv", got, want)))
+    del got, want
+    torch.cuda.empty_cache()
+    ms, eager = time_ms(lambda a, b, c, g: fused_adam(
+        a, b, c, g, 1e-3, 0.9, 0.999, 1e-8, 3), [ops], reps=5)
+    bound, by = bound_ms(7 * d * 4, 16 * d)
+    print(f"fused_adam D={d} (the full-config leg's): max_abs_err={err!r} "
+          f"(tol {TOL_ADAM}); kernel {ms!r} ms (device time, CUDA graph "
+          f"replay; eager {eager!r} ms), bound {bound!r} ms ({by})")
+    del ops
+    torch.cuda.empty_cache()
+    return {"d": d, "max_abs_err": err, "ms": ms, "bound_ms": bound,
+            "bound_by": by}
 
 
 def train_path(dev, tmp: str) -> dict:
     """Phase 9: flash_attention against its plain version and timed; the
     full-config danube leg (with the flash route); the cut-depth ring legs;
-    the MoE leg; kernels 1-5 timed at the LM width. Every leg runs before
-    any failure is raised."""
+    the MoE leg; kernels 1-5 against their plain versions and timed at the
+    LM width, and fused_adam at the full leg's D. Every leg runs before any
+    failure is raised (a kernel check raises at once)."""
     import gc
     import torch
     # Full-width training needs the card empty: free whatever earlier
@@ -2504,7 +2651,9 @@ def train_path(dev, tmp: str) -> dict:
     from repro_torch import treemath as tm
     from repro_torch.kernels import dispatch
     width = tm.padded_size(out["ring"]["n_params"], dispatch.PACK_ALIGN)
-    out["lm_timings"] = lm_kernel_timings(dev, width, TRAIN_RING["workers"])
+    out["lm"] = lm_kernels(dev, width, TRAIN_RING["workers"])
+    out["full_adam"] = full_adam_check(dev, tm.padded_size(
+        out["full"]["n_params"], dispatch.PACK_ALIGN))
     if failures:
         raise AssertionError("train phase: " + "; ".join(failures))
     return out
@@ -2537,23 +2686,27 @@ def add_lm_rows(kernels: list, train: dict) -> None:
             f"moe {train['moe']['arch']}": train["moe"]["launches"]}
     legs.update({name: row["launches"] for name, row in train["ring"].items()
                  if isinstance(row, dict) and "launches" in row})
+    timings, errs = train["lm"]["timings"], train["lm"]["errs"]
     for entry in kernels:
         name = entry["name"]
-        key = {"fused_update": "fused_update.plain lm"}.get(name, f"{name} lm")
-        if key not in train["lm_timings"]:
+        key = {"fused_update": "fused_update.plain"}.get(name, name)
+        if f"{key} lm" not in timings:
             continue
-        t = train["lm_timings"][key]
+        t = timings[f"{key} lm"]
         entry["lm_width"] = {
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "max_abs_err": errs[key],
             "launches_by_leg": {
                 leg: sum(n for k, n in c.items() if k.split(".")[0] == name)
                 for leg, c in legs.items()}}
         if name == "fused_update":
-            ef = train["lm_timings"]["fused_update.ef lm"]
+            ef = timings["fused_update.ef lm"]
             entry["lm_width"]["ef"] = {k: ef[k] for k in (
                 "ms", "plain_ms", "bound_ms")}
+            entry["lm_width"]["ef"]["max_abs_err"] = errs["fused_update.ef"]
+        if name == "fused_adam":
+            entry["full_d"] = train["full_adam"]
 
 
 def main() -> int:

@@ -95,6 +95,10 @@ class ArchDef:
     notes: str = ""
     train_optimizer: str = "adam"
     stale_s_default: int = 4
+    # Params sharded over the data axis (the JAX package's FSDP placement,
+    # ``sharding/rules.py``): the engine keeps their tree layout and gives
+    # stale-psum the aggregate ring.
+    fsdp: bool = False
 
     def api(self, reduced: bool = False, long_ctx: bool = False,
             overrides: Optional[dict] = None) -> ModelAPI:

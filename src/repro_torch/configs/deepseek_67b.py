@@ -34,4 +34,4 @@ ARCH = ArchDef(
     citation="arXiv:2401.02954 (DeepSeek LLM)", make_config=make_config,
     notes="bf16 params + SGD-momentum for memory; long_500k uses the "
           "swa_window=8192 variant.",
-    train_optimizer="momentum", stale_s_default=2)
+    train_optimizer="momentum", stale_s_default=2, fsdp=True)

@@ -40,4 +40,4 @@ ARCH = ArchDef(
     notes="384 experts / 16 = 24 per model shard (pure expert parallelism). "
           "bf16 params + SGD-momentum for memory; stale-psum staleness only "
           "(faithful per-worker caches inapplicable at 1T).",
-    train_optimizer="momentum", stale_s_default=2)
+    train_optimizer="momentum", stale_s_default=2, fsdp=True)

@@ -28,8 +28,11 @@ Every mode honours the compensation layer (``lr_scale``, ``compress``,
 Routing: ``kernels="off"`` keeps the tree layouts in plain torch; ``"auto"``
 and ``"on"`` run the packed ring through the CUDA kernels. On one device
 the only placement veto is the JAX package's FSDP one
-(``kernel_placement_ok``): an FSDP arch keeps the tree layout under
-``"auto"`` and refuses ``"on"``. An Adam-spec optimizer on the packed path
+(``kernel_placement_ok``, read from ``ArchDef.fsdp``): an FSDP arch keeps
+the tree layout under ``"auto"`` (so it runs no kernel, and
+``meta["kernels"]["fallback"]`` says why) and refuses ``"on"``. One device
+has no data axis to keep, but the port takes the verdict as it is until
+multi-GPU placement gives it one (ROADMAP A.12). An Adam-spec optimizer on the packed path
 runs the megakernel tail (``fused_update`` in the ring modes and in sync
 with a compensation knob, ``fused_adam`` in simulate and in plain dense
 sync) unless ``megakernel="off"``.
@@ -69,12 +72,6 @@ from repro_torch.optim import optimizers as optlib
 Pytree = Any
 
 MODES = ("simulate", "stale-psum", "ssp", "sync")
-
-# Archs whose params the JAX package shards over the data axis
-# (``repro/sharding/rules.py``): a packed view mixes leaves, so they keep
-# the tree layout, and make_train_engine gives them the aggregate ring.
-FSDP_ARCHS = {"kimi-k2-1t-a32b", "deepseek-67b"}
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -276,7 +273,10 @@ def kernel_placement_ok(kernels: str, arch=None,
         raise _not_ported("mesh=", "A.12, multi-GPU placement")
     if kernels == "off":
         return False, "config off"
-    if getattr(arch, "arch_id", arch) in FSDP_ARCHS:
+    if isinstance(arch, str):
+        from repro_torch import configs as cfglib
+        arch = cfglib.REGISTRY.get(arch)
+    if getattr(arch, "fsdp", False):
         return False, "FSDP placement"
     return True, ""
 

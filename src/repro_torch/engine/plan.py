@@ -60,8 +60,8 @@ def make_train_engine(arch: Union[str, ArchDef], shape: ShapeLike,
     ``ecfg`` controls everything. With no mesh the worker count defaults
     to 1, the JAX package's data extent of a one-device mesh. The fused
     Adam opt-in follows the engine's placement verdict."""
-    from repro_torch.engine.api import (FSDP_ARCHS, EngineConfig,
-                                        build_engine, kernel_placement_ok)
+    from repro_torch.engine.api import (EngineConfig, build_engine,
+                                        kernel_placement_ok)
     from repro_torch.optim import optimizers as optlib
 
     arch = cfglib.get(arch) if isinstance(arch, str) else arch
@@ -88,7 +88,7 @@ def make_train_engine(arch: Union[str, ArchDef], shape: ShapeLike,
             stale_s if stale_s is not None else arch.stale_s_default)
         kw = dict(engine_kw)
         if mode == "stale-psum":
-            kw.setdefault("per_worker_delays", arch.arch_id not in FSDP_ARCHS)
+            kw.setdefault("per_worker_delays", not arch.fsdp)
         ecfg = EngineConfig(
             mode=mode, s=s, num_workers=num_workers or 1,
             buffer_dtype=getattr(api.cfg, "param_dtype", torch.float32), **kw)

@@ -118,10 +118,9 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, params=None) -> dict:
+def main(argv=None) -> dict:
     """Run the driver; returns ``{"engine", "result", "params_m"}`` for a
-    caller that drives it in-process. ``params`` (such a caller's) replaces
-    the seeded initial params; the seed still drives the delays."""
+    caller that drives it in-process."""
     args = parser().parse_args(argv)
 
     if args.delay and args.trace:
@@ -167,7 +166,7 @@ def main(argv=None, params=None) -> dict:
     # The driver keeps no reference to the initial state once training
     # starts, so a full-width run holds one copy of its params, moments
     # and ring at a time.
-    states = [engine.init(args.seed, params=params)]
+    states = [engine.init(args.seed)]
     n_params = tm.tree_size(engine.params(states[0]))
     print(f"params: {n_params/1e6:.1f}M")
 

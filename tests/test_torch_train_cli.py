@@ -28,6 +28,7 @@ from repro import configs as jcfg
 from repro.checkpoint import checkpoint as jckpt
 from repro.kernels import dispatch as jdispatch
 from repro.launch import train as jtrain
+from repro_torch import configs as tcfg
 from repro_torch import treemath as tm
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.kernels import dispatch as tdispatch
@@ -245,6 +246,27 @@ def test_fsdp_arch_refuses_the_packed_ring_as_the_jax_engine_does():
     with pytest.raises(NotImplementedError, match="A.12"):
         tmake("deepseek-7b", "train_4k", mesh=object(), reduced=True,
               device="cpu")
+
+
+@pytest.mark.parametrize("arch_id", sorted(tcfg.REGISTRY))
+def test_fsdp_is_the_arch_field_of_the_jax_sharding_rules(arch_id):
+    from repro.sharding.rules import FSDP_ARCHS
+    assert tcfg.get(arch_id).fsdp == (arch_id in FSDP_ARCHS)
+
+
+@pytest.mark.parametrize("mode", ["stale-psum", "ssp", "simulate"])
+def test_fsdp_arch_under_auto_runs_no_kernel_and_records_why(mode):
+    """On one device an FSDP arch keeps the tree layout under
+    kernels="auto": no packed ring, no fused Adam, and the engine's meta
+    names the FSDP veto."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine.plan import make_train_engine as tmake
+    shape = InputShape("train_small", 8, 4, "train")
+    te = tmake("deepseek-67b", shape, reduced=True, mode=mode, stale_s=2,
+               num_workers=2, kernels="auto", device="cpu")
+    assert te.meta["kernels"]["delivery"] == "tree"
+    assert te.meta["kernels"]["fallback"] == "FSDP placement"
+    assert te.meta["kernels"]["megakernel"] == "off"
 
 
 def test_the_driver_needs_cuda_unless_cpu(monkeypatch):
