@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   printing each kernel's registers, spills and static shared memory (from
+   ``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
+   tensor-core (HMMA) instructions in each ``flash_attention`` entry;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at a ragged D;
 4. the simulate path: the simulate engine training the full-width Fig.
@@ -45,7 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    rings, lazily allocated and empty slots, windows 0, 16 and 4096, the
    last layer's columns, fp32 and bf16 operands, and two calls bitwise; its
    time beside its bound, its plain version and
-   ``F.scaled_dot_product_attention`` over the gathered ring; then the
+   ``F.scaled_dot_product_attention`` over the gathered ring, and at other
+   split counts than the wrapper's; then the
    full-width h2o-danube-1.8b (24 layers, random weights from seed 0)
    served through ``Server`` on the paged route (the kernel): 16 requests
    over 8 slots, prompts of 128, up to 96 new tokens, bf16 compute over
@@ -76,9 +80,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --attention-times SRC`` runs only the two attention
+kernels' timings, with the ``repro_torch`` package under ``SRC`` (see
+``attention_times``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -729,8 +738,13 @@ def time_ms(fn, arg_sets, reps: int = 60):
     with torch.cuda.graph(graph):
         for i in range(reps):
             fn(*arg_sets[i % k])
-    graph.replay()
-    torch.cuda.synchronize()
+    # Replay for ~25 ms first, so that the timed replay finds the card's
+    # clocks and caches in the state this work keeps them in, not in one
+    # that the previous phase left (a short call's graph lasts < 1 ms).
+    t_warm = time.perf_counter()
+    while time.perf_counter() - t_warm < 0.025:
+        graph.replay()
+        torch.cuda.synchronize()
     start.record()
     graph.replay()
     end.record()
@@ -1435,6 +1449,36 @@ def paged_kernel_checks(dev) -> dict:
     return errs
 
 
+def paged_timing_case(dev):
+    """The serve cell's paged_attention inputs that paged_timings
+    describes: the pool, the wrapper's keywords, its positional arguments
+    and one argument set per layer."""
+    import torch
+    pool, kw = paged_case(dev, heads=(32, 8, 80), t=8, tokens=512,
+                          layers=24, seed=3)
+    s = pool["tables"].shape[0]
+    held = 28
+    tables = pool["tables"].clone()
+    tables[:, held:] = pool["pages"].shape[0] - 1
+    pool["tables"] = tables.contiguous()
+    pool["pos"] = torch.full((s,), 176, dtype=torch.int32, device=dev)
+    return pool, kw, _paged_args(pool), [(layer,) for layer in range(24)]
+
+
+@contextlib.contextmanager
+def forced_split(n: int):
+    """Within the block the paged_attention wrapper splits each (slot, kv
+    head) into ``n`` chunks instead of its chooser's count (any count
+    computes the same function)."""
+    from repro_torch.kernels import paged_attention as tpa
+    chooser = tpa.choose_split
+    tpa.choose_split = lambda *shape: n
+    try:
+        yield
+    finally:
+        tpa.choose_split = chooser
+
+
 def paged_timings(dev) -> dict:
     """paged_attention at the serve cell's shapes (danube, 8 slots, 8-row
     pages, 512-row rings), slots 0-6 mid-run at position 176 with the 28
@@ -1445,22 +1489,13 @@ def paged_timings(dev) -> dict:
     already-gathered contiguous ring with the boolean mask (gather
     excluded), a cross-check only. The bound counts the bytes of the rows
     the call attends over, not of every row its held pages hold."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
-    pool, kw = paged_case(dev, heads=(32, 8, 80), t=8, tokens=512,
-                          layers=24, seed=3)
+    pool, kw, args, sets = paged_timing_case(dev)
     s, pps = pool["tables"].shape
-    held = 28
-    tables = pool["tables"].clone()
-    tables[:, held:] = pool["pages"].shape[0] - 1
-    pool["tables"] = tables.contiguous()
-    pool["pos"] = torch.full((s,), 176, dtype=torch.int32, device=dev)
-    args = _paged_args(pool)
-    sets = [(layer,) for layer in range(24)]
 
     # SDPA inputs per layer: the gathered ring with the new token written
     # at the cursor, and the validity mask, exactly as the plain version
@@ -1534,6 +1569,22 @@ def paged_timings(dev) -> dict:
     print(f"SDPA cross-check vs kernel: max_abs_err={err!r}")
     del pool, rings, lib_sets
     return rows_
+
+
+def paged_split_sweep(dev) -> None:
+    """paged_attention's device time on paged_timings' inputs at other
+    split counts than its chooser's, printed beside the chooser's."""
+    from repro_torch.kernels import paged_attention as tpa
+    pool, kw, args, sets = paged_timing_case(dev)
+    s, h = pool["q"].shape[:2]
+    chosen = tpa.choose_split(s, h, kw["kv_heads"], kw["tokens"])
+    sweep = {}
+    for n in sorted({1, 2, 3, 4, 6, 8, chosen}):
+        with forced_split(n):
+            sweep[n] = time_ms(lambda layer: tpa.paged_attention(
+                *args, layer, **kw), sets)[0]
+    print(f"timing paged_attention n_split (chooser: {chosen}) -> device "
+          f"ms: {sweep}")
 
 
 def serve_requests(vocab: int, n: int = SERVE_REQUESTS):
@@ -2709,6 +2760,89 @@ def add_lm_rows(kernels: list, train: dict) -> None:
             entry["full_d"] = train["full_adam"]
 
 
+def print_ptxas(log: str) -> None:
+    """Each kernel's registers, spills and static shared memory, as ptxas
+    reported them in an ``nvcc -Xptxas -v`` log (the attention kernels'
+    shared memory is dynamic, sized by their launchers: flash bf16 at hd
+    80, (64 + 4 x 64) rows of 88 bf16, 56,320 B)."""
+    import re
+    src, entry, spills = "", None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"  ptxas {src} {entry}: {m.group(1)} registers, spill "
+                  f"stores {spills[0] if spills else '?'} B, spill loads "
+                  f"{spills[1] if spills else '?'} B, static smem "
+                  f"{smem.group(1) if smem else 0} B")
+
+
+def print_tensor_core_ops(lib_path) -> None:
+    """The count of HMMA (tensor-core) instructions in each flash_attention
+    entry's SASS, read with cuobjdump where the toolkit has it."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        exe = shutil.which("cuobjdump")
+    if exe is None:
+        print("cuobjdump: not found; HMMA count not read")
+        return
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    fun, counts = None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fun = m.group(1)
+            counts[fun] = 0
+        elif fun is not None and "HMMA" in line:
+            counts[fun] += 1
+    for fun, n in counts.items():
+        t = re.search(r"flash_mma_kernelILi(\d+)ELi(\d+)E", fun)
+        if t:
+            print(f"  SASS flash_mma_kernel<hd_pad {t.group(1)}, BK "
+                  f"{t.group(2)}> (bf16): {n} HMMA instructions")
+        t = re.search(r"flash_attention_kernelILi(\d+)E", fun)
+        if t:
+            print(f"  SASS flash_attention_kernel<DPL {t.group(1)}> (fp32): "
+                  f"{n} HMMA instructions")
+
+
+def attention_times(src: str) -> int:
+    """``--attention-times SRC``: only flash_timings and paged_timings, with
+    the ``repro_torch`` package under ``SRC`` (its kernels built from its
+    own sources into its checkout's ``build/``). Run on two checkouts in one
+    call (parent, change, change, parent), it times both designs with this
+    script's time_ms."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(card_line())
+    path, _, secs = build.build()
+    print(f"build: {path} in {secs:.1f} s")
+    rows = flash_timings(dev)
+    rows.update(paged_timings(dev))
+    print(json.dumps({"attention_times": {"src": src, "rows": rows}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2732,9 +2866,8 @@ def main() -> int:
     path, log, secs = build.build()
     build.library()
     print(f"build: {path.name} in {secs:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    print_ptxas(log)
+    print_tensor_core_ops(path)
 
     # The packed width at the main path's shapes: D = 335,114 padded to
     # 335,872, times P = 8 workers.
@@ -2777,6 +2910,7 @@ def main() -> int:
     # timings, then the full-width danube serve.
     paged_errs = paged_kernel_checks(dev)
     timings.update(paged_timings(dev))
+    paged_split_sweep(dev)
     serve = serve_path(dev)
 
     # The train path: flash_attention, then LM training through the train
@@ -2818,4 +2952,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--attention-times"]:
+        sys.exit(attention_times(sys.argv[2]))
     sys.exit(main())

@@ -48,8 +48,8 @@ SIGNATURES = {
     "repro_coherence_f32": (
         [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
     "repro_paged_attention_f32": (
-        [_P] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
+        [_P] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
     "repro_flash_attention": (
         [_P] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, _P], ctypes.c_int),
 }

@@ -4,7 +4,9 @@
 
 Causal and sliding-window masks, GQA head groups, q right-aligned to the
 keys (q row i at position i + Sk - Sq); fp32 or bf16 operands, fp32 scores,
-softmax and accumulation, output in q's dtype. Any head width up to 256 and
+softmax and accumulation, output in q's dtype. bf16 operands run on the
+tensor cores (``mma.sync``, with the probabilities fed as an exact bf16
+hi/lo pair), fp32 operands on the fp32 pipes. Any head width up to 256 and
 any Sq <= Sk run: the kernel masks its own ragged edges, so there is no
 block-size contract and no shape falls back. Sums run in a fixed order, so
 two calls on the same inputs are equal bit for bit. CPU tensors go to

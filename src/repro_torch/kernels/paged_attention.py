@@ -9,6 +9,11 @@ softmax in a fixed order, so two calls on the same inputs are equal bit for
 bit. Any head width up to 256 and any column offset run (no alignment
 contract).
 
+Split-KV: each (slot, kv head) is cut into ``n_split`` chunks of the rows
+its slot holds, scored by separate blocks into a workspace, then merged in
+split order by a second kernel (one launch counted per call).
+:func:`choose_split` picks ``n_split`` from the shapes alone.
+
 It computes the JAX oracle's function (``repro/kernels/ref.py``), which is
 the gather -> decode route's: on a ring that has wrapped with no window at
 or below its length, the cursor row's old token is dropped, which the
@@ -25,6 +30,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+
+SMS = 132             # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 2     # the chooser's target
+MIN_CHUNK_ROWS = 16   # fewest ring rows a chunk is given
+MAX_GROUP = 8         # q heads a block (kMaxGroup in the CUDA source)
+
+
+def choose_split(slots: int, heads: int, kv_heads: int, tokens: int) -> int:
+    """Chunks per (slot, kv head): the count whose blocks come nearest to
+    BLOCKS_PER_SM on each SM (all in one wave), but no chunk of a full ring
+    under MIN_CHUNK_ROWS rows."""
+    groups = -(-(heads // kv_heads) // MAX_GROUP)
+    blocks = slots * kv_heads * groups
+    want = (2 * BLOCKS_PER_SM * SMS + blocks) // (2 * blocks)   # rounded
+    return max(1, min(want, -(-tokens // MIN_CHUNK_ROWS)))
+
+
+def workspace_shape(slots: int, heads: int, kv_heads: int, head_dim: int,
+                    n_split: int) -> tuple:
+    """[S, Hkv, n_split, H/Hkv, hd + 2]: a chunk's (acc[hd], m, l) per q
+    head."""
+    return (slots, kv_heads, n_split, heads // kv_heads, head_dim + 2)
 
 
 def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
@@ -71,14 +98,17 @@ def paged_attention(q, k_new, v_new, pages, tables, pos, layer: int, *,
     vnf = v_new.float().reshape(s, hkv, hd).contiguous()
     for name, x in (("q", qf), ("k_new", knf), ("v_new", vnf)):
         build.check_operand("paged_attention", name, x, tuple(x.shape), dev)
+    n_split = choose_split(s, h, hkv, tokens)
     out = torch.empty((s, h, hd), device=dev)
+    ws = torch.empty(workspace_shape(s, h, hkv, hd, n_split), device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.repro_paged_attention_f32(
             out.data_ptr(), qf.data_ptr(), knf.data_ptr(), vnf.data_ptr(),
-            pages.data_ptr(), tables.data_ptr(), pos.data_ptr(), s, h, hkv,
-            hd, pps, page_tokens, width, k_col, v_col, tokens, window,
-            n_pages - 1, torch.cuda.current_stream(dev).cuda_stream)
+            pages.data_ptr(), tables.data_ptr(), pos.data_ptr(),
+            ws.data_ptr(), s, h, hkv, hd, pps, page_tokens, width, k_col,
+            v_col, tokens, window, n_pages - 1, n_split,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out.to(v_new.dtype)

@@ -336,6 +336,35 @@ def test_paged_attention_kernel_bf16(cuda_device, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [None, 1, 3, 200])
+@pytest.mark.parametrize("heads", [(32, 8, 80), (40, 8, 128), (6, 3, 40)])
+def test_paged_attention_split_counts_and_empty_chunks(cuda_device, heads,
+                                                       n_split, monkeypatch):
+    """The split-KV kernel at the chooser's count, one chunk, a few, and
+    more chunks than any slot has rows (most chunks empty; a count other
+    than the chooser's is forced by replacing it). Slot 1 sits at position
+    0, slot 2 holds only null pages at a position past its ring (every
+    chunk all null), slot 3's ring has wrapped; two calls bitwise."""
+    if n_split is not None:
+        monkeypatch.setattr(tpa, "choose_split", lambda *a: n_split)
+    h, hkv, hd = heads
+    c = _paged_case(cuda_device, h=h, hkv=hkv, hd=hd, t=8, tokens=64,
+                    k_off=3 if hkv == 3 else 0, seed=hd + (n_split or 0))
+    pos = c["pos"].cpu().numpy()
+    pos[1], pos[2], pos[3] = 0, 150, 141
+    c["pos"] = torch.from_numpy(pos).to(cuda_device)
+    tables = c["tables"].clone()
+    tables[2] = c["pages"].shape[0] - 1
+    c["tables"] = tables
+    for window in (0, 16):
+        got = tpa.paged_attention(*_paged_args(c), window=window, **c["kw"])
+        want = ref.paged_attention(*_paged_args(c), window=window, **c["kw"])
+        torch.testing.assert_close(got, want, **TOL_PAGED)
+        again = tpa.paged_attention(*_paged_args(c), window=window, **c["kw"])
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_paged_attention_dispatch_routes_cuda(cuda_device):
     dispatch.reset_report()
     c = _paged_case(cuda_device, h=4, hkv=1, hd=32, t=4, tokens=24)
@@ -393,6 +422,34 @@ def test_flash_attention_kernel_bf16(cuda_device, window):
     want = ref.flash_attention(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(8, 2, 64), (32, 8, 80), (40, 8, 128),
+                                   (4, 4, 128), (6, 3, 17), (4, 1, 256)])
+@pytest.mark.parametrize("sq,sk,window", [(100, 200, 0), (1, 300, 0),
+                                          (77, 77, 0), (130, 190, 40),
+                                          (64, 64 + 31, 0)])
+def test_flash_attention_tensor_cores_bf16(cuda_device, heads, sq, sk,
+                                           window):
+    """The bf16 tensor-core kernel: Sq and Sk off the 64-row tile, Sq = 1,
+    a window that bites, odd and wide head widths, and a bitwise replay.
+    Against the plain version on the same bf16 values: one bf16 rounding
+    of the output."""
+    h, hkv, hd = heads
+    q, k, v = _flash_case(cuda_device, 2, sq, sk, h, hkv, hd,
+                          dtype=torch.bfloat16, seed=sq + sk + hd + window)
+    got = tfl.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    again = tfl.flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(got, again)
+    if sq == sk:
+        got = tfl.flash_attention(q, k, v, causal=False)
+        want = ref.flash_attention(q, k, v, causal=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda
