@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    printing each kernel's registers, spills and static shared memory (from
-   ``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
+   ``-Xptxas -v``; for the coherence kernels also the blocks an SM those
+   registers allow) and, where the toolkit has ``cuobjdump``, the count of
    tensor-core (HMMA) instructions in each ``flash_attention`` entry;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at a ragged D;
@@ -40,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``stale-psum`` Adam leg with ``lr_scale="theorem1"`` fed by the hook,
    kernels on vs off; the hook's cost per step and the split of one probe;
    ``coherence_dots``'s time beside its bound, its plain version and
-   ``torch.mv``;
+   ``torch.mv``; its time at W = 8 over D = D_pad x 1-16 beside
+   ``torch.sum`` and ``copy_`` over the same bytes, each series fit to
+   fixed + bytes / rate (``coherence_sweep``);
 8. the serve path: ``paged_attention`` against its plain version on the
    card at the head shapes of h2o-danube-1.8b (32/8/80), deepseek-7b
    (32/32/128, a pool past 2^31 elements) and qwen3-14b (40/8/128), with 8
@@ -83,7 +86,9 @@ repository beside it, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --attention-times SRC`` runs only the two attention
 kernels' timings, with the ``repro_torch`` package under ``SRC`` (see
-``attention_times``).
+``attention_times``); ``--coherence-times SRC`` only ``coherence_dots``'s
+ptxas lines, checks, timings at the DNN and LM widths and D sweep (see
+``coherence_times``).
 """
 from __future__ import annotations
 
@@ -959,10 +964,14 @@ def coherence_entry(timings: dict, coh: dict, err: float) -> dict:
 
 # coherence_dots, kernel and plain version, normwise against fp64:
 # |x - x64| <= COHERENCE_C * eps * sum_i |t_i| for the terms t_i of each sum
-# (eps = 2^-23). The kernel's longest chain of additions (a thread's terms,
-# the 5-level warp shuffle tree, 8 warps, the stage-2 lane sum over <= 32
-# partials and its 5-level tree) is under 64 roundings at these shapes, so
-# 64 is its worst-case bound; the plain version is held to the same bound.
+# (eps = 2^-23). The kernel's longest chain of roundings from a term to its
+# output (a trip's 3-level tree, the U trips' tree, the per-thread cascade,
+# the 5-level warp shuffle tree, the 8 warps' 3-level tree, the final
+# grid's 8-slot and 5-level shuffle trees; kernels/coherence.py::
+# chain_length) is 22 at W = 8 and 20 at W = 16 over D_pad, 23 at W = 3
+# over the ragged D and 48 at the LM width (W = 4, where the cascade holds
+# ~843 iterations a thread to 28 roundings), so 64 is its worst-case bound;
+# the plain version is held to the same bound.
 COHERENCE_C = 64
 # The coherence phase: the example's window, probe cadence and controller.
 PROBE_EVERY, WINDOW, PROBE_N = 5, 8, 1000
@@ -1307,6 +1316,62 @@ def coherence_timings(dev, width: int) -> dict:
     for name, row in rows.items():
         print(f"timing {name}: torch.mv (the dots alone) {row['mv_ms']!r} ms")
     return rows
+
+
+# coherence_sweep: W and the multiples of the DNN width it runs.
+SWEEP_W, SWEEP_FACTORS = 8, (1, 2, 4, 8, 16)
+
+
+def fit_line(points) -> tuple:
+    """Least-squares (fixed ms, TB/s) of ms = fixed + bytes / rate."""
+    n = len(points)
+    mx = sum(b for b, _ in points) / n
+    my = sum(t for _, t in points) / n
+    slope = (sum((b - mx) * (t - my) for b, t in points)
+             / sum((b - mx) ** 2 for b, _ in points))
+    return my - slope * mx, 1e-9 / slope if slope > 0 else float("inf")
+
+
+def coherence_sweep(dev, width: int) -> dict:
+    """coherence_dots at W = SWEEP_W over D = width x SWEEP_FACTORS, beside
+    two library yardsticks over the same bytes: torch.sum of one
+    [(W + 1) D] fp32 tensor (a single-pass read) and copy_ of it into
+    another (that read plus a write of as many bytes). Each series is fit
+    to ms = fixed + bytes read / rate: the fixed part is what a call costs
+    whatever its size (launches, ramp-up, the tail of the last wave, a
+    reduction's final step), the rate what it streams at. Returns the
+    points and the fits."""
+    import torch
+    from repro_torch.kernels.coherence import coherence_dots
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    w = SWEEP_W
+    points = {"kernel": [], "sum": [], "copy": []}
+    for f in SWEEP_FACTORS:
+        d = width * f
+        n_bytes = (w + 1) * d * 4
+        k = -(-150_000_000 // n_bytes)        # sets past the 50 MB L2
+        sets = [(rnd(w, d), rnd(d)) for _ in range(k)]
+        flat = [(torch.empty((w + 1) * d, device=dev), rnd((w + 1) * d))
+                for _ in range(k)]
+        ms = {"kernel": time_ms(coherence_dots, sets)[0],
+              "sum": time_ms(lambda dst, src: torch.sum(src), flat)[0],
+              "copy": time_ms(lambda dst, src: dst.copy_(src), flat)[0]}
+        for key, t in ms.items():
+            points[key].append((n_bytes, t))
+        print(f"coherence sweep W={w} D={d} ({n_bytes} B read): kernel "
+              f"{ms['kernel']!r} ms, torch.sum {ms['sum']!r} ms, copy_ "
+              f"{ms['copy']!r} ms (device time, CUDA graph replay)")
+        del sets, flat
+        torch.cuda.empty_cache()
+    fits = {}
+    for key, pts in points.items():
+        fixed, rate = fit_line(pts)
+        fits[key] = {"fixed_ms": fixed, "tb_per_s": rate}
+        print(f"coherence sweep fit {key}: ms = {fixed!r} + bytes read / "
+              f"({rate!r} TB/s)")
+    return {"points": points, "fits": fits}
 
 
 # -- phase 8: the serve path -------------------------------------------------
@@ -1867,6 +1932,11 @@ TRAIN_FULL = dict(batch=8, seq=1024, steps=4, timed=3, profile=2)
 # residuals and EF operands, under ~50 GB for any leg.
 TRAIN_RING = dict(layers=4, workers=2, stale=3, batch=4, seq=256, steps=4,
                   timed=3, profile=2)
+# Their packed width (441,735,680 params padded to PACK_ALIGN; train_path
+# checks it against the legs' own count) and the coherence leg's probe
+# window (the CLI's max(stale, 4)): coherence_dots's LM shape.
+LM_WIDTH = 441_737_216
+LM_WINDOW = max(TRAIN_RING["stale"], 4)
 # (name, CLI flags, launches per step with kernels on, with kernels off).
 TRAIN_LEGS = (
     ("stale-psum adam", dict(mode="stale-psum"), dict(fused_update_plain=1),
@@ -2533,12 +2603,12 @@ def lm_kernels(dev, width: int, workers: int) -> dict:
     timed on, at the tolerances of phases 3, 5 and 6, then timed beside it:
     stale_accum over the [P, D] ring rows (the SGD top-k leg's aggregate),
     fused_adam over [P * D] (simulate), fused_update plain and ef over P
-    rows, sparsify_topk over [P, D], coherence_dots at W = 4 (the
-    coherence leg's window). One set each: every call reads GBs, past the
-    50 MB L2. Returns the timings and the max abs errors."""
+    rows, sparsify_topk over [P, D], coherence_dots at W = LM_WINDOW (the
+    coherence leg's window; ``lm_coherence``). One set each: every call
+    reads GBs, past the 50 MB L2. Returns the timings and the max abs
+    errors."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.coherence import coherence_dots
     from repro_torch.kernels.fused_adam import fused_adam
     from repro_torch.kernels.sparsify import sparsify_topk
     from repro_torch.kernels.stale_accum import stale_accum
@@ -2617,28 +2687,43 @@ def lm_kernels(dev, width: int, workers: int) -> dict:
                 "bound": bound_ms(3 * p * d * 4 + p * 4, 3 * p * d)}
         del ops
         torch.cuda.empty_cache()
-    w = 4
+    out["coherence_dots"], errs["coherence_dots"] = lm_coherence(dev, d, rnd)
+    return {"timings": {f"{k} lm": v for k, v in summarize(out, d).items()},
+            "errs": errs}
+
+
+def lm_coherence(dev, d: int, rnd) -> tuple:
+    """coherence_dots at the coherence leg's window (W = LM_WINDOW) over the
+    LM width D: held against fp64 at COHERENCE_C and against its plain
+    version, two calls bitwise, then timed beside its bound, its plain
+    version and torch.mv (the dots alone). Returns the timing (for
+    summarize) and the max abs error against the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coherence import coherence_dots
+
+    w = LM_WINDOW
     sets = [(rnd(w, d), rnd(d))]
-    got = coherence_dots(*sets[0])
+    got, again = coherence_dots(*sets[0]), coherence_dots(*sets[0])
     exc = coherence_excess(got, *sets[0])
-    errs["coherence_dots"] = max(max_abs(a, b) for a, b in zip(
-        got, ref.coherence_dots(*sets[0])))
+    err = max(max_abs(a, b) for a, b in zip(got, ref.coherence_dots(*sets[0])))
     print(f"coherence_dots lm W={w} D={d}: error vs fp64 {exc!r} x eps x "
-          f"sum|terms| (tol {COHERENCE_C}); max_abs_err vs plain "
-          f"{errs['coherence_dots']!r}")
+          f"sum|terms| (tol {COHERENCE_C}); max_abs_err vs plain {err!r}")
     if exc > COHERENCE_C:
         raise AssertionError(f"coherence_dots lm W={w} D={d}: outside the "
                              "fp64 tolerance")
-    del got
-    out["coherence_dots"] = {
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"coherence_dots lm W={w} D={d}: two calls on "
+                             "the same inputs differ")
+    del got, again
+    timing = {
         "ms": time_ms(coherence_dots, sets, reps=10),
         "plain_ms": time_ms(ref.coherence_dots, sets, reps=10),
         "library_ms": time_ms(lambda hh, g: torch.mv(hh, g), sets, reps=10),
         "bound": bound_ms(((w + 1) * d + 2 * w + 1) * 4, (4 * w + 2) * d)}
     del sets
     torch.cuda.empty_cache()
-    return {"timings": {f"{k} lm": v for k, v in summarize(out, d).items()},
-            "errs": errs}
+    return timing, err
 
 
 def full_adam_check(dev, d: int, chunk: int = 1 << 26) -> dict:
@@ -2702,6 +2787,8 @@ def train_path(dev, tmp: str) -> dict:
     from repro_torch import treemath as tm
     from repro_torch.kernels import dispatch
     width = tm.padded_size(out["ring"]["n_params"], dispatch.PACK_ALIGN)
+    if width != LM_WIDTH:
+        failures.append(f"ring legs' D_pad {width} != LM_WIDTH {LM_WIDTH}")
     out["lm"] = lm_kernels(dev, width, TRAIN_RING["workers"])
     out["full_adam"] = full_adam_check(dev, tm.padded_size(
         out["full"]["n_params"], dispatch.PACK_ALIGN))
@@ -2760,11 +2847,23 @@ def add_lm_rows(kernels: list, train: dict) -> None:
             entry["full_d"] = train["full_adam"]
 
 
-def print_ptxas(log: str) -> None:
+def blocks_per_sm(regs: int, threads: int = 256) -> int:
+    """Blocks of ``threads`` an H100 SM holds at ``regs`` registers a
+    thread: 65,536 registers allocated per warp in units of 256, at most
+    64 warps."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = min(65536 // per_warp, 64)
+    return warps // (threads // 32)
+
+
+def print_ptxas(log: str, only: str = "") -> None:
     """Each kernel's registers, spills and static shared memory, as ptxas
     reported them in an ``nvcc -Xptxas -v`` log (the attention kernels'
     shared memory is dynamic, sized by their launchers: flash bf16 at hd
-    80, (64 + 4 x 64) rows of 88 bf16, 56,320 B)."""
+    80, (64 + 4 x 64) rows of 88 bf16, 56,320 B); for coherence_dots's
+    kernels (256 threads a block, 1,024 the final sum's) also the blocks an
+    SM those registers allow. With ``only``, just the entries whose names
+    contain it."""
     import re
     src, entry, spills = "", None, None
     for line in log.splitlines():
@@ -2778,12 +2877,17 @@ def print_ptxas(log: str) -> None:
         if m:
             spills = m.groups()
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry is not None:
+        if m and entry is not None and only in entry:
             smem = re.search(r"(\d+) bytes smem", line)
+            extra = ""
+            if "coherence" in entry:
+                threads = 1024 if "coherence_final" in entry else 256
+                extra = (f"; {blocks_per_sm(int(m.group(1)), threads)} "
+                         f"blocks of {threads} threads an SM by registers")
             print(f"  ptxas {src} {entry}: {m.group(1)} registers, spill "
                   f"stores {spills[0] if spills else '?'} B, spill loads "
                   f"{spills[1] if spills else '?'} B, static smem "
-                  f"{smem.group(1) if smem else 0} B")
+                  f"{smem.group(1) if smem else 0} B{extra}")
 
 
 def print_tensor_core_ops(lib_path) -> None:
@@ -2843,13 +2947,59 @@ def attention_times(src: str) -> int:
     return 0
 
 
+def dnn_width(dev) -> int:
+    """The packed width at the main path's shapes: D = 335,114 padded to
+    335,872."""
+    from repro_torch import treemath as tm
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import mlp
+    return tm.padded_size(tm.pack_spec(mlp.init(
+        0, mlp.MLPConfig(depth=DEPTH), device=dev)).total,
+        dispatch.PACK_ALIGN)
+
+
+def coherence_times(src: str) -> int:
+    """``--coherence-times SRC``: only coherence_dots, with the
+    ``repro_torch`` package under ``SRC`` (its kernels built from its own
+    sources into its checkout's ``build/``): the ptxas lines of its
+    coherence kernels, ``coherence_kernel_checks``, ``coherence_timings``
+    (W = 8 and 16 at the DNN width), ``lm_coherence`` (W = 4 at the LM
+    width) and ``coherence_sweep``. Run on two checkouts in one call
+    (parent, change, change, parent), it times both designs with this
+    script's time_ms."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(card_line())
+    path, log, secs = build.build()
+    print(f"build: {path} in {secs:.1f} s")
+    print_ptxas(log, only="coherence")
+    width = dnn_width(dev)
+    coherence_kernel_checks(dev, width)
+    rows = coherence_timings(dev, width)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lm, _ = lm_coherence(dev, LM_WIDTH, lambda *shape: torch.randn(
+        shape, generator=gen, device=dev))
+    rows.update({f"{k} lm": v for k, v in summarize(
+        {"coherence_dots": lm}, LM_WIDTH).items()})
+    sweep = coherence_sweep(dev, width)
+    print(json.dumps({"coherence_times": {"src": src, "rows": rows,
+                                          "sweep": sweep["fits"]}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from repro_torch import treemath as tm
-    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels import build
     from repro_torch.models import mlp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2869,11 +3019,8 @@ def main() -> int:
     print_ptxas(log)
     print_tensor_core_ops(path)
 
-    # The packed width at the main path's shapes: D = 335,114 padded to
-    # 335,872, times P = 8 workers.
-    width = tm.padded_size(
-        tm.pack_spec(mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)).total,
-        dispatch.PACK_ALIGN)
+    # The packed width at the main path's shapes, times P = 8 workers.
+    width = dnn_width(dev)
     n = WORKERS * width
     print(f"packed width D_pad={width}, N=P*D_pad={n}")
     errs = kernel_checks(dev, n)
@@ -2905,6 +3052,7 @@ def main() -> int:
         coh = coherence_path(dev, params0, data, table, tmp)
     cost = hook_cost(dev, params0, data, table)
     timings.update(coherence_timings(dev, width))
+    coherence_sweep(dev, width)
 
     # The serve path: paged_attention against its plain version, its
     # timings, then the full-width danube serve.
@@ -2954,4 +3102,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--attention-times"]:
         sys.exit(attention_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--coherence-times"]:
+        sys.exit(coherence_times(sys.argv[2]))
     sys.exit(main())

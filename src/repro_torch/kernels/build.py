@@ -43,10 +43,9 @@ SIGNATURES = {
         + [ctypes.c_float] * 8 + [_P], ctypes.c_int),
     "repro_sparsify_f32": (
         [_P] * 4 + [ctypes.c_longlong, ctypes.c_longlong, _P], ctypes.c_int),
-    "repro_coherence_workspace_f32": (
-        [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong),
     "repro_coherence_f32": (
-        [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, _P], ctypes.c_int),
+        [_P] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
     "repro_paged_attention_f32": (
         [_P] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 3
         + [ctypes.c_int] * 4 + [_P], ctypes.c_int),

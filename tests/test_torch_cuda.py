@@ -29,9 +29,11 @@ from repro_torch.kernels import stale_accum as tsa
 # reciprocal, so elements may differ by about one ulp.
 TOL_ADAM = dict(rtol=1e-5, atol=1e-7)
 # coherence_dots, normwise against fp64: |x - x64| <= C * eps * sum_i |t_i|
-# for the terms t_i of each sum. The kernel's longest chain of additions
-# (per-thread terms, the warp shuffle tree, 8 warps, the stage-2 lane sums
-# and their tree) is under 64 roundings at these shapes, so C = 64 is its
+# for the terms t_i of each sum. The kernel's longest chain of roundings
+# from a term to its output (a trip's tree, the U trips' tree, its
+# per-thread cascade, the warp and block trees, the final grid's 8-slot
+# and shuffle trees; kernels/coherence.py::chain_length) is at most 31 at
+# these shapes on an H100 (48 at the LM width), under 64, so C = 64 is its
 # worst-case bound; the plain version's sums are held to the same bound.
 COHERENCE_C = 64
 # paged_attention, fp32 operands: the kernel's online softmax and the plain
@@ -222,6 +224,58 @@ def test_coherence_kernel_matches_fp64_and_replays(cuda_device, w, d):
     assert coherence_excess(ref.coherence_dots(h, g), h, g) <= COHERENCE_C
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,d", [(8, 335_872), (3, 1_003), (40, 2048 * 4)])
+def test_coherence_kernel_replays_in_a_cuda_graph(cuda_device, w, d):
+    """Four calls captured in one CUDA graph (each two programmatic
+    dependent grids) and the graph replayed twice give the eager call's
+    outputs bit for bit, and so does an eager call after the replays."""
+    rng = np.random.default_rng(w + d)
+    h = torch.from_numpy(rng.standard_normal((w, d)).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(
+        cuda_device)
+    want = [x.clone() for x in tco.coherence_dots(h, g)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tco.coherence_dots(h, g) for _ in range(4)]
+    for _ in range(2):
+        for out in outs:
+            for x in out:
+                x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            for a, b in zip(out, want):
+                assert torch.equal(a, b)
+    for a, b in zip(tco.coherence_dots(h, g), want):   # eager again
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_coherence_kernel_back_to_back_shapes(cuda_device):
+    """Calls on different shapes and grids, queued without a sync between
+    them, each hold against fp64 and equal the same call made alone."""
+    rng = np.random.default_rng(7)
+    cases = [(8, 335_872), (1, 1_003), (17, 4096), (3, 1_000_003),
+             (16, 335_872)]
+    ops = [(torch.from_numpy(rng.standard_normal((w, d)).astype(np.float32))
+            .to(cuda_device),
+            torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+            .to(cuda_device)) for w, d in cases]
+    alone = []
+    for h, g in ops:
+        alone.append(tco.coherence_dots(h, g))
+        torch.cuda.synchronize()
+    queued = [tco.coherence_dots(h, g) for h, g in ops]
+    torch.cuda.synchronize()
+    for (h, g), a, q in zip(ops, alone, queued):
+        assert coherence_excess(q, h, g) <= COHERENCE_C
+        for x, y in zip(a, q):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
