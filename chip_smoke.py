@@ -20,6 +20,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``stale_accum``), each held against the ``kernels="off"`` tree layout in
    plain torch on the card, with launch counters checked; and the s = 0,
    P = 1 packed engine against the sequential reference on a small input;
+4b. the paper's other models (``paper_path``) at their published widths,
+   P = 8, s = 16, 50 steps under the same delay table, through
+   ``build_engine`` + ``Trainer``, kernels on against off: ResNet-32
+   (widths 16/32/64, 32 x 32 images) with Adam (``stale_accum`` +
+   ``fused_adam``) and SGD, MF at MovieLens-1M's shape (6,040 x 3,706,
+   rank 5, ~1.0 M ratings), the VAE 784 -> 256 x 3 -> 2 x 32 with Adam,
+   and LDA (K = 50, 400 documents of 64 tokens) through
+   ``experiments.lda_run``; each leg held step by step from shared states
+   (``shared_state_check``) and free-running against witnesses that move
+   every update one ulp (the VAE's free-running runs only against a
+   ceiling), with launch counters checked, the ResNet Adam and MF legs
+   replayed bit for bit and LDA's on and off runs equal bit for bit, under
+   ``cudnn.deterministic``; ms per step and the device-busy share of 5
+   profiled steps per leg; then ``paper_points``: batches to target of
+   ``cnn_experiment`` (ResNet-8, s = 0 and 8) and ``mf_experiment`` (s = 0
+   and 10) at their defaults;
 5. the ring path: the same DNN in the gradient-ring modes (``stale-psum``,
    ``ssp``, ``sync``; global batch 256) with the compensation layer, seven
    legs of 50 steps with ``kernels="on"`` (``fused_update`` in its three
@@ -356,9 +372,26 @@ def device_events(prof) -> list:
             and e.self_device_time_total > 0]
 
 
+def busy_union_ms(prof) -> float:
+    """Device busy time: the union of the device events' spans, in ms.
+    Where kernels overlap (cuDNN's convolutions run some concurrently),
+    the sum of their times exceeds the time the device was busy."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def profile_steps(engine, state, batches, k: int) -> dict:
-    """Device busy time per engine step and the top ops by device time,
-    from ``torch.profiler`` over ``k`` steps."""
+    """Device busy time per engine step (the sum of the device events'
+    times, and the union of their spans, which sets the idle share) and
+    the top ops by device time, from ``torch.profiler`` over ``k``
+    steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,10 +405,12 @@ def profile_steps(engine, state, batches, k: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / k
     events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / k
+    union_ms = busy_union_ms(prof) / k
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "device_busy_union_ms_per_step": union_ms,
+            "idle_share": 1.0 - union_ms / wall_ms if union_ms else None,
             "top": [(e.key[:60], e.self_device_time_total / 1e3 / k,
                      e.count / k) for e in top]}
 
@@ -429,11 +464,13 @@ def expect(steps: int, **per_step) -> dict:
 
 
 def drive(engine, params0, batches, xt, yt, dev, *, steps, timed_steps,
-          profile=0, hooks=()):
+          profile=0, hooks=(), eval_fn=None):
     """One main-path run through ``Trainer`` (with ``hooks`` after the loss
     log): ``steps`` steps with the launch counters zeroed just before and
     read just after, then ``timed_steps`` more steps timed on the host clock
-    between syncs, then ``profile`` steps under the profiler."""
+    between syncs, then ``profile`` steps under the profiler. ``eval_fn``
+    (evaluated once, after ``steps``; default the DNN's accuracy on ``xt``,
+    ``yt``) gives the run's ``accuracy`` entry."""
     import torch
     from repro_torch import treemath as tm
     from repro_torch.engine import Hook, Trainer
@@ -452,9 +489,10 @@ def drive(engine, params0, batches, xt, yt, dev, *, steps, timed_steps,
     state = engine.init(0, params=tm.tree_map(torch.clone, params0))
     log = LossLog()
     reset_counters()
+    if eval_fn is None:
+        eval_fn = lambda p: mlp.accuracy(p, xt, yt)
     res = Trainer(engine, hooks=[log, *hooks]).run(
-        batches, steps, state=state,
-        eval_fn=lambda p: mlp.accuracy(p, xt, yt), eval_every=steps)
+        batches, steps, state=state, eval_fn=eval_fn, eval_every=steps)
     launches = counters()
 
     state = res.state
@@ -619,6 +657,431 @@ def main_path(dev, *, depth=DEPTH, in_dim=784, hidden=256, workers=WORKERS,
             print(f"profile {algo} kernels={kernels}: "
                   f"{json.dumps(run['profile'])}")
     return runs
+
+
+# -- phase 4b: the paper's other models -------------------------------------
+
+# Each leg runs P = 8 workers, s = 16, 50 steps under the simulate path's
+# [50, 8] delay Schedule, kernels "on" against "off", at the published
+# width: ResNet-32 (n = 5, widths 16/32/64, 8 groups) on 32 x 32 x 3
+# images; MF at MovieLens-1M's shape (6,040 x 3,706, rank 5, ~1.0 M
+# ratings); the VAE 784 -> 256 x 3 -> 2 x 32 (obs_scale 0.5); LDA with
+# K = 50 over lda_corpus's 400 documents of 64 tokens, vocab 500.
+PAPER = dict(resnet_n=5, resnet_widths=(16, 32, 64), image_hw=32,
+             mf_users=6040, mf_items=3706, mf_density=0.04468,
+             vae_dim=784, vae_depth=3, vae_latent=32,
+             lda_topics=50, lda_docs=400, lda_len=64, lda_vocab=500)
+# (name, model, optimizer, launches per step with kernels="on", replayed,
+# free-running on vs off held to the witness)
+PAPER_LEGS = (
+    ("resnet32 adam", "resnet", "adam", dict(stale_accum=1, fused_adam=1),
+     True, True),
+    ("resnet32 sgd", "resnet", "sgd", dict(stale_accum=1), False, True),
+    ("mf sgd", "mf", "sgd", dict(stale_accum=1), True, True),
+    ("vae adam", "vae", "adam", dict(stale_accum=1, fused_adam=1), False,
+     False),
+)
+# Every leg is also held step by step from shared states: at each of the
+# off run's steps the kernels-on engine is handed the off state (caches,
+# Adam moments, the ring in its packed layout, the generator) and both
+# step once. From one state both routes compute the same gradients from
+# the same draws, so only their roundings part them: deliveries add the
+# same two numbers (caches), the moments repeat the same operations, and
+# an update differs by a few ulps (fused_adam divides where PyTorch
+# multiplies by a reciprocal; the ring sums a slot's rows in another
+# order). Each is held relative to the largest magnitude in the off
+# tensor. This is what holds the VAE leg: its free-running runs part at
+# a discrete event, one worker's gradient changing at a ReLU or the logvar
+# clip that a roundoff-sized difference crossed (PERF.md, section 6), and
+# no run-level witness bounds when that happens; its free-running
+# distances are printed and held to PAPER_CEILING only.
+TOL_SHARED = dict(loss=1e-6, caches=1e-6, moments=1e-6, ring=1e-5)
+# On vs off parts by roundoff, injected at every step. Packed delivery
+# alone (stale_accum and the ring's index_add) matches the tree route to
+# ~1e-7 over 50 steps; the parting is the optimizer's: the fused_adam
+# kernel and tree Adam round an update differently (by up to an ulp), and
+# Adam turns a gradient element that is itself roundoff into a full +-lr
+# step whose sign the roundoff picks, which the ResNet's 32 layers and the
+# VAE's sampled latents (at s = 16 its loss moves by tens of percent a
+# step) carry on (PERF.md, section 6). So each leg's witnesses are the same
+# kernels-off leg with every element of every update moved one ulp up, and
+# one ulp down (``ulp_witness``), and its limit WITNESS_FACTOR times the
+# larger of how far they part from the off run, in the largest relative
+# loss difference over the first EARLY_STEPS steps (``early``) and over
+# all 50 (``loss``), and the relative L2 distance of the updates
+# (``rel``). Each limit is at least PAPER_FLOOR (a witness that reads 0
+# would allow nothing) and at most PAPER_CEILING: over the first steps,
+# before the dynamics amplify anything, roundoff moves a loss by ~1e-6 of
+# itself and a dropped arrival or a wrong Adam step by far more than 1e-3;
+# over 50 steps the ceiling stops only what no roundoff explains (a tenth
+# of a loss, half the updates).
+PAPER_FLOOR = dict(early=1e-6, loss=1e-6, rel=1e-6)
+PAPER_CEILING = dict(early=1e-3, loss=0.1, rel=0.5)
+# The paper's metric, batches to target, through the experiment twins at
+# their defaults, capped at the quick figures' step budgets.
+PAPER_POINTS = (("cnn_experiment", dict(n_blocks=1, algo="sgd", workers=8),
+                 (0, 8), 400),
+                ("mf_experiment", dict(workers=8), (0, 10), 3000))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms only (its default weight-gradient
+    algorithms for the ResNet's grouped convolutions may add with atomics,
+    which would break the bitwise replay); restored on exit."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def paper_model(dev, model: str) -> dict:
+    """A leg's loss, params (seed 0), batches and evaluation at full
+    width."""
+    import torch
+    from repro_torch import device as device_lib
+    from repro_torch.data import ShardedBatches, synthetic
+    from repro_torch.models import mf, resnet, vae
+
+    if model == "resnet":
+        cfg = resnet.ResNetConfig(n=PAPER["resnet_n"],
+                                  widths=PAPER["resnet_widths"])
+        params, strides = resnet.init(0, cfg, device=dev)
+        data = synthetic.synthetic_images(seed=0, hw=PAPER["image_hw"])
+        acc = resnet.make_accuracy_fn(cfg, strides)
+        xt = torch.as_tensor(data.x_test[:512], device=dev)
+        yt = torch.as_tensor(data.y_test[:512], device=dev)
+        return dict(loss=resnet.make_loss_fn(cfg, strides), params=params,
+                    arrays=[data.x_train, data.y_train], batch=BATCH,
+                    eval_fn=lambda p: acc(p, xt, yt), metric="accuracy")
+    if model == "mf":
+        data = synthetic.low_rank_ratings(
+            seed=0, num_users=PAPER["mf_users"], num_items=PAPER["mf_items"],
+            density=PAPER["mf_density"])
+        cfg = mf.MFConfig(num_users=data.num_users, num_items=data.num_items)
+        arrays = (data.rows, data.cols, data.vals)
+        full = [torch.as_tensor(a, device=dev) for a in arrays]
+        return dict(loss=mf.make_loss_fn(cfg),
+                    params=mf.init(0, cfg, device=dev), arrays=list(arrays),
+                    batch=500, n_obs=len(data.rows), metric="objective",
+                    eval_fn=lambda p: mf.full_objective(p, *full, cfg))
+    cfg = vae.VAEConfig(in_dim=PAPER["vae_dim"], hidden=256,
+                        depth=PAPER["vae_depth"], latent=PAPER["vae_latent"],
+                        obs_scale=0.5)
+    data = synthetic.vae_data(seed=0, dim=PAPER["vae_dim"])
+    xt = torch.as_tensor(data.x_test[:512], device=dev)
+    return dict(loss=vae.make_loss_fn(cfg), params=vae.init(0, cfg, device=dev),
+                arrays=[data.x_train], batch=BATCH, takes_key=True,
+                metric="test_loss",
+                eval_fn=lambda p: vae.test_loss(
+                    p, xt, device_lib.generator(99, dev), cfg))
+
+
+def ulp_witness(opt, toward: float):
+    """``opt`` with every element of each update moved one ulp toward
+    ``toward`` (+inf or -inf): the roundoff witness of a paper leg."""
+    import torch
+    from repro_torch import treemath as tm
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params):
+        delta, state = opt.update(grads, state, params)
+        return tm.tree_map(
+            lambda d: torch.nextafter(d, torch.full_like(d, toward)),
+            delta), state
+
+    return Optimizer(opt.init, update)
+
+
+def paper_engine(dev, m: dict, algo: str, kernels: str, table,
+                 witness=None):
+    """A paper leg's simulate engine (P = 8, s = 16, the delay table), with
+    the optimizer as the experiment twins use it (MF: SGD at lr 1.0;
+    ``witness``, +-inf, wraps it in ``ulp_witness``), and its batches."""
+    from repro_torch import delays
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import EngineConfig, build_engine
+    from repro_torch.optim import paper_default, sgd
+
+    opt = sgd(1.0) if m["metric"] == "objective" else paper_default(algo)
+    if witness is not None:
+        opt = ulp_witness(opt, witness)
+    cfg = EngineConfig(mode="simulate", num_workers=WORKERS, s=STALENESS,
+                       delay=delays.Schedule(table), kernels=kernels,
+                       loss_takes_key=m.get("takes_key", False))
+    return (build_engine(m["loss"], opt, cfg, device=dev),
+            iter(ShardedBatches(m["arrays"], WORKERS, m["batch"], seed=0)))
+
+
+def paper_run(dev, m: dict, algo: str, kernels: str, params0, table, *,
+              steps, timed_steps, profile=0, witness=None) -> dict:
+    """One run of a paper leg through ``build_engine`` + ``Trainer``
+    (``drive``)."""
+    engine, batches = paper_engine(dev, m, algo, kernels, table, witness)
+    return drive(engine, params0, batches, None, None, dev, steps=steps,
+                 timed_steps=timed_steps, profile=profile,
+                 eval_fn=m["eval_fn"])
+
+
+def paper_distance(a: dict, b: dict, p0) -> dict:
+    """How far two runs of a paper leg part: the largest relative loss
+    difference over the first EARLY_STEPS steps and over all, and the
+    relative L2 distance of their updates (params minus the shared init
+    ``p0``)."""
+    from repro_torch import treemath as tm
+    la, lb = a["losses"].double(), b["losses"].double()
+    dloss = (la - lb).abs() / lb.abs().clamp_min(1e-30)
+    diff = norm = 0.0
+    for x, y, c in zip(tm.tree_leaves(a["params"]),
+                       tm.tree_leaves(b["params"]), tm.tree_leaves(p0)):
+        x, y, c = (t.cpu().double() for t in (x, y, c))
+        diff += float(((x - y) ** 2).sum())
+        norm += float(((y - c) ** 2).sum())
+    return {"early": float(dloss[:EARLY_STEPS].max()),
+            "loss": float(dloss.max()),
+            "rel": diff ** 0.5 / max(norm ** 0.5, 1e-30)}
+
+
+def same_run(name: str, a: dict, b: dict) -> None:
+    """Two runs of one leg are equal bit for bit (losses and params)."""
+    import torch
+    from repro_torch import treemath as tm
+    equal = torch.equal(a["losses"], b["losses"]) and all(
+        torch.equal(x, y) for x, y in zip(tm.tree_leaves(a["params"]),
+                                          tm.tree_leaves(b["params"])))
+    print(f"{name}: two kernels-on runs bitwise equal: {equal}")
+    if not equal:
+        raise AssertionError(f"{name}: kernels-on replay is not bitwise")
+
+
+def shared_state_check(dev, m: dict, algo: str, table, *,
+                       steps=STEPS) -> dict:
+    """Each of the off run's ``steps`` steps taken again by the kernels-on
+    engine from the off state (TOL_SHARED); returns the largest relative
+    difference of each kind over the steps."""
+    import torch
+    from repro_torch import treemath as tm
+    from repro_torch.kernels import dispatch
+
+    (on_engine, _), (off_engine, batches) = (
+        paper_engine(dev, m, algo, k, table) for k in ("on", "off"))
+    engines = {"on": on_engine, "off": off_engine}
+    fused = engines["on"].meta["kernels"]["megakernel"] == "fused"
+    states = {k: e.init(0, params=tm.tree_map(torch.clone, m["params"]))
+              for k, e in engines.items()}
+    pack = lambda tree: tm.tree_pack(tree, lead_ndim=1,
+                                     pad_to=dispatch.PACK_ALIGN)
+    slot = lambda pending, d: pack(tm.tree_map(lambda b: b[:, d], pending))
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+
+    worst = dict.fromkeys(TOL_SHARED, 0.0)
+    for t in range(steps):
+        batch = next(batches)
+        on, off = states["on"].inner, states["off"].inner
+        ring = on.pending["ring"]
+        slots = ring.shape[1]
+        # Slot d of the tree ring lands at step t + d: the packed ring's
+        # cursor position (t + d) mod B, slot t mod B prefetched.
+        for d in range(slots):
+            ring[:, (t + d) % slots] = slot(off.pending, d)
+        on.pending["arrived"] = ring[:, t % slots].clone()
+        on.caches = tm.tree_map(torch.clone, off.caches)
+        on.update_state = ({k: pack(off.update_state[k]) for k in ("m", "v")}
+                           if fused else tm.tree_map(
+                               lambda x: x.clone() if torch.is_tensor(x)
+                               else x, off.update_state))
+        on.key.set_state(off.key.get_state())
+        metrics = {}
+        for k in ("on", "off"):
+            states[k], metrics[k] = engines[k].step(states[k], batch)
+        on, off = states["on"].inner, states["off"].inner
+        got = {"loss": metrics["on"]["loss"].reshape(1),
+               "caches": pack(on.caches),
+               "ring": torch.stack([on.pending["ring"][:, (t + 1 + d) % slots]
+                                    for d in range(slots)]),
+               "moments": (torch.cat([on.update_state["m"],
+                                      on.update_state["v"]])
+                           if fused else torch.zeros(1, device=dev))}
+        want = {"loss": metrics["off"]["loss"].reshape(1),
+                "caches": pack(off.caches),
+                "ring": torch.stack([slot(off.pending, d)
+                                     for d in range(slots)]),
+                "moments": (torch.cat([pack(off.update_state["m"]),
+                                       pack(off.update_state["v"])])
+                            if fused else torch.zeros(1, device=dev))}
+        for key in worst:
+            worst[key] = max(worst[key], rel(got[key], want[key]))
+    return worst
+
+
+def paper_leg(dev, leg, table, *, steps=STEPS,
+              timed_steps=TIMED_STEPS) -> dict:
+    """One paper leg: on (profiled), off, the two witnesses (off with every
+    update moved one ulp up, and down), and a second on run where the leg
+    is replayed; holds on against off within the witness-derived limit and
+    checks the launch counters."""
+    import math
+    from repro_torch import treemath as tm
+
+    name, model, algo, per_step, replayed, gated = leg
+    m = paper_model(dev, model)
+    shared = shared_state_check(dev, m, algo, table, steps=steps)
+    print(f"paper {name}: kernels on from the off run's state, one step at "
+          f"a time over {steps} steps: largest relative difference "
+          f"{json.dumps(shared)} (tol {TOL_SHARED})")
+    over = [k for k in shared if shared[k] > TOL_SHARED[k]]
+    if over:
+        raise AssertionError(f"{name}: from shared states kernels on and "
+                             f"off disagree ({over})")
+    p0 = tm.tree_map(lambda x: x.detach().cpu(), m["params"])
+    kw = dict(steps=steps, timed_steps=timed_steps)
+    on = paper_run(dev, m, algo, "on", m["params"], table,
+                   profile=5 if dev.type == "cuda" else 0, **kw)
+    off = paper_run(dev, m, algo, "off", m["params"], table, **kw)
+    untimed = dict(steps=steps, timed_steps=0)
+    wits = [paper_distance(paper_run(dev, m, algo, "off", m["params"],
+                                     table, witness=toward, **untimed),
+                           off, p0)
+            for toward in (float("inf"), float("-inf"))]
+    dist = paper_distance(on, off, p0)
+    wdist = {k: max(w[k] for w in wits) for k in dist}
+    limit = {k: min(max(WITNESS_FACTOR * wdist[k], PAPER_FLOOR[k]),
+                    PAPER_CEILING[k]) for k in dist}
+    print(f"paper {name}: on vs off {json.dumps(dist)}; witnesses (off, "
+          f"updates one ulp up / down) vs off {json.dumps(wits)}; limit "
+          f"{json.dumps(limit)}; {m['metric']} on={on['accuracy']!r} "
+          f"off={off['accuracy']!r}; first losses on "
+          f"{[float(x) for x in on['losses'][:5]]}")
+    if not all(math.isfinite(w[k]) for w in wits for k in w):
+        raise AssertionError(f"{name}: a witness went non-finite")
+    for run in (on, off):
+        if not all(math.isfinite(float(x)) for x in run["losses"]):
+            raise AssertionError(f"{name}: non-finite loss")
+        if not math.isfinite(run["accuracy"]):
+            raise AssertionError(f"{name}: non-finite {m['metric']}")
+    bounds = limit if gated else PAPER_CEILING
+    over = [k for k in dist if dist[k] > bounds[k]]
+    if over:
+        raise AssertionError(f"{name}: kernels on and off part further "
+                             f"than {'the witness' if gated else 'the ceiling'}"
+                             f" allows ({over})")
+    check_launches(f"paper {name} on", on, expect(steps, **per_step))
+    check_launches(f"paper {name} off", off, expect(steps))
+    if replayed:
+        again = paper_run(dev, m, algo, "on", m["params"], table, **untimed)
+        same_run(f"paper {name}", on, again)
+    row = {"shared_state": shared, "on_vs_off": dist, "witness": wdist,
+           "limit": limit if gated else PAPER_CEILING,
+           "launches": on["launches"], "meta": on["meta"],
+           "ms_per_step": {"on": on["ms_per_step"],
+                           "off": off["ms_per_step"]},
+           m["metric"]: {"on": on["accuracy"], "off": off["accuracy"]},
+           "profile": on["profile"]}
+    if "n_obs" in m:
+        row["ratings"] = m["n_obs"]
+    print(f"paper {name}: ms_per_step on={on['ms_per_step']!r} "
+          f"off={off['ms_per_step']!r} (mean of {timed_steps} steps after "
+          f"{steps}, host clock between syncs); profile (5 steps, kernels "
+          f"on) {json.dumps(on['profile'])}")
+    return row
+
+
+def lda_leg(dev, table, *, steps=STEPS, timed_steps=TIMED_STEPS) -> dict:
+    """LDA through ``experiments.lda_run`` (K = 50, P = 8; 5 sweeps of the
+    50 documents a worker, 5 a step, are 50 steps), kernels on against
+    off: both add the same
+    integer deltas and share the Gumbel draws, so z and the counts agree
+    bit for bit."""
+    import itertools
+    import torch
+    from repro_torch import delays, experiments
+
+    runs = {}
+    for kernels in ("on", "off"):
+        reset_counters()
+        curve, engine, state, cfg, _ = experiments.lda_run(
+            STALENESS, WORKERS, k_topics=PAPER["lda_topics"],
+            sweeps=5, n_docs=PAPER["lda_docs"], doc_len=PAPER["lda_len"],
+            vocab=PAPER["lda_vocab"], delay=delays.Schedule(table),
+            kernels=kernels, device=dev)
+        launches = counters()
+        counted = engine.step_count(state)
+        z = state.inner.update_state["z"].cpu()
+        caches = {k: v.cpu() for k, v in state.inner.caches.items()}
+        placeholder = torch.zeros((WORKERS, 1), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            state, _ = engine.step(state, placeholder)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / max(timed_steps, 1)
+        prof = (profile_steps(engine, state, itertools.repeat(placeholder), 5)
+                if kernels == "on" and dev.type == "cuda" else None)
+        runs[kernels] = dict(curve=curve, z=z, caches=caches, ms=ms,
+                             launches=launches, profile=prof,
+                             meta=engine.meta["kernels"], steps=counted)
+    on, off = runs["on"], runs["off"]
+    equal = torch.equal(on["z"], off["z"]) and all(
+        torch.equal(on["caches"][k], off["caches"][k]) for k in on["caches"])
+    print(f"paper lda: steps {on['steps']}; z and counts on vs off bitwise "
+          f"equal: {equal}; log-likelihood on {on['curve'][0][1]!r} -> "
+          f"{on['curve'][-1][1]!r}, off -> {off['curve'][-1][1]!r}; "
+          f"ms_per_step on={on['ms']!r} off={off['ms']!r}; profile (5 "
+          f"steps, kernels on) {json.dumps(on['profile'])}")
+    if not equal:
+        raise AssertionError("lda: kernels on and off disagree")
+    if not on["curve"][-1][1] > on["curve"][0][1]:
+        raise AssertionError("lda: the log-likelihood did not rise")
+    if on["steps"] != steps:
+        raise AssertionError(f"lda: {on['steps']} steps, not {steps}")
+    check_launches("paper lda on", {"launches": on["launches"],
+                                    "meta": on["meta"]},
+                   expect(steps, stale_accum=1))
+    check_launches("paper lda off", {"launches": off["launches"],
+                                     "meta": off["meta"]}, expect(steps))
+    return {"launches": on["launches"], "meta": on["meta"],
+            "ms_per_step": {"on": on["ms"], "off": off["ms"]},
+            "log_likelihood": {"first": on["curve"][0][1],
+                               "on": on["curve"][-1][1],
+                               "off": off["curve"][-1][1]},
+            "profile": on["profile"]}
+
+
+def paper_points(dev) -> dict:
+    """Batches to target for two experiment pairs through the twins at
+    their defaults (the paper's metric; printed, not compared)."""
+    from repro_torch import experiments
+    out = {}
+    for fn, kw, stalenesses, budget in PAPER_POINTS:
+        results = {s: getattr(experiments, fn)(s=s, max_steps=budget,
+                                               device=dev, **kw)
+                   for s in stalenesses}
+        norm = experiments.normalized(results)
+        for s, r in results.items():
+            out[f"{fn} s={s}"] = {
+                "batches_to_target": r.batches_to_target,
+                "converged": r.converged, "normalized": norm[s],
+                "last_eval": r.curve[-1] if r.curve else None,
+                "wall_s": r.wall_s}
+    print(json.dumps({"paper_points": out}))
+    return out
+
+
+def paper_path(dev, table) -> dict:
+    """Phase 4b: the ResNet, MF, VAE and LDA legs, then the paper's
+    metric. Returns the legs by name and the points."""
+    with deterministic_cudnn():
+        legs = {leg[0]: paper_leg(dev, leg, table) for leg in PAPER_LEGS}
+        legs["lda"] = lda_leg(dev, table)
+        return {"legs": legs, "points": paper_points(dev)}
 
 
 # -- phase 5: the ring path ------------------------------------------------
@@ -937,6 +1400,16 @@ def kernel_entries(timings: dict, runs: dict, ring: dict, errs: dict) -> list:
                 for key in ("ms", "plain_ms", "bound_ms", "eager_ms")}
         for label in ("plain", "ef", "ef_mom", "ef_r1")}
     return kernels
+
+
+def add_paper_launches(kernels: list, paper: dict) -> None:
+    """Beside stale_accum's and fused_adam's other runs, their launches on
+    each paper leg (kernels on)."""
+    for entry in kernels:
+        if entry["name"] in ("stale_accum", "fused_adam"):
+            entry["launches_by_run"].update({
+                f"paper {name}": leg["launches"][entry["name"]]
+                for name, leg in paper["legs"].items()})
 
 
 def coherence_entry(timings: dict, coh: dict, err: float) -> dict:
@@ -3032,12 +3505,15 @@ def main() -> int:
 
     import numpy as np
     from repro_torch.data import synthetic
-    # The ring path: the same DNN, data and seeds as the simulate path; one
-    # [STEPS, P] delay table in [0, s-1] for stale-psum, and lognormal worker
-    # speeds (numpy, seed 0) for ssp's clock schedule.
-    params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
+    # One [STEPS, P] delay table in [0, s-1], as the simulate path's, for
+    # the paper's other models and stale-psum.
     table = np.random.default_rng(0).integers(0, STALENESS, (STEPS, WORKERS))
     table[0, 0] = STALENESS - 1
+    paper = paper_path(dev, table)
+
+    # The ring path: the same DNN, data and seeds as the simulate path, and
+    # lognormal worker speeds (numpy, seed 0) for ssp's clock schedule.
+    params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
     speeds = np.random.default_rng(0).lognormal(
         0.0, 0.5, (64, WORKERS)).astype(np.float32)
     data = synthetic.teacher_classification(seed=0)
@@ -3067,6 +3543,7 @@ def main() -> int:
         train = train_path(dev, tmp)
 
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
+    add_paper_launches(kernels, paper)
     kernels.append(coherence_entry(timings, coh, coh_err))
     kernels.append(paged_entry(timings, serve, paged_errs))
     kernels.append(flash_entry(train))
@@ -3081,7 +3558,13 @@ def main() -> int:
     steps_line.update({"gated with hook": cost["with_hook_ms_per_step"],
                        "gated without hooks":
                            cost["without_hooks_ms_per_step"]})
+    steps_line.update({f"paper {name} {k}": ms
+                       for name, leg in paper["legs"].items()
+                       for k, ms in leg["ms_per_step"].items()})
     print(json.dumps({"engine_ms_per_step": steps_line}))
+    print(json.dumps({"paper": {name: {k: v for k, v in leg.items()
+                                       if k != "profile"}
+                                for name, leg in paper["legs"].items()}}))
     print(json.dumps({"serve": {k: v for k, v in serve.items()
                                 if k != "profile"}}))
     print(json.dumps({"train": {

@@ -52,23 +52,27 @@ Pytree = Any
 # update_fn(params, update_state, batch, gen) -> (update, new_update_state, metrics)
 UpdateFn = Callable[[Pytree, Pytree, Pytree, torch.Generator],
                     Tuple[Pytree, Pytree, dict]]
+# server_apply(caches, server_state, arrived) -> (caches, server_state), over
+# all P workers at once ([P, ...] leaves), as update_fn is.
+ServerApply = Callable[[Pytree, Pytree, Pytree], Tuple[Pytree, Pytree]]
 
 
 @dataclasses.dataclass(frozen=True)
 class StalenessConfig:
     num_workers: int
     delay: DelaySpec
-    # The server-side ablation is not ported yet (ROADMAP A.2).
+    # Apply delivered aggregates through a server-side transform instead of
+    # plain addition (ablation: where does Adam state live?).
     server_side: bool = False
     # Packed [P, B, D] ring + kernel delivery (see module docstring).
     kernels: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "delay", as_spec(self.delay))
-        if self.server_side:
-            raise NotImplementedError(
-                "server_side is not ported yet (ROADMAP A.2, server_side "
-                "ablation of core/staleness.py)")
+        if self.kernels and self.server_side:
+            raise ValueError(
+                "kernels=True is unsupported with server_side=True: the "
+                "server transform consumes per-leaf arrivals")
 
     @property
     def buffer_slots(self) -> int:
@@ -80,7 +84,7 @@ class SimState:
     caches: Pytree        # [P, ...] per-worker model caches
     pending: Pytree       # [P, B, ...] ring (packed: {"ring", "arrived"})
     update_state: Pytree  # per-worker algorithm state ([P, ...] leaves)
-    server_state: Pytree  # always () in this port
+    server_state: Pytree  # per-worker server-side transform state (or ())
     step: int             # iteration counter
     key: torch.Generator  # delay (and stochastic-loss) randomness
 
@@ -100,13 +104,9 @@ def init_sim_state(params: Pytree, update_state: Pytree,
                    ) -> SimState:
     """All workers start from identical ``params``; buffers start empty.
 
-    ``update_state`` is given per single worker and broadcast across the
-    worker axis. ``key`` is an int seed or a ``torch.Generator`` on the
-    params' device."""
-    if server_state != ():
-        raise NotImplementedError(
-            "server_state is not ported yet (ROADMAP A.2, server_side "
-            "ablation of core/staleness.py)")
+    ``update_state``/``server_state`` are given per single worker and
+    broadcast across the worker axis. ``key`` is an int seed or a
+    ``torch.Generator`` on the params' device."""
     p = cfg.num_workers
     dev = tm.tree_leaves(params)[0].device
     gen = key if isinstance(key, torch.Generator) else device_lib.generator(key, dev)
@@ -123,16 +123,28 @@ def init_sim_state(params: Pytree, update_state: Pytree,
                                   dtype=x.dtype, device=x.device), params)
     return SimState(caches=caches, pending=pending,
                     update_state=tm.tree_broadcast_leading(update_state, p),
-                    server_state=(), step=0, key=gen)
+                    server_state=tm.tree_broadcast_leading(server_state, p),
+                    step=0, key=gen)
+
+
+def _roll(pending: Pytree) -> Pytree:
+    return tm.tree_map(
+        lambda b: torch.cat([b[:, 1:], torch.zeros_like(b[:, :1])], dim=1),
+        pending)
 
 
 def _deliver(caches: Pytree, pending: Pytree) -> Tuple[Pytree, Pytree]:
     new_caches = tm.tree_map(lambda c, b: c + b[:, 0].to(c.dtype),
                              caches, pending)
-    rolled = tm.tree_map(
-        lambda b: torch.cat([b[:, 1:], torch.zeros_like(b[:, :1])], dim=1),
-        pending)
-    return new_caches, rolled
+    return new_caches, _roll(pending)
+
+
+def _deliver_server(caches: Pytree, pending: Pytree, server_state: Pytree,
+                    server_apply) -> Tuple[Pytree, Pytree, Pytree]:
+    """Delivery through ``server_apply`` in place of the plain add."""
+    arrived = tm.tree_map(lambda b: b[:, 0], pending)
+    caches, server_state = server_apply(caches, server_state, arrived)
+    return caches, _roll(pending), server_state
 
 
 def _dispatch(pending: Pytree, updates: Pytree, delays: torch.Tensor,
@@ -186,6 +198,10 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
     returns ``(state, comp, metrics)``; the tree, packed and fused steps
     all honour it.
 
+    ``server_apply`` (with ``cfg.server_side``; tree layout only) delivers
+    each iteration's arrivals as ``server_apply(caches, server_state,
+    arrived)`` in place of the plain add, over all P workers at once.
+
     ``fused`` (requires ``kernels=True``) replaces ``update_fn`` with the
     fused compute stage: per-worker gradients of ``fused["loss"]``, then ALL
     P workers' Adam as ONE ``dispatch.fused_adam`` pass over the flattened
@@ -194,10 +210,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
     ``loss``, ``takes_key``, ``lr``, ``b1``, ``b2``, ``eps``,
     ``weight_decay``.
     """
-    if server_apply is not None:
-        raise NotImplementedError(
-            "server_apply is not ported yet (ROADMAP A.2, server_side "
-            "ablation of core/staleness.py)")
+    if cfg.server_side and server_apply is None:
+        raise ValueError("server_side=True requires a server_apply transform")
     if fused is not None and not cfg.kernels:
         raise ValueError("fused simulate step requires kernels=True "
                          "(it runs over the packed ring)")
@@ -262,7 +276,7 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
                                       state.step)
         new_state = SimState(
             caches=caches, pending={"ring": ring, "arrived": arrived_next},
-            update_state=update_state, server_state=(),
+            update_state=update_state, server_state=state.server_state,
             step=state.step + 1, key=state.key)
         return finish(new_state, comp, metrics)
 
@@ -303,7 +317,12 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
 
     def step(state: SimState, batches: Pytree, bound: Optional[int] = None,
              comp: Pytree = None):
-        caches, pending = _deliver(state.caches, state.pending)
+        if cfg.server_side:
+            caches, pending, server_state = _deliver_server(
+                state.caches, state.pending, state.server_state, server_apply)
+        else:
+            caches, pending = _deliver(state.caches, state.pending)
+            server_state = state.server_state
         updates, update_state, metrics = update_fn(
             caches, state.update_state, batches, state.key)
         delays = draw(state, bound)
@@ -313,7 +332,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
             metrics = {**metrics, **cmetrics}
         pending = _dispatch(pending, updates, delays, slots)
         new_state = SimState(caches=caches, pending=pending,
-                             update_state=update_state, server_state=(),
+                             update_state=update_state,
+                             server_state=server_state,
                              step=state.step + 1, key=state.key)
         return finish(new_state, comp, metrics)
 
@@ -322,10 +342,12 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
     return packed_step if cfg.kernels else step
 
 
-def drain(state: SimState) -> SimState:
+def drain(state: SimState, server_apply: Optional[ServerApply] = None,
+          server_side: bool = False) -> SimState:
     """Deliver every in-flight update without generating new ones. After
     draining, every cache equals ``x0 + sum of all generated updates``.
-    Handles both pending layouts."""
+    Handles both pending layouts; ``server_side`` delivers the tree layout
+    through ``server_apply``."""
     if _is_packed(state):
         ring = state.pending["ring"]
         slots = ring.shape[1]
@@ -347,10 +369,16 @@ def drain(state: SimState) -> SimState:
                      "arrived": torch.zeros_like(state.pending["arrived"])})
 
     slots = tm.tree_leaves(state.pending)[0].shape[1]
-    caches, pending = state.caches, state.pending
+    caches, pending, server_state = (state.caches, state.pending,
+                                     state.server_state)
     for _ in range(slots):
-        caches, pending = _deliver(caches, pending)
-    return dataclasses.replace(state, caches=caches, pending=pending)
+        if server_side:
+            caches, pending, server_state = _deliver_server(
+                caches, pending, server_state, server_apply)
+        else:
+            caches, pending = _deliver(caches, pending)
+    return dataclasses.replace(state, caches=caches, pending=pending,
+                               server_state=server_state)
 
 
 def sequential_reference(update_fn: UpdateFn, params: Pytree,

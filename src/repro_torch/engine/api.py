@@ -46,8 +46,14 @@ lognormal speed model).
 no mesh, ``arch`` feeds the placement verdict and ``shape`` is unused (it
 sizes the JAX package's sharding plan).
 
+``server_side`` (the ablation that delivers arrivals through a
+``server_apply`` transform) runs on the simulate tree route: under
+``kernels="auto"`` it falls back to tree delivery (``meta["kernels"]
+["fallback"]`` says why), ``"on"`` refuses it, and the other modes accept
+the flag and ignore it, as in the JAX package.
+
 Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A.12) and ``server_side`` (A.2).
+A.12).
 """
 from __future__ import annotations
 
@@ -307,9 +313,11 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     worker-stacked ``[P, ...]`` params and batches and returns the ``[P]``
     per-worker losses, as ``models.mlp.loss_fn`` does. ``update_fn``
     bypasses the loss/optimizer adaptation in ``simulate`` mode (see
-    ``core.staleness.UpdateFn``). ``arch`` (an ``ArchDef`` or arch id)
-    feeds the placement verdict; ``shape`` is accepted and unused without a
-    mesh, as in the JAX package.
+    ``core.staleness.UpdateFn``); ``server_apply`` delivers its arrivals
+    under ``cfg.server_side`` (see ``core.staleness.ServerApply``).
+    ``arch`` (an ``ArchDef`` or arch id) feeds the placement verdict;
+    ``shape`` is accepted and unused without a mesh, as in the JAX
+    package.
     """
     dev = device_lib.resolve(device)
     init_params = None
@@ -319,18 +327,25 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         loss_fn = _stacked_loss(api.loss)
     if mesh is not None:
         raise _not_ported("mesh=", "A.12, multi-GPU placement")
-    if cfg.server_side or server_apply is not None:
-        raise _not_ported("server_side", "A.2, server_side ablation of "
-                          "core/staleness.py")
     if loss_fn is not None and not callable(loss_fn):
         raise TypeError(f"loss_fn must be callable, got {type(loss_fn)!r}")
 
     mode = cfg.mode
     # The ring (stale-psum, ssp) and the simulate pending ring go packed
-    # unless kernels="off" or the arch's placement vetoes it.
+    # unless kernels="off" or the arch's placement vetoes it. simulate's
+    # server_side transform consumes per-leaf arrivals, so it stays on tree
+    # math too.
     kernel_delivery, why = False, ""
     if cfg.kernels != "off":
-        kernel_delivery, why = kernel_placement_ok(cfg.kernels, arch)
+        if mode == "simulate" and cfg.server_side:
+            why = "server_side transform"
+            if cfg.kernels == "on":
+                raise ValueError(
+                    "kernels='on' is unsupported with server_side=True: the "
+                    "server transform consumes per-leaf arrivals; use "
+                    "kernels='auto' (falls back to tree math)")
+        else:
+            kernel_delivery, why = kernel_placement_ok(cfg.kernels, arch)
     if mode == "sync":
         delivery = "none"   # sync is buffer-free
     else:
@@ -407,11 +422,13 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             update_fn = make(loss_fn, optimizer)
         if custom_update:
             mega = resolve_mega(False, "custom update_fn (opaque update math)")
+        elif cfg.server_side:
+            mega = resolve_mega(False, "server_side transform")
         else:
             mega = resolve_mega(kernel_delivery, why or "tree delivery")
         sim_cfg = staleness.StalenessConfig(
             num_workers=cfg.num_workers, delay=cfg.delay or UniformDelay(cfg.s),
-            kernels=kernel_delivery)
+            server_side=cfg.server_side, kernels=kernel_delivery)
         fused_kw = None
         if mega:
             sp = optimizer.spec
@@ -419,6 +436,7 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                             lr=sp["lr"], b1=sp["b1"], b2=sp["b2"],
                             eps=sp["eps"], weight_decay=sp["weight_decay"])
         raw = staleness.make_sim_step(update_fn, sim_cfg,
+                                      server_apply=server_apply,
                                       compensator=compensator, fused=fused_kw)
 
         def sim_init(params, update_state, gen):

@@ -1,3 +1,4 @@
-"""Model zoo of the port: the paper's DNN/MLR (``mlp``) and the dense
-decoder transformer (``layers``, ``transformer``). The other families
-follow in ROADMAP A.4 and A.10."""
+"""Model zoo of the port: the paper's models (``mlp``: the DNN/MLR;
+``resnet``; ``mf``; ``vae``; ``lda``) and the dense and MoE decoder
+transformers (``layers``, ``transformer``, ``moe``). The SSM, hybrid,
+encoder-decoder and vision families follow in ROADMAP A.10."""

@@ -522,3 +522,90 @@ def test_flash_attention_dispatch_and_operand_checks(cuda_device):
         tfl.flash_attention(*_flash_case(cuda_device, 1, 4, 4, 2, 1, 257))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfl.flash_attention(q, k.cpu(), v)
+
+
+# -- the paper's models on the card (no kernel of their own; their layouts
+#    and determinism) ------------------------------------------------------------
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+# cuDNN may pick other algorithms for the grouped convolution than for P
+# separate ones (implicit GEMM, Winograd, FFT), and they round differently:
+# ~1e-6 relative a layer, 8 convolutions deep in the forward pass and the
+# backward pass's chain through 7 GroupNorms. Held in relative L2 per
+# output and per gradient leaf.
+RESNET_CARD_REL = 1e-4
+
+
+@pytest.mark.cuda
+def test_resnet_grouped_conv_equals_per_worker_loop_on_card(cuda_device):
+    from repro_torch import treemath as tm
+    from repro_torch.models import resnet
+    from repro_torch.optim.optimizers import value_and_grad
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.ResNetConfig(n=1)
+    params, strides = resnet.init(0, cfg, device=cuda_device)
+    p = 4
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    stacked = tm.tree_map(
+        lambda a: a.unsqueeze(0) * (1 + 0.1 * torch.rand(
+            (p,) + (1,) * a.dim(), generator=gen, device=cuda_device)),
+        params)
+    x = torch.randn((p, 8, 32, 32, 3), generator=gen, device=cuda_device)
+    y = torch.randint(0, 10, (p, 8), generator=gen, device=cuda_device)
+    loss = resnet.make_loss_fn(cfg, strides)
+    got, g = value_and_grad(loss, stacked, (x, y))
+    logits = resnet.apply(stacked, strides, x, cfg)
+    for i in range(p):
+        one = tm.tree_index(stacked, i)
+        want, gi = value_and_grad(loss, one, (x[i], y[i]))
+        assert _rel(got[i], want) <= RESNET_CARD_REL
+        assert _rel(logits[i], resnet.apply(one, strides, x[i], cfg)) <= (
+            RESNET_CARD_REL)
+        for a, b in zip(tm.tree_leaves(g), tm.tree_leaves(gi)):
+            assert _rel(a[i], b) <= RESNET_CARD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [7, 32])
+def test_resnet_same_padding_on_card_matches_cpu(cuda_device, hw):
+    from repro_torch.models import resnet
+
+    rng = np.random.default_rng(hw)
+    h = torch.from_numpy(rng.standard_normal((2, 6, hw, hw)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 3, 3, 3, 4)).astype(
+        np.float32))
+    for stride in (1, 2):
+        want = resnet._conv(h, w, stride)
+        got = resnet._conv(h.to(cuda_device), w.to(cuda_device), stride)
+        assert got.shape == want.shape == (2, 8, -(-hw // stride),
+                                           -(-hw // stride))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mf_gradient_is_bitwise_deterministic_on_card(cuda_device):
+    """Repeated rows in a batch: the one-hot product's backward sums them
+    in a fixed order, so two calls agree bit for bit."""
+    from repro_torch.models import mf
+    from repro_torch.optim.optimizers import value_and_grad
+
+    cfg = mf.MFConfig(num_users=6040, num_items=3706)
+    params = mf.init(0, cfg, device=cuda_device)
+    stacked = {k: v.unsqueeze(0).repeat(8, 1, 1) for k, v in params.items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    rows = torch.randint(0, 60, (8, 500), generator=gen, device=cuda_device)
+    cols = torch.randint(0, 40, (8, 500), generator=gen, device=cuda_device)
+    vals = torch.randn((8, 500), generator=gen, device=cuda_device)
+    first = value_and_grad(mf.make_loss_fn(cfg), stacked, (rows, cols, vals))
+    for _ in range(3):
+        again = value_and_grad(mf.make_loss_fn(cfg), stacked,
+                               (rows, cols, vals))
+        assert torch.equal(first[0], again[0])
+        for key in ("L", "R"):
+            assert torch.equal(first[1][key], again[1][key])

@@ -197,12 +197,86 @@ def test_engine_surface(setup):
      "A.2"),
     (dict(mode="simulate", server_side=True), None, "A.2")])
 def test_unported_modes_and_options_raise(kw, mesh, item):
-    """Every mode and compensation knob is ported; mesh= (A.12) and the
-    server_side ablation (A.2) still raise, naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_engine(tmlp.loss_fn, topt.sgd(0.1),
-                     EngineConfig(num_workers=2, **kw), mesh=mesh,
-                     device="cpu")
+    """Every mode and compensation knob is ported; mesh= (A.12) still
+    raises, naming its ROADMAP item. The server_side ablation (A.2) is
+    ported: each A.2 case now builds as the JAX engine does. In simulate it
+    needs a server_apply (both raise ValueError without one) and takes tree
+    delivery; stale-psum accepts the flag and ignores it."""
+    cfg = EngineConfig(num_workers=2, **kw)
+    if item == "A.12":
+        with pytest.raises(NotImplementedError, match=item):
+            build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg, mesh=mesh,
+                         device="cpu")
+        return
+    jcfg = JConfig(num_workers=2, **kw)
+    apply_kw = {}
+    if kw["mode"] == "simulate":
+        with pytest.raises(ValueError, match="server_apply"):
+            build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg, device="cpu")
+        with pytest.raises(ValueError, match="server_apply"):
+            jbuild(jmlp.loss_fn, jopt.sgd(0.1), jcfg)
+        apply_kw = dict(server_apply=lambda c, st, arrived: (c, st))
+    eng = build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg, device="cpu",
+                       **apply_kw)
+    jeng = jbuild(jmlp.loss_fn, jopt.sgd(0.1), jcfg, **apply_kw)
+    assert eng.meta["kernels"] == jeng.meta["kernels"]
+    assert eng.meta["kernels"]["delivery"] == "tree"
+
+
+def test_server_side_engine_routes_and_run_engine_matches_jax(setup):
+    """build_engine(simulate, server_side=True, server_apply=...) takes tree
+    delivery under kernels="auto" (fallback "server_side transform") and
+    refuses "on"; experiments.run_engine with a server_apply reaches the
+    target after the same worker batches as benchmarks/common.py's."""
+    sys.path.insert(0, str(REPO))
+    from benchmarks import common
+    from repro import treemath as jtm
+    from repro.core import StalenessConfig as JStal
+    from repro.optim import make_sgd_update_fn as jmake
+    from repro_torch.core import StalenessConfig as TStal
+    from repro_torch.optim import make_sgd_update_fn as tmake
+
+    data, jp, table = setup
+    tapply = lambda c, st, arrived: (tm.tree_axpy(0.05, arrived, c), st)
+    japply = lambda c, st, arrived: (jtm.tree_axpy(0.05, arrived, c), st)
+    tupd = tmake(tmlp.loss_fn, topt.sgd(1.0))    # ships -grad
+    cfg = EngineConfig(mode="simulate", num_workers=P, s=8,
+                       server_side=True, kernels="auto")
+    eng = build_engine(None, None, cfg, update_fn=tupd, server_apply=tapply,
+                       device="cpu")
+    assert eng.meta["kernels"] == {
+        "config": "auto", "delivery": "tree",
+        "fallback": "server_side transform", "megakernel": "off",
+        "megakernel_fallback": "optimizer has no Adam spec"}
+    with pytest.raises(ValueError, match="server_side"):
+        build_engine(tmlp.loss_fn, topt.sgd(1.0),
+                     EngineConfig(mode="simulate", num_workers=P, s=8,
+                                  server_side=True, kernels="on"),
+                     server_apply=tapply, device="cpu")
+    with pytest.raises(ValueError, match="server_side"):
+        jbuild(jmlp.loss_fn, jopt.sgd(1.0),
+               JConfig(mode="simulate", num_workers=P, s=8,
+                       server_side=True, kernels="on"), server_apply=japply)
+
+    xt, yt = data.x_test, data.y_test
+    batches = lambda: iter(ShardedBatches([data.x_train, data.y_train], P, 8,
+                                          seed=0))
+    jres = common.run_engine(
+        jmake(jmlp.loss_fn, jopt.sgd(1.0)), jp, jopt.sgd(1.0).init(jp),
+        JStal(num_workers=P, delay=jdel.Schedule(table), server_side=True),
+        batches(), lambda p: jmlp.accuracy(p, xt, yt), 0.22, True, 60, 5,
+        server_apply=japply)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    txt, tyt = torch.from_numpy(xt), torch.from_numpy(yt)
+    res = experiments.run_engine(
+        tupd, tp, topt.sgd(1.0).init(tp),
+        TStal(num_workers=P, delay=tdel.Schedule(table), server_side=True),
+        batches(), lambda p: tmlp.accuracy(p, txt, tyt), 0.22, True, 60, 5,
+        server_apply=tapply, device="cpu")
+    assert jres.converged and res.converged
+    assert res.batches_to_target == jres.batches_to_target
+    np.testing.assert_allclose([v for _, v in res.curve],
+                               [v for _, v in jres.curve], atol=2 / 512)
 
 
 def test_config_validation_and_mesh():

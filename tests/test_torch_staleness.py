@@ -232,13 +232,107 @@ def test_bound_clamps_delays():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tst.StalenessConfig(num_workers=2, delay=tdel.Zero(), server_side=True)
+    """Every option is ported (the server_side ablation, A.2, included);
+    what raises now is what the JAX package refuses: server_side with the
+    packed layout, server_side without a server_apply, and a fused step
+    without kernels."""
+    with pytest.raises(ValueError, match="server_side"):
+        tst.StalenessConfig(num_workers=2, delay=tdel.Zero(),
+                            server_side=True, kernels=True)
+    with pytest.raises(ValueError, match="server_side"):
+        jst.StalenessConfig(num_workers=2, delay=jdel.Zero(),
+                            server_side=True, kernels=True)
+    srv = tst.StalenessConfig(num_workers=2, delay=tdel.Zero(),
+                              server_side=True)
+    with pytest.raises(ValueError, match="server_apply"):
+        tst.make_sim_step(lambda *a: a, srv)
+    assert callable(tst.make_sim_step(lambda *a: a, srv,
+                                      server_apply=lambda *a: a))
     cfg = tst.StalenessConfig(num_workers=2, delay=tdel.Zero())
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tst.make_sim_step(lambda *a: a, cfg, server_apply=lambda *a: a)
+    # Without server_side a server_apply is ignored, as in the reference.
+    assert callable(tst.make_sim_step(lambda *a: a, cfg,
+                                      server_apply=lambda *a: a))
     # Compensation is ported (A.6): a compensator is taken as it is.
     assert callable(tst.make_sim_step(lambda *a: a, cfg,
                                       compensator=object()))
     with pytest.raises(ValueError):
         tst.make_sim_step(lambda *a: a, cfg, fused={})
+
+
+# -- the server_side ablation ---------------------------------------------------
+
+def _srv_quad(seed=9, steps=40):
+    """``tests/test_staleness_engine.py::test_server_side_apply``'s setup:
+    workers ship raw negative gradients of a quadratic, the server applies
+    the learning rate (and here also counts deliveries in its state)."""
+    rng = np.random.default_rng(seed)
+    w = np.array([1.0, -2.0, 3.0, 0.5], np.float32)
+    xs = rng.standard_normal((steps, 2, 8, 4)).astype(np.float32)
+    return [(x, x @ w) for x in xs]
+
+
+def _jax_srv(cfg, state, batches, steps):
+    from repro import treemath as jtm
+
+    def upd(params, ust, batch, key):
+        g = jax.grad(lambda p, b: jnp.mean((b[0] @ p["w"] - b[1]) ** 2))(
+            params, batch)
+        return jtm.tree_scale(g, -1.0), ust, {}
+
+    def apply(cache, srv, arrived):
+        return jtm.tree_axpy(0.05, arrived, cache), {"n": srv["n"] + 1}
+
+    step = jax.jit(jst.make_sim_step(upd, cfg, server_apply=apply))
+    for x, y in batches[:steps]:
+        state, _ = step(state, (jnp.asarray(x), jnp.asarray(y)))
+    return state, jst.drain(state, server_apply=apply, server_side=True)
+
+
+def _torch_srv(cfg, state, batches, steps):
+    def loss(p, b):
+        return ((b[0] @ p["w"].unsqueeze(-1)).squeeze(-1) - b[1]).pow(2).mean(-1)
+
+    def upd(params, ust, batch, gen):
+        _, g = topt.value_and_grad(loss, params, batch)
+        return tm.tree_scale(g, -1.0), ust, {}
+
+    def apply(cache, srv, arrived):
+        return tm.tree_axpy(0.05, arrived, cache), {"n": srv["n"] + 1}
+
+    step = tst.make_sim_step(upd, cfg, server_apply=apply)
+    for x, y in batches[:steps]:
+        state, _ = step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+    return state, tst.drain(state, server_apply=apply, server_side=True)
+
+
+def test_server_side_matches_jax_and_drains_through_server_apply():
+    """The reference's server_side setup with Schedule delays, so both
+    packages see the same delays: caches and the per-worker server state
+    agree over 40 steps, and drain delivers the ring through
+    server_apply (B = 3 more deliveries in the server's count)."""
+    table = np.random.default_rng(2).integers(0, 3, (40, 2))
+    table[0, 0] = 2
+    batches = _srv_quad()
+    jcfg = jst.StalenessConfig(num_workers=2, delay=jdel.Schedule(table),
+                               server_side=True)
+    tcfg = tst.StalenessConfig(num_workers=2, delay=tdel.Schedule(table),
+                               server_side=True)
+    js, jd = _jax_srv(jcfg, jst.init_sim_state(
+        {"w": jnp.zeros((4,))}, (), jcfg, jax.random.PRNGKey(0),
+        server_state={"n": jnp.zeros(())}), batches, 40)
+    ts, td = _torch_srv(tcfg, tst.init_sim_state(
+        {"w": torch.zeros(4)}, (), tcfg, 0,
+        server_state={"n": torch.zeros(())}), batches, 40)
+    for a, b in ((ts, js), (td, jd)):
+        np.testing.assert_allclose(a.caches["w"].numpy(),
+                                   np.asarray(b.caches["w"]), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(a.server_state["n"].numpy(),
+                                      np.asarray(b.server_state["n"]))
+    assert ts.server_state["n"].shape == (2,)
+    assert td.server_state["n"].tolist() == [43.0, 43.0]
+    np.testing.assert_allclose(td.caches["w"][0].numpy(),
+                               [1.0, -2.0, 3.0, 0.5], atol=0.05)
+    # Without server_side, drain takes the plain add.
+    plain = tst.drain(ts)
+    assert plain.server_state["n"].tolist() == [40.0, 40.0]
