@@ -1,11 +1,11 @@
 """Architecture registry plumbing (port of ``repro/configs/base.py``): input
 shapes, the uniform model API and ``ArchDef``.
 
-Only the transformer family is ported (``transformer_api``); an arch of
-another family keeps its registry entry and raises ``NotImplementedError``
-from ``api()`` (ROADMAP A.10). ``init`` and ``init_cache`` take a
-``device``: CUDA unless the caller passes ``device="cpu"`` (``"meta"``
-makes shapes only).
+The transformer, SSM and hybrid families are ported (``transformer_api``,
+``ssm_api``, ``hybrid_api``); an arch of another family (encdec) keeps its
+registry entry and raises ``NotImplementedError`` from ``api()`` (ROADMAP
+A.10). ``init`` and ``init_cache`` take a ``device``: CUDA unless the
+caller passes ``device="cpu"`` (``"meta"`` makes shapes only).
 """
 from __future__ import annotations
 
@@ -52,6 +52,11 @@ class ModelAPI:
     decode_paged: Optional[Callable] = None
 
 
+def _token_spec(shape: InputShape):
+    n = shape.seq_len + 1 if shape.kind == "train" else shape.seq_len
+    return {"tokens": ((shape.global_batch, n), torch.int32)}
+
+
 def transformer_api(cfg) -> ModelAPI:
     from repro_torch.models import transformer as tr
 
@@ -59,10 +64,6 @@ def transformer_api(cfg) -> ModelAPI:
         logits, _aux, cache = tr.forward(params, batch["tokens"], cfg,
                                          return_cache=True)
         return logits[:, -1:], cache
-
-    def batch_spec(shape: InputShape):
-        n = shape.seq_len + 1 if shape.kind == "train" else shape.seq_len
-        return {"tokens": ((shape.global_batch, n), torch.int32)}
 
     return ModelAPI(
         family="transformer", cfg=cfg,
@@ -75,12 +76,63 @@ def transformer_api(cfg) -> ModelAPI:
             tr.decode_step_paged(params, token, cache, pos, kv, cfg),
         init_cache=lambda b, s, device=None: tr.init_cache(cfg, b, s,
                                                            device=device),
-        batch_spec=batch_spec,
+        batch_spec=_token_spec,
         vocab_real=cfg.vocab_real,
     )
 
 
-_API_BUILDERS = {"transformer": transformer_api}
+def ssm_api(cfg) -> ModelAPI:
+    """The pure-SSM LM: its decode cache has no token axis (the serving
+    plane keeps it resident), and decode is ``lm_forward`` on one token."""
+    from repro_torch.models import ssm
+
+    def prefill(params, batch):
+        logits, cache = ssm.lm_forward(params, batch["tokens"], cfg,
+                                       return_cache=True)
+        return logits[:, -1:], cache
+
+    def decode(params, token, cache, pos):
+        return ssm.lm_forward(params, token, cfg, cache=cache)
+
+    return ModelAPI(
+        family="ssm", cfg=cfg,
+        init=lambda seed, device=None: ssm.lm_init(seed, cfg, device=device),
+        loss=lambda params, batch: ssm.lm_loss(params, batch, cfg),
+        prefill=prefill,
+        decode=decode,
+        init_cache=lambda b, s, device=None: ssm.lm_cache_init(
+            cfg, b, device=device),
+        batch_spec=_token_spec,
+        vocab_real=cfg.vocab_real,
+    )
+
+
+def hybrid_api(cfg) -> ModelAPI:
+    """The mamba + shared-attention hybrid. No ``decode_paged``, as in the
+    JAX package: the serving plane takes the gather route."""
+    from repro_torch.models import hybrid
+
+    def prefill(params, batch):
+        logits, _aux, cache = hybrid.forward(params, batch["tokens"], cfg,
+                                             return_cache=True)
+        return logits[:, -1:], cache
+
+    return ModelAPI(
+        family="hybrid", cfg=cfg,
+        init=lambda seed, device=None: hybrid.init(seed, cfg, device=device),
+        loss=lambda params, batch: hybrid.loss_fn(params, batch, cfg),
+        prefill=prefill,
+        decode=lambda params, token, cache, pos: hybrid.decode_step(
+            params, token, cache, pos, cfg),
+        init_cache=lambda b, s, device=None: hybrid.init_cache(
+            cfg, b, s, device=device),
+        batch_spec=_token_spec,
+        vocab_real=cfg.vocab_real,
+    )
+
+
+_API_BUILDERS = {"transformer": transformer_api, "ssm": ssm_api,
+                 "hybrid": hybrid_api}
 
 
 @dataclasses.dataclass(frozen=True)

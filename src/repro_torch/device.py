@@ -25,3 +25,13 @@ def generator(seed: Optional[int], device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(0 if seed is None else int(seed))
     return gen
+
+
+def init_generator(key, device: torch.device) -> torch.Generator:
+    """A model init's generator: ``key`` itself if it is one, else one
+    seeded from it on ``device`` (on the CPU for ``meta``, which makes
+    shapes only and has no generator)."""
+    if isinstance(key, torch.Generator):
+        return key
+    return generator(key, torch.device("cpu") if device.type == "meta"
+                     else device)

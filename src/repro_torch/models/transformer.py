@@ -123,32 +123,47 @@ def _attn_axes(cfg: TransformerConfig):
             (None, "head_dim_sharded", "embed"))
 
 
-def _init_layers(gen, cfg: TransformerConfig, dev):
-    """All ``L`` layers at once, as stacked ``[L, ...]`` Params."""
+def _init_attention(gen, cfg: TransformerConfig, dev, lead=()):
+    """One attention block's Params (``lead`` prepends stacked axes)."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    f, nl, pdt = cfg.d_ff, cfg.num_layers, cfg.param_dtype
-    lead = (nl,)
     q_axes, kv_axes, o_axes = _attn_axes(cfg)
     dense = lambda shape, axes, **kw: L.dense_init(
-        gen, shape, axes, dtype=pdt, device=dev, lead=lead, **kw)
-    scale = lambda shape, axes: L.scale_init(lead + shape, axes, dtype=pdt,
-                                             device=dev)
+        gen, shape, axes, dtype=cfg.param_dtype, device=dev, lead=lead, **kw)
     attn = {"wq": dense((d, h, hd), q_axes),
             "wk": dense((d, hkv, hd), kv_axes),
             "wv": dense((d, hkv, hd), kv_axes),
             "wo": dense((h, hd, d), o_axes, in_axis=-1)}
     if cfg.qk_norm:
-        attn["q_norm"] = scale((hd,), (None,))
-        attn["k_norm"] = scale((hd,), (None,))
-    layer = {"ln1": scale((d,), ("embed",)), "attn": attn,
+        for name in ("q_norm", "k_norm"):
+            attn[name] = L.scale_init(tuple(lead) + (hd,), (None,),
+                                      dtype=cfg.param_dtype, device=dev)
+    return attn
+
+
+def _init_dense_ffn(gen, cfg: TransformerConfig, dev, lead=()):
+    """One SwiGLU FFN's Params (``lead`` prepends stacked axes)."""
+    d, f = cfg.d_model, cfg.d_ff
+    dense = lambda shape, axes: L.dense_init(
+        gen, shape, axes, dtype=cfg.param_dtype, device=dev, lead=lead)
+    return {"w_gate": dense((d, f), ("embed", "mlp")),
+            "w_up": dense((d, f), ("embed", "mlp")),
+            "w_down": dense((f, d), ("mlp", "embed"))}
+
+
+def _init_layers(gen, cfg: TransformerConfig, dev):
+    """All ``L`` layers at once, as stacked ``[L, ...]`` Params."""
+    d, pdt = cfg.d_model, cfg.param_dtype
+    lead = (cfg.num_layers,)
+    scale = lambda shape, axes: L.scale_init(lead + shape, axes, dtype=pdt,
+                                             device=dev)
+    layer = {"ln1": scale((d,), ("embed",)),
+             "attn": _init_attention(gen, cfg, dev, lead),
              "ln2": scale((d,), ("embed",))}
     if cfg.moe is not None:
         layer["moe"] = moe_lib.init_moe(gen, d, cfg.moe, pdt, device=dev,
                                         lead=lead)
     else:
-        layer["mlp"] = {"w_gate": dense((d, f), ("embed", "mlp")),
-                        "w_up": dense((d, f), ("embed", "mlp")),
-                        "w_down": dense((f, d), ("mlp", "embed"))}
+        layer["mlp"] = _init_dense_ffn(gen, cfg, dev, lead)
     return layer
 
 
@@ -159,11 +174,7 @@ def init(key, cfg: TransformerConfig, device=None) -> Tuple[Any, Any]:
     carry JAX's weights over with ``convert.params_from_jax``."""
     _check_supported(cfg)
     dev = device_lib.resolve(device)
-    if isinstance(key, torch.Generator):
-        gen = key
-    else:
-        gen = device_lib.generator(key, torch.device("cpu") if dev.type == "meta"
-                                   else dev)
+    gen = device_lib.init_generator(key, dev)
     pdt = cfg.param_dtype
     emb = L.embed_init(gen, (cfg.vocab, cfg.d_model), ("vocab", "embed"),
                        dtype=pdt, device=dev)

@@ -609,3 +609,78 @@ def test_mf_gradient_is_bitwise_deterministic_on_card(cuda_device):
         assert torch.equal(first[0], again[0])
         for key in ("L", "R"):
             assert torch.equal(first[1][key], again[1][key])
+
+
+# The state-space families on the card against the CPU: fp32 (TF32 off),
+# the same math in another summation order, so outputs within rtol 1e-4,
+# atol 1e-4 of the CPU's (the SSD's exponentials and chunk carries over a
+# few layers; the parity tests hold the CPU route against the JAX package).
+SSM_CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _on(tree, dev):
+    from repro_torch import treemath as tm
+    return tm.tree_map(lambda x: x.to(dev), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 13, 40])
+def test_ssd_block_on_card_matches_cpu(cuda_device, t):
+    """mamba_forward (the chunked scan, or the T = 1 recurrence) from a
+    cache, on the card and on the CPU; and a finite gradient at 64 heads,
+    chunk 256 (the masked-before-exp decay)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+
+    cfg = ssm.SSMSettings(d_model=32, d_state=8, head_dim=8, chunk=16)
+    p, _ = L.unzip(ssm.init_mamba_block(torch.Generator().manual_seed(0),
+                                        cfg, device="cpu"))
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.standard_normal((2, 9 + t, 32)).astype(
+        np.float32))
+    _, cache = ssm.mamba_forward(p, x[:, :9], cfg)
+    want, wcache = ssm.mamba_forward(p, x[:, 9:], cfg, cache=cache)
+    got, gcache = ssm.mamba_forward(_on(p, cuda_device),
+                                    x[:, 9:].to(cuda_device), cfg,
+                                    cache=_on(cache, cuda_device))
+    torch.testing.assert_close(got.cpu(), want, **SSM_CARD_TOL)
+    for k in wcache:
+        torch.testing.assert_close(gcache[k].cpu(), wcache[k], **SSM_CARD_TOL)
+
+    wide = ssm.SSMSettings(d_model=64, d_state=16, head_dim=2, chunk=256)
+    pw, _ = L.unzip(ssm.init_mamba_block(
+        torch.Generator(device=cuda_device).manual_seed(1), wide,
+        device=cuda_device))
+    for v in pw.values():
+        v.requires_grad_(True)
+    xw = torch.randn((1, 256, 64), device=cuda_device)
+    y, _ = ssm.mamba_forward(pw, xw, wide)
+    grads = torch.autograd.grad(y.square().sum(), list(pw.values()))
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.cuda
+def test_hybrid_forward_and_decode_on_card_match_cpu(cuda_device):
+    """The reduced zamba2-7b at 5 layers (a tail layer): forward with its
+    prefill cache, then two decode steps, on the card and on the CPU."""
+    from repro_torch import configs as tcfg
+    from repro_torch import treemath as tm
+
+    api = tcfg.get("zamba2-7b").api(reduced=True,
+                                    overrides={"num_layers": 5})
+    params, _ = api.init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 500, (2, 19)).astype(np.int32))
+    with torch.no_grad():
+        want, wcache = api.prefill(params, {"tokens": toks})
+        got, gcache = api.prefill(_on(params, cuda_device),
+                                  {"tokens": toks.to(cuda_device)})
+        torch.testing.assert_close(got.cpu(), want, **SSM_CARD_TOL)
+        for pos in (19, 20):
+            tok = torch.full((2, 1), pos, dtype=torch.int32)
+            want, wcache = api.decode(params, tok, wcache, pos)
+            got, gcache = api.decode(_on(params, cuda_device),
+                                     tok.to(cuda_device), gcache, pos)
+            torch.testing.assert_close(got.cpu(), want, **SSM_CARD_TOL)
+    for a, b in zip(tm.tree_leaves(gcache), tm.tree_leaves(wcache)):
+        torch.testing.assert_close(a.cpu(), b, **SSM_CARD_TOL)

@@ -330,7 +330,10 @@ def test_importing_the_port_loads_no_jax():
             "'repro_torch.kernels.sparsify', 'repro_torch.kernels.coherence', "
             "'repro_torch.engine.hooks', 'repro_torch.checkpoint.checkpoint', "
             "'repro_torch.delays.trace', 'repro_torch.delays.multipod', "
-            "'repro_torch.delays.parse', 'repro_torch.delays.__main__'):\n"
+            "'repro_torch.delays.parse', 'repro_torch.delays.__main__', "
+            "'repro_torch.models.ssm', 'repro_torch.models.hybrid', "
+            "'repro_torch.configs.mamba2_1p3b', "
+            "'repro_torch.configs.zamba2_7b'):\n"
             "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
