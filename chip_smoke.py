@@ -107,7 +107,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    no kernel launched), each holding request 0's greedy tokens against a
    plain token-by-token loop and fp32 prefill + decode logits against one
    full forward over 300 tokens; kernels 1-5 held and timed at the mamba
-   ring legs' width, ``fused_adam`` over mamba's full D.
+   ring legs' width, ``fused_adam`` over mamba's full D;
+11. cross-attention (``cross_path``): ``paged_attention`` against its
+   plain version at whisper-base's (8/8/64) and llama-3.2-vision-11b's
+   (32/8/128) self-attention head shapes (8 slots, wrapped rings, fp32 and
+   bf16, two calls bitwise) and timed beside its bound, its plain version
+   and SDPA; with every cross gate opened at CROSS_GATE: the full-width,
+   full-depth whisper-base (~128.6 M params, remat on) through the train
+   CLI in sync over 1,500-frame inputs, kernels on (profiled) and off with
+   the one-ulp witness, and its six ring legs (danube's legs at 3 + 3 of
+   its 6 + 6 layers); llama-3.2-vision-11b at full width with 5 of 40 layers (one
+   whole group, ~2.35 B params) in sync, on and off with the witness; both
+   served at full width and depth on the paged route (bf16, each request
+   with its own features, ``paged_attention`` once a self layer a decode
+   step), each holding request 0's greedy tokens against a plain loop,
+   fp32 prefill + decode against one forward over 300 tokens, and the fp32
+   paged and gather routes' tokens against each other (llama at 10 of 40
+   layers).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -1901,8 +1917,9 @@ SERVE_NEW_TOKENS = (32, 96)         # max_new_tokens drawn in this range
 # The gather route decodes one batch-1 model call a slot (~0.36 s a step at
 # 24 layers), so the routes-agree legs and the bf16 gather timing run the
 # first ROUTE_LAYERS of the 24 layers (a depth cut, every width kept; the
-# paged bf16 serve above them keeps all 24).
-ROUTE_LAYERS = 8
+# paged bf16 serve above them keeps all 24). 4 layers, not 8, so that the
+# run with phase 11 fits its time on a slow host.
+ROUTE_LAYERS = 4
 ROUTE_LEGS = (("wrap", {"max_seq": 160}, {}),
               ("window 96", {}, {"swa_window": 96}))
 ROUTE_LEG_REQUESTS = 8
@@ -1957,17 +1974,18 @@ PAGED_GRID = (
 )
 
 
-def paged_kernel_checks(dev) -> dict:
-    """paged_attention vs its plain version over PAGED_GRID, fp32 and bf16
-    operands, and two calls bitwise. Returns the max abs errors at the main
-    path's shape (danube, T = 8, fp32 and bf16)."""
+def paged_kernel_checks(dev, grid=PAGED_GRID) -> dict:
+    """paged_attention vs its plain version over ``grid`` (PAGED_GRID
+    unless named), fp32 and bf16 operands, and two calls bitwise. Returns
+    the max abs errors at the grid's first shape (PAGED_GRID: the main
+    path's, danube at T = 8), fp32 and bf16, and per grid entry."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
-    errs = {}
+    errs = {"by_shape": {}}
     for i, (name, heads, t, tokens, layers, layer, windows) in enumerate(
-            PAGED_GRID):
+            grid):
         pool, kw = paged_case(dev, heads=heads, t=t, tokens=tokens,
                               layers=layers, seed=10 + i)
         for window in windows:
@@ -2000,25 +2018,38 @@ def paged_kernel_checks(dev) -> dict:
             if i == 0:
                 errs["fp32"] = max(errs.get("fp32", 0.0), e32)
                 errs["bf16"] = max(errs.get("bf16", 0.0), e16)
+            got_i = errs["by_shape"].setdefault(name, {"fp32": 0.0,
+                                                       "bf16": 0.0})
+            got_i["fp32"] = max(got_i["fp32"], e32)
+            got_i["bf16"] = max(got_i["bf16"], e16)
         del pool
     torch.cuda.synchronize(dev)
     return errs
 
 
-def paged_timing_case(dev):
-    """The serve cell's paged_attention inputs that paged_timings
-    describes: the pool, the wrapper's keywords, its positional arguments
-    and one argument set per layer."""
+# paged_timings' case: a serve's head shape (H, Hkv, hd), page rows T, ring
+# rows, layers, the pages each mid-run slot holds and its position. The
+# danube serve cell's: 28 pages (prompt 128 + up to 96 new tokens) at
+# position 176 of a 512-row ring.
+SERVE_TIMING = dict(heads=(32, 8, 80), t=8, tokens=512, layers=24, held=28,
+                    pos=176)
+
+
+def paged_timing_case(dev, case=SERVE_TIMING):
+    """The paged_attention inputs that paged_timings describes (the serve
+    cell's unless ``case`` names another): the pool, the wrapper's
+    keywords, its positional arguments and one argument set per layer."""
     import torch
-    pool, kw = paged_case(dev, heads=(32, 8, 80), t=8, tokens=512,
-                          layers=24, seed=3)
+    pool, kw = paged_case(dev, heads=case["heads"], t=case["t"],
+                          tokens=case["tokens"], layers=case["layers"],
+                          seed=3)
     s = pool["tables"].shape[0]
-    held = 28
     tables = pool["tables"].clone()
-    tables[:, held:] = pool["pages"].shape[0] - 1
+    tables[:, case["held"]:] = pool["pages"].shape[0] - 1
     pool["tables"] = tables.contiguous()
-    pool["pos"] = torch.full((s,), 176, dtype=torch.int32, device=dev)
-    return pool, kw, _paged_args(pool), [(layer,) for layer in range(24)]
+    pool["pos"] = torch.full((s,), case["pos"], dtype=torch.int32, device=dev)
+    return pool, kw, _paged_args(pool), [(layer,)
+                                         for layer in range(case["layers"])]
 
 
 @contextlib.contextmanager
@@ -2035,28 +2066,30 @@ def forced_split(n: int):
         tpa.choose_split = chooser
 
 
-def paged_timings(dev) -> dict:
-    """paged_attention at the serve cell's shapes (danube, 8 slots, 8-row
-    pages, 512-row rings), slots 0-6 mid-run at position 176 with the 28
-    pages a request holds (lazy allocation: prompt 128 + up to 96 new
-    tokens) and the rest null, slot 7 empty; fp32 operands. Sets cycle
-    through the 24 layers' column blocks (6.3 MB of K/V read a call, 151 MB
-    a cycle, past the 50 MB L2). Library call: F.scaled_dot_product_attention over the
-    already-gathered contiguous ring with the boolean mask (gather
-    excluded), a cross-check only. The bound counts the bytes of the rows
-    the call attends over, not of every row its held pages hold."""
+def paged_timings(dev, case=SERVE_TIMING, name="paged_attention") -> dict:
+    """paged_attention at a serve's shapes, by default the serve cell's
+    (danube, 8 slots, 8-row pages, 512-row rings): slots 0-6 mid-run at
+    position 176 with the 28 pages a request holds (lazy allocation:
+    prompt 128 + up to 96 new tokens) and the rest null, slot 7 empty;
+    fp32 operands. Sets cycle through the 24 layers' column blocks (6.3 MB
+    of K/V read a call, 151 MB a cycle, past the 50 MB L2). Library call:
+    F.scaled_dot_product_attention over the already-gathered contiguous
+    ring with the boolean mask (gather excluded), a cross-check only. The
+    bound counts the bytes of the rows the call attends over, not of every
+    row its held pages hold. The row is keyed ``name``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
-    pool, kw, args, sets = paged_timing_case(dev)
+    pool, kw, args, sets = paged_timing_case(dev, case)
     s, pps = pool["tables"].shape
+    n_layers = case["layers"]
 
     # SDPA inputs per layer: the gathered ring with the new token written
     # at the cursor, and the validity mask, exactly as the plain version
     # builds them.
-    h, hkv, hd = 32, 8, 80
+    h, hkv, hd = case["heads"]
     kvsz = hkv * hd
     c = kw["tokens"]
     tl = pool["tables"].long()
@@ -2069,7 +2102,7 @@ def paged_timings(dev) -> dict:
     sidx = torch.arange(s, device=dev)
     qs = pool["q"][:, :, None]                         # [S, H, 1, hd]
     rings = []
-    for layer in range(24):
+    for layer in range(n_layers):
         ring = []
         for off, new in ((kw["k_off"], pool["k_new"]),
                          (kw["v_off"], pool["v_new"])):
@@ -2080,9 +2113,9 @@ def paged_timings(dev) -> dict:
             ring.append(g.transpose(1, 2).contiguous())  # [S, Hkv, C, hd]
         rings.append(tuple(ring))
     mask = valid[:, None, None, :]
-    lib_sets = [(qs,) + rings[layer] for layer in range(24)]
+    lib_sets = [(qs,) + rings[layer] for layer in range(n_layers)]
 
-    out = {"paged_attention": {
+    out = {name: {
         "ms": time_ms(lambda layer: paged_attention(*args, layer, **kw),
                       sets),
         "plain_ms": time_ms(lambda layer: ref.paged_attention(*args, layer,
@@ -2108,16 +2141,18 @@ def paged_timings(dev) -> dict:
     # each attended row (pool rows and the new token) and query head.
     valid_rows = int(valid.sum())
     n_flops = 4 * valid_rows * h * hd
-    out["paged_attention"]["bound"] = bound_ms(n_bytes, n_flops)
-    print(f"paged_attention timing inputs: S={s}, {non_null} non-null pages "
-          f"of {s * pps}, {pool_rows} pool rows and {s} new tokens attended, "
-          f"{entries} table entries read, {n_bytes} bytes a call")
+    out[name]["bound"] = bound_ms(n_bytes, n_flops)
+    print(f"{name} timing inputs: H/Hkv/hd {h}/{hkv}/{hd}, S={s}, "
+          f"{non_null} non-null pages of {s * pps}, {pool_rows} pool rows "
+          f"and {s} new tokens attended, {entries} table entries read, "
+          f"{n_bytes} bytes a call, {n_layers} layers' blocks "
+          f"({n_layers * n_bytes} bytes a cycle)")
     rows_ = summarize(out, n_bytes)
-    row = rows_["paged_attention"]
-    print(f"timing paged_attention: bf16 operands through the wrapper "
+    row = rows_[name]
+    print(f"timing {name}: bf16 operands through the wrapper "
           f"(casts included) {row['bf16_wrapper_ms']!r} ms")
     # the SDPA cross-check computes the same function
-    lay = 7
+    lay = min(7, n_layers - 1)
     got = paged_attention(*args, lay, **kw)
     sd = F.scaled_dot_product_attention(qs, *rings[lay], attn_mask=mask,
                                         enable_gqa=True)[:, :, 0]
@@ -2144,21 +2179,29 @@ def paged_split_sweep(dev) -> None:
 
 
 def serve_requests(vocab: int, n: int = SERVE_REQUESTS,
-                   new_tokens=SERVE_NEW_TOKENS):
-    """``n`` synthetic requests (seed 1), all arriving at 0.0, with
-    max_new_tokens drawn in ``new_tokens`` (numpy, seed 1)."""
+                   new_tokens=SERVE_NEW_TOKENS, prompt_len=None,
+                   features=None):
+    """``n`` synthetic requests (seed 1) of ``prompt_len`` tokens (SERVE's
+    unless named), all arriving at 0.0, with max_new_tokens drawn in
+    ``new_tokens`` (numpy, seed 1). ``features`` ({name: batch-1 shape})
+    gives each request its own standard-normal features (numpy, seed 2),
+    as the serve CLI draws them."""
     import numpy as np
     from repro_torch.serving import synthetic_requests
-    reqs = synthetic_requests(n, SERVE["prompt_len"], 1, vocab,
+    reqs = synthetic_requests(n, prompt_len or SERVE["prompt_len"], 1, vocab,
                               arrivals=[0.0] * n, seed=1)
     lo, hi = new_tokens
     gens = np.random.default_rng(1).integers(lo, hi + 1, n)
+    rng = np.random.default_rng(2)
     for r, g in zip(reqs, gens):
         r.max_new_tokens = int(g)
+        if features:
+            r.features = {name: rng.standard_normal(shape).astype(np.float32)
+                          for name, shape in sorted(features.items())}
     return reqs
 
 
-def profile_decode(server, k: int = 5) -> dict:
+def profile_decode(server, k: int = 5, features=None) -> dict:
     """Device busy share (the union of the device events' spans) of ``k``
     decode steps of a full batch under torch.profiler (the slots admitted
     and prefilled first, outside the window)."""
@@ -2166,8 +2209,9 @@ def profile_decode(server, k: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import AdmissionQueue
 
-    server._admit(AdmissionQueue(serve_requests(server.api.vocab_real,
-                                                server.cfg.slots)), 0.0)
+    server._admit(AdmissionQueue(serve_requests(
+        server.api.vocab_real, server.cfg.slots,
+        prompt_len=server.cfg.prompt_len, features=features)), 0.0)
     inputs = server.step_inputs()
     server.splan(*inputs)                       # warm
     torch.cuda.synchronize()
@@ -2194,12 +2238,12 @@ def profile_decode(server, k: int = 5) -> dict:
 
 def serve_run(dev, params, *, paged: str, overrides=None, record=False,
               serve_kw=None, n=SERVE_REQUESTS, arch=SERVE_ARCH,
-              new_tokens=SERVE_NEW_TOKENS):
-    """One full serve of serve_requests(n, new_tokens) of ``arch`` on a
-    fresh Server (after a short warm-up serve on another), with SERVE
-    changed by ``serve_kw``. Returns the server, the report, the launch
-    counters of the measured run and, with ``record``, per request the
-    (top-2 margin, logits) of each decode step."""
+              new_tokens=SERVE_NEW_TOKENS, features=None):
+    """One full serve of serve_requests(n, new_tokens, features) of
+    ``arch`` on a fresh Server (after a short warm-up serve on another),
+    with SERVE changed by ``serve_kw``. Returns the server, the report, the
+    launch counters of the measured run and, with ``record``, per request
+    the (top-2 margin, logits) of each decode step."""
     import torch
     from repro_torch.engine import plan as planlib
     from repro_torch.serving import Server, ServingConfig
@@ -2208,7 +2252,8 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False,
                         overrides=overrides, **{**SERVE, **(serve_kw or {})})
     warm = Server(cfg, params=params, device=dev)
     vocab = warm.api.vocab_real
-    warm_reqs = serve_requests(vocab, 2)
+    warm_reqs = serve_requests(vocab, 2, prompt_len=cfg.prompt_len,
+                               features=features)
     for r in warm_reqs:
         r.max_new_tokens = 3
     warm.run(warm_reqs)
@@ -2228,8 +2273,10 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False,
         planlib._pick = recording_pick
     try:
         torch.cuda.synchronize()
+        reqs = serve_requests(vocab, n, new_tokens, prompt_len=cfg.prompt_len,
+                              features=features)
         reset_counters()
-        report = server.run(serve_requests(vocab, n, new_tokens))
+        report = server.run(reqs)
         launches = counters()
     finally:
         planlib._pick = pick
@@ -2237,7 +2284,7 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False,
 
 
 def compare_routes(label, paged_rep, paged_steps, gather_rep, gather_steps,
-                   ring: int) -> dict:
+                   ring: int, prompt_len: int = SERVE["prompt_len"]) -> dict:
     """Greedy tokens per request, paged route vs gather route, up to the
     first step where either run's top-2 margin is below ROUTE_MARGIN.
     Decode step j of a request runs at position prompt_len + j; those at a
@@ -2262,7 +2309,7 @@ def compare_routes(label, paged_rep, paged_steps, gather_rep, gather_steps,
                     f"{gt[j + 1]} at top-2 margin {min(pm, gm)!r} >= "
                     f"{ROUTE_MARGIN}")
             compared += 1
-            wrapped += SERVE["prompt_len"] + j >= ring
+            wrapped += prompt_len + j >= ring
     if max_diff >= ROUTE_MARGIN:
         raise AssertionError(f"{label}: route logits differ by {max_diff!r}, "
                              f"not below the margin {ROUTE_MARGIN}")
@@ -2489,6 +2536,9 @@ FIRST_FLIP_SHARE = 1e-4
 # The MoE leg's aux loss (~0.012) under the same scheme: the witness parts
 # it by 3.5e-5, on vs off by 3e-6 (PERF.md).
 AUX_CEILING = 5e-4
+# The coherence legs' mu, on against off: never further apart than this,
+# unless the one-ulp witness's mu parts further (ring_legs).
+MU_FLOOR = 1e-3
 
 
 def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -2795,6 +2845,7 @@ def witness_run(dev, argv: list, params) -> dict:
         args.steps, init_seed=args.seed, params=params,
         log_every=args.log_every)
     out = {"losses": [row["loss"] for row in res.history],
+           "mu": [row.get("mu") for row in res.history],
            "params": to_host(engine.params(res.state))}
     del engine, res, params
     gc.collect()
@@ -2828,14 +2879,17 @@ def first_step_check(dev, arch: str, flags: dict, p0, failures: list) -> dict:
         reset_counters()
         state, metrics = engine.step(state, batch)
         torch.cuda.synchronize(dev)
+        # The packed params wait on the host while the other run holds
+        # the card (at 2.35 B params a packed copy is 9.4 GB).
         got[kernels] = {"loss": float(metrics["loss"]), "launches": counters(),
                         "params": tm.tree_pack(engine.params(state),
-                                               pad_to=dispatch.PACK_ALIGN)}
+                                               pad_to=dispatch.PACK_ALIGN)
+                        .cpu()}
         del engine, state, metrics
         gc.collect()
         torch.cuda.empty_cache()
     lr = optlib.get_optimizer(args.optimizer or "adam").spec["lr"]
-    a, b = got["on"].pop("params"), got["off"].pop("params")
+    a, b = (got[k].pop("params").to(dev) for k in ("on", "off"))
     err = (a - b).abs_()
     outside = int((err > TOL_FIRST["atol"] + TOL_FIRST["rtol"] * b.abs())
                   .sum())
@@ -3095,10 +3149,18 @@ def ring_legs(dev, tmp: str, failures: list, arch_id: str = TRAIN_ARCH,
         if flags.get("coherence"):
             mu_on = [h.get("mu") for h in on["history"]]
             mu_off = [h.get("mu") for h in off["history"]]
-            print(f"train {name}: mu on {mu_on} off {mu_off}")
-            if None in mu_on or any(abs(a - b) > 1e-3
+            mu_wit = runs["witness"]["mu"]
+            # mu is read from each run's own gradients, so it parts as the
+            # runs part: held to MU_FLOOR, or WITNESS_FACTOR times how far
+            # the witness's mu parts from the off run's where that is more.
+            lim = max(MU_FLOOR, WITNESS_FACTOR * max(
+                abs(a - b) for a, b in zip(mu_wit, mu_off)))
+            print(f"train {name}: mu on {mu_on} off {mu_off} witness "
+                  f"{mu_wit}; limit {lim!r}")
+            if None in mu_on or any(abs(a - b) > lim
                                     for a, b in zip(mu_on, mu_off)):
-                failures.append(f"{name}: mu on {mu_on} vs off {mu_off}")
+                failures.append(f"{name}: mu on {mu_on} vs off {mu_off} "
+                                f"(limit {lim!r})")
             path = ckpt.step_path(os.path.join(tmp, "ckpt"), r["steps"])
             like = on["params"]
             restored, step, _ = ckpt.restore(path, like)
@@ -3440,11 +3502,11 @@ HYBRID_LEGS = TRAIN_LEGS[:1]                     # stale-psum Adam
 # 160-row ring of 13 invocations x 32 x 112 x 2 floats a row). Both routes
 # decode one batch-1 model call a slot (the JAX package's vmap, written as
 # a loop), host-bound at ~0.73 s a decode step on the H100 (PERF.md), so
-# the new tokens are cut to fit the run's time: mamba 8-24 (of up to 96),
-# zamba 16 (of 32).
-SSM_SERVE = dict(arch=SSM_ARCH, n=16, new_tokens=(8, 24),
+# the new tokens are cut to fit the run's time: mamba 4-12 (of up to 96),
+# zamba 8 (of 32), half what they were before phase 11 joined the run.
+SSM_SERVE = dict(arch=SSM_ARCH, n=16, new_tokens=(4, 12),
                  serve_kw=dict(max_seq=224))
-HYBRID_SERVE = dict(arch=HYBRID_ARCH, n=8, new_tokens=(16, 16),
+HYBRID_SERVE = dict(arch=HYBRID_ARCH, n=8, new_tokens=(8, 8),
                     serve_kw=dict(slots=4, max_seq=160, prefill_batch=4))
 # Prefill + decode against one full forward, fp32, over 300 tokens (not a
 # multiple of the 256-token chunk): the prefill's 290 logits, then 10 decode
@@ -3464,9 +3526,13 @@ GREEDY_MARGIN = 0.05
 
 def narrow_batch(cache, family: str):
     """Batch row 0 of a batched prefill cache (keepdims): every leaf's
-    batch axis is 1 ([L or invocations, B, ...]), except the hybrid's
-    ``attn_slot_pos``, which has none."""
+    batch axis is 1 ([L, invocations or cross layers, B, ...]), except the
+    ring positions (``slot_pos``, the hybrid's ``attn_slot_pos``), which
+    have none."""
     from repro_torch import treemath as tm
+    if family in ("transformer", "encdec"):
+        return {k: (v if k == "slot_pos" else v.narrow(1, 0, 1))
+                for k, v in cache.items()}
     if family == "hybrid":
         out = {k: v.narrow(1, 0, 1) for k, v in cache.items()
                if k.startswith("attn_") and k != "attn_slot_pos"}
@@ -3478,27 +3544,36 @@ def narrow_batch(cache, family: str):
 
 
 def grafted(api, cache, max_seq: int, dev):
-    """The hybrid's prefill ring (``clen`` rows) written into an empty
-    ``max_seq``-row cache, as the serving plane's admission does."""
+    """A prefill ring (``clen`` rows) written into an empty ``max_seq``-row
+    cache, as the serving plane's admission does; the length-independent
+    leaves (the hybrid's mamba states, the cross K/V) carried over."""
+    if api.family == "hybrid":
+        ring, pos_key = ("attn_k", "attn_v"), "attn_slot_pos"
+    else:
+        ring, pos_key = ("k", "v"), "slot_pos"
     full = api.init_cache(1, max_seq, device=dev)[0]
-    clen = cache["attn_k"].shape[2]
-    full["mamba"] = cache["mamba"]
-    for key in ("attn_k", "attn_v"):
+    clen = cache[ring[0]].shape[2]
+    for key in set(full) - set(ring) - {pos_key}:
+        full[key] = cache[key]
+    for key in ring:
         full[key][:, :, :clen] = cache[key]
-    full["attn_slot_pos"][:, :clen] = cache["attn_slot_pos"]
+    full[pos_key][:, :clen] = cache[pos_key]
     return full
 
 
-def greedy_hold(dev, api, params, prompts, served: list, max_seq: int) -> dict:
+def greedy_hold(dev, api, params, prompts, served: list, max_seq: int,
+                features=None) -> dict:
     """The first request of the serve's first prefill batch (``prompts``,
-    [B, prompt_len]) replayed by a plain loop: one prefill of the batch,
-    then the model's decode on its own cache, one token at a time (batch
-    1), greedy. Its tokens against ``served`` up to the first near-tie."""
+    [B, prompt_len], with the batch's ``features`` where the family takes
+    them) replayed by a plain loop: one prefill of the batch, then the
+    model's decode on its own cache, one token at a time (batch 1),
+    greedy. Its tokens against ``served`` up to the first near-tie."""
     import torch
     with torch.no_grad():
-        logits, cache = api.prefill(params, {"tokens": prompts})
+        logits, cache = api.prefill(params, {"tokens": prompts,
+                                             **(features or {})})
         cache = narrow_batch(cache, api.family)
-        if api.family == "hybrid":
+        if api.family != "ssm":
             cache = grafted(api, cache, max_seq, dev)
         row = logits[0, -1].float()
         tokens, margins = [], []
@@ -3526,28 +3601,49 @@ def greedy_hold(dev, api, params, prompts, served: list, max_seq: int) -> dict:
             "equal": tokens == served, "min_margin": min(margins)}
 
 
+def model_forward(api, params, tokens, feats, return_cache=False):
+    """One forward of any family -> (logits, prefill cache or None);
+    ``feats`` holds the cross families' ``frames`` / ``cross_feats``."""
+    from repro_torch.models import encdec, hybrid, ssm
+    from repro_torch.models import transformer as tr
+    if api.family == "ssm":
+        out = ssm.lm_forward(params, tokens, api.cfg,
+                             return_cache=return_cache)
+        return out if return_cache else (out, None)
+    if api.family == "hybrid":
+        out = hybrid.forward(params, tokens, api.cfg,
+                             return_cache=return_cache)
+    elif api.family == "encdec":
+        out = encdec.forward(params, tokens, feats["frames"], api.cfg,
+                             return_cache=return_cache)
+    else:
+        out = tr.forward(params, tokens, api.cfg,
+                         cross_feats=feats.get("cross_feats"),
+                         return_cache=return_cache)
+    return out[0], (out[2] if return_cache else None)
+
+
 def full_forward_hold(dev, arch: str, params) -> dict:
     """fp32: prefill over HOLD_LEN - HOLD_DECODE tokens then HOLD_DECODE
-    decode steps, against one forward over all HOLD_LEN tokens (seed 3)."""
+    decode steps (on the ring grafted into a HOLD_LEN-row cache, where the
+    family has one), against one forward over all HOLD_LEN tokens (seed 3;
+    a cross family's features drawn after the tokens)."""
     import numpy as np
     import torch
     from repro_torch import configs as cfglib
     api = cfglib.get(arch).api(overrides={"dtype": torch.float32})
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, api.vocab_real, (1, HOLD_LEN)).astype(np.int32), device=dev)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, api.vocab_real, (1, HOLD_LEN))
+                           .astype(np.int32), device=dev)
+    feats = {k: torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=dev) for k, shape in cross_features(api).items()}
     n = HOLD_LEN - HOLD_DECODE
     with torch.no_grad():
-        if api.family == "hybrid":
-            from repro_torch.models import hybrid
-            full = hybrid.forward(params, toks, api.cfg)[0]
-            pre, _, cache = hybrid.forward(params, toks[:, :n], api.cfg,
-                                           return_cache=True)
+        full = model_forward(api, params, toks, feats)[0]
+        pre, cache = model_forward(api, params, toks[:, :n], feats,
+                                   return_cache=True)
+        if api.family != "ssm":
             cache = grafted(api, cache, HOLD_LEN, dev)
-        else:
-            from repro_torch.models import ssm
-            full = ssm.lm_forward(params, toks, api.cfg)
-            pre, cache = ssm.lm_forward(params, toks[:, :n], api.cfg,
-                                        return_cache=True)
         got = [pre]
         for pos in range(n, HOLD_LEN):
             logits, cache = api.decode(params, toks[:, pos:pos + 1], cache,
@@ -3768,6 +3864,311 @@ def add_ssm_rows(kernels: list, ssm: dict) -> None:
             "max_abs_err": errs[key]}
         if name == "fused_adam":
             entry["full_d_ssm"] = ssm["full_adam"]
+
+
+# -- phase 11: cross-attention -------------------------------------------------
+
+# whisper-base (encoder-decoder, arXiv:2212.04356: 6 + 6 layers, d_model
+# 512, 8 heads of 64 over 8 kv heads, d_ff 2,048, vocab 51,872 of which
+# 51,865 real, 1,500 frames of 512; 128,633,862 params) and
+# llama-3.2-vision-11b (hf:meta-llama/Llama-3.2-11B-Vision: 40 layers,
+# d_model 4,096, 32 heads of 128 over 8 kv heads, d_ff 14,336, vocab
+# 128,256, a gated cross layer after every 5th over 1,601 x 1,280 patch
+# features; 11,473,915,912 params), random weights from seed 0, features
+# from numpy. Every cross layer's gate starts at 0, where tanh(0) = 0 keeps
+# the features from every token, so the phase makes each init set it to
+# CROSS_GATE (``open_gates``): the train CLI's, the witness's and the
+# serves' alike.
+WHISPER_ARCH = "whisper-base"
+VISION_ARCH = "llama-3.2-vision-11b"
+CROSS_GATE = 0.5
+# paged_attention at the two families' self-attention head shapes (GQA
+# groups 1 and 4), 8 slots, wrapped rings, no window; fields as PAGED_GRID.
+CROSS_PAGED_GRID = (
+    ("whisper-base", (8, 8, 64), 8, 448, 6, 5, (0,)),
+    ("llama-3.2-vision-11b", (32, 8, 128), 8, 160, 40, 39, (0,)),
+)
+# Their timing cases (SERVE_TIMING's fields), mid-run in the serves below:
+# whisper 16 pages held (prompt 64 + up to 64 new tokens) at position 96 of
+# a 448-row ring (6 layers' blocks, 2.4 MB of K/V a call: a cycle of the
+# sets fits the 50 MB L2, so its reads come partly from L2); llama every
+# page of a 160-row ring at position 144.
+CROSS_TIMING = {
+    "whisper-base": dict(heads=(8, 8, 64), t=8, tokens=448, layers=6,
+                         held=16, pos=96),
+    "llama-3.2-vision-11b": dict(heads=(32, 8, 128), t=8, tokens=160,
+                                 layers=40, held=20, pos=144),
+}
+# whisper at full width and depth through the train CLI: sync, remat, B 8 x
+# 448 tokens (Whisper's decoder horizon) over 8 x 1,500 x 512 frames. Its
+# ring legs are danube's (TRAIN_LEGS, P = 2, s = 3, B 4) at seq 448 with
+# the depth cut to 3 + 3 of 6 + 6 layers: host-bound (~0.45 s a step at 6),
+# they took 95 s at full depth.
+WHISPER_FULL = dict(batch=8, seq=448, steps=4, timed=3, profile=2)
+WHISPER_RING = dict(TRAIN_RING, layers=3, seq=448)
+# llama-3.2-vision-11b at full width with 5 of 40 layers: one whole group
+# (5 self layers, then the cross layer), 2,353,582,081 params (9.4 GB a
+# copy).
+# Full depth needs params, two moments and gradients, 4 x 45.9 GB, which no
+# H100 holds. Sync, remat, B 4 x 512 over 4 x 1,601 x 1,280 features.
+VISION_TRAIN = dict(layers=5, batch=4, seq=512, steps=4, timed=3, profile=2)
+# The serves, bf16 compute over fp32 params, on the paged route (every self
+# layer through paged_attention; the cross K/V ride in each slot's resident
+# row): whisper 16 requests over 8 slots, prompts of 64, up to 64 new
+# tokens in a 448-row ring; llama 8 requests over 4 slots, prompts of 128,
+# 16-32 new tokens (its resident row per slot: 8 cross layers x 1,601 x 8 x
+# 128 x 2 fp32 floats, 105 MB, rewritten each step).
+WHISPER_SERVE = dict(arch=WHISPER_ARCH, n=16, new_tokens=(16, 64),
+                     serve_kw=dict(prompt_len=64, max_seq=448))
+VISION_SERVE = dict(arch=VISION_ARCH, n=8, new_tokens=(16, 32),
+                    serve_kw=dict(slots=4, prompt_len=128, max_seq=160,
+                                  prefill_batch=4))
+# The fp32 paged and gather routes on one prefill batch of each serve;
+# llama's at 10 of its 40 layers (two groups), as ROUTE_LAYERS cuts danube.
+VISION_ROUTE_LAYERS = 10
+
+
+@contextlib.contextmanager
+def open_gates():
+    """Within the block every cross layer is initialised with its gate at
+    CROSS_GATE (each model init reaches ``transformer._init_cross_layers``)."""
+    import torch
+    from repro_torch.models import transformer as tr
+    init = tr._init_cross_layers
+
+    def opened(gen, cfg, dev):
+        layers = init(gen, cfg, dev)
+        gate = layers["gate"]
+        layers["gate"] = gate._replace(
+            value=torch.full_like(gate.value, CROSS_GATE))
+        return layers
+
+    tr._init_cross_layers = opened
+    try:
+        yield
+    finally:
+        tr._init_cross_layers = init
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Within the block the caching allocator maps new memory into segments
+    that grow in place, so blocks freed by the backward pass cannot strand
+    memory that a [D] copy needs. At 2.35 B params the vision leg's fused
+    sync pass holds 8 [D] copies (70.2 of the card's 79.2 GiB); with
+    fixed segments ~9 GiB stayed reserved in split segments and the eighth
+    copy did not fit (PERF.md)."""
+    import torch
+    set_settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                           None) or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    set_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        set_settings("expandable_segments:False")
+
+
+def cross_features(api) -> dict:
+    """{feature name: batch-1 shape} of a family's prefill batch
+    (``frames`` or ``cross_feats``)."""
+    from repro_torch.configs.base import InputShape
+    spec = api.batch_spec(InputShape("serve", 1, 1, "prefill"))
+    return {k: shape for k, (shape, _) in spec.items() if k != "tokens"}
+
+
+def decoder_layers(api) -> int:
+    cfg = api.cfg.decoder_cfg() if api.family == "encdec" else api.cfg
+    return cfg.num_layers
+
+
+def cross_serve(dev, spec: dict) -> dict:
+    """One full-width serve of ``spec["arch"]`` on the paged route (bf16
+    compute over fp32 params from seed 0, gates open), each request with
+    its own features: the launch count (paged_attention once a self layer
+    a decode step, no other kernel), its profile, the greedy hold, the
+    fp32 full-forward hold, and the fp32 paged and gather routes on one
+    prefill batch (llama at VISION_ROUTE_LAYERS layers)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+
+    arch = spec["arch"]
+    api = cfglib.get(arch).api()
+    t0 = time.perf_counter()
+    params, _ = api.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tm.tree_leaves(params))
+    layers = decoder_layers(api)
+    feats = cross_features(api)
+    print(f"serve {arch}: {layers} decoder layers, {n_params} params fp32 "
+          f"(init {time.perf_counter() - t0:.1f} s), features {feats}, "
+          f"gates {CROSS_GATE}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kw = dict(arch=arch, n=spec["n"], new_tokens=spec["new_tokens"],
+              serve_kw=spec["serve_kw"], features=feats)
+    server, rep, launches, _ = serve_run(dev, params, paged="auto", **kw)
+    s = rep.summary()
+    cfg = server.cfg
+    reqs = serve_requests(api.vocab_real, spec["n"], spec["new_tokens"],
+                          prompt_len=cfg.prompt_len, features=feats)
+    gens = [r.max_new_tokens for r in reqs]
+    got = {r.rid: r.tokens for r in rep.completed}
+    if [len(got.get(i, ())) for i in range(spec["n"])] != gens:
+        raise AssertionError(f"serve {arch}: token counts {got} vs {gens}")
+    if not all(0 <= t < api.vocab_real for toks in got.values()
+               for t in toks):
+        raise AssertionError(f"serve {arch}: token outside the vocab")
+    others = {k: v for k, v in launches.items()
+              if k != "paged_attention" and v}
+    want = layers * rep.decode_steps
+    if server.paged_route != "paged" or launches["paged_attention"] != want \
+            or others:
+        raise AssertionError(f"serve {arch}: route {server.paged_route}, "
+                             f"launches {launches}, expected "
+                             f"paged_attention={want} and no other")
+    row = {"route": server.paged_route, "tokens_per_s": rep.tokens_per_s,
+           "ms_per_decode_step": 1e3 * rep.phase_s["decode"]
+           / rep.decode_steps,
+           "ttft_p50_s": s["ttft_p50_s"], "decode_steps": rep.decode_steps,
+           "joins": rep.joins, "prefill_calls": rep.prefill_calls,
+           "phase_s": rep.phase_s, "wall_s": rep.wall_s,
+           "tokens": rep.tokens_total, "launches": launches,
+           "resident_floats_per_slot": server.layout.res_width,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print(f"serve {arch} bf16 paged: {json.dumps(row)}")
+    row["profile"] = profile_decode(server, k=2, features=feats)
+    print(f"serve {arch} bf16 profile (2 decode steps, {cfg.slots} slots): "
+          f"{json.dumps(row['profile'])}")
+    first = reqs[:min(cfg.prefill_batch, cfg.slots)]
+    prompts = torch.as_tensor(np.stack([r.prompt for r in first]),
+                              dtype=torch.int32, device=dev)
+    spec_b = api.batch_spec(server._pshape)
+    batch_feats = {k: torch.as_tensor(np.concatenate(
+        [r.features[k] for r in first])).to(dev, spec_b[k][1]) for k in feats}
+    row["greedy"] = greedy_hold(dev, api, params, prompts, got[0],
+                                cfg.max_seq, features=batch_feats)
+    print(f"serve {arch}: request 0 against a plain token-by-token loop "
+          f"{json.dumps(row['greedy'])} (near-tie margin {GREEDY_MARGIN})")
+    del server, batch_feats
+    row["full_forward"] = full_forward_hold(dev, arch, params)
+    print(f"serve {arch}: fp32 prefill + decode vs one full forward "
+          f"{json.dumps(row['full_forward'])}")
+    over = {"dtype": torch.float32}
+    if api.family == "transformer":
+        over["num_layers"] = VISION_ROUTE_LAYERS
+    route_layers = over.get("num_layers", layers)
+    route_kw = dict(kw, n=cfg.slots, record=True, overrides=over)
+    runs = {}
+    for mode in ("on", "off"):
+        srv, rrep, rl, steps = serve_run(dev, params, paged=mode, **route_kw)
+        want = route_layers * rrep.decode_steps if mode == "on" else 0
+        if rl["paged_attention"] != want or any(
+                v for k, v in rl.items() if k != "paged_attention"):
+            raise AssertionError(f"serve {arch} fp32 paged={mode}: launches "
+                                 f"{rl}, expected paged_attention={want}")
+        runs[mode] = (srv.layout.tokens, rrep, steps, rl)
+        del srv
+    row["routes"] = compare_routes(
+        f"{arch} fp32, {route_layers} layers", runs["on"][1], runs["on"][2],
+        runs["off"][1], runs["off"][2], runs["on"][0],
+        prompt_len=cfg.prompt_len)
+    row["routes"]["layers"] = route_layers
+    row["route_launches"] = {"paged": runs["on"][3],
+                             "gather": runs["off"][3]}
+    row["n_params"] = n_params
+    del params, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def cross_path(dev, tmp: str) -> dict:
+    """Phase 11: paged_attention held and timed at the two families' head
+    shapes; whisper-base at full width and depth trained through the CLI
+    (sync, kernels on, off, witness) and its ring legs; llama-3.2-vision-11b
+    at 5 of 40 layers trained in sync; both served at full width and depth
+    on the paged route. Every cross gate opens at CROSS_GATE."""
+    import gc
+    import torch
+    from repro_torch import configs as cfglib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cross phase: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          "allocated at its start")
+    failures = []
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"cross phase: {what} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    out = {"paged_errs": paged_kernel_checks(dev, CROSS_PAGED_GRID)["by_shape"]}
+    out["paged_timings"] = {}
+    for arch, case in CROSS_TIMING.items():
+        out["paged_timings"].update(paged_timings(
+            dev, case, name=f"paged_attention {arch}"))
+    lap("paged_attention at the two head shapes")
+    with open_gates():
+        out["whisper full"] = full_leg(dev, WHISPER_ARCH, WHISPER_FULL,
+                                       "full whisper", failures)
+        lap("the full whisper leg")
+        out["whisper ring"] = ring_legs(dev, tmp, failures,
+                                        arch_id=WHISPER_ARCH, r=WHISPER_RING,
+                                        legs=TRAIN_LEGS)
+        lap("the whisper ring legs")
+        vision = cut_arch(VISION_ARCH, VISION_TRAIN["layers"])
+        n = cfglib.count_params(cfglib.get(vision).api())
+        print(f"vision leg: {n} params at {VISION_TRAIN['layers']} layers "
+              f"({n * 4 / 1e9:.1f} GB a fp32 copy)")
+        with expandable_segments():
+            out["vision"] = full_leg(
+                dev, vision, VISION_TRAIN,
+                f"vision {VISION_TRAIN['layers']} layers", failures)
+        lap("the vision leg")
+        for name, spec in (("whisper", WHISPER_SERVE),
+                           ("vision", VISION_SERVE)):
+            try:
+                out[f"serve {name}"] = cross_serve(dev, spec)
+            except AssertionError as err:
+                failures.append(str(err))
+            lap(f"the {name} serve")
+    if failures:
+        raise AssertionError("cross phase: " + "; ".join(failures))
+    return out
+
+
+def add_cross_rows(kernels: list, cross: dict) -> None:
+    """Beside each kernel, its launches on every run of the cross phase;
+    beside paged_attention, its times and errors at the two head shapes."""
+    legs = {"full whisper": cross["whisper full"]["launches"],
+            "vision": cross["vision"]["launches"]}
+    ring = cross["whisper ring"]
+    legs.update({f"{ring['arch']} {name}": row["launches"]
+                 for name, row in ring.items()
+                 if isinstance(row, dict) and "launches" in row})
+    for name in ("whisper", "vision"):
+        serve = cross[f"serve {name}"]
+        legs[f"serve {name} bf16 paged"] = serve["launches"]
+        for route, c in serve["route_launches"].items():
+            legs[f"serve {name} fp32 {route}"] = c
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_cross"] = {
+            leg: sum(n for k, n in c.items() if k.split(".")[0] == name)
+            for leg, c in legs.items()}
+        if name == "paged_attention":
+            entry["cross_shapes"] = {
+                arch: dict({k: cross["paged_timings"][
+                    f"paged_attention {arch}"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "bf16_wrapper_ms")},
+                    max_abs_err=cross["paged_errs"][arch]["fp32"],
+                    max_abs_err_bf16=cross["paged_errs"][arch]["bf16"])
+                for arch in CROSS_TIMING}
 
 
 def blocks_per_sm(regs: int, threads: int = 256) -> int:
@@ -3998,6 +4399,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ssm = ssm_path(dev, tmp)
 
+    # Cross-attention: paged_attention at whisper's and llama-vision's head
+    # shapes, whisper-base trained at full width and depth (sync and the
+    # ring legs) and llama-3.2-vision-11b at 5 of 40 layers, both served at
+    # full width and depth on the paged route.
+    with tempfile.TemporaryDirectory() as tmp:
+        cross = cross_path(dev, tmp)
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
     kernels.append(coherence_entry(timings, coh, coh_err))
@@ -4005,6 +4413,7 @@ def main() -> int:
     kernels.append(flash_entry(train))
     add_lm_rows(kernels, train)
     add_ssm_rows(kernels, ssm)
+    add_cross_rows(kernels, cross)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -4033,6 +4442,7 @@ def main() -> int:
     print(json.dumps({"ssm": without_profiles(
         {k: v for k, v in ssm.items() if k not in ("lm", "full_adam")})},
         default=str))
+    print(json.dumps({"cross": without_profiles(cross)}, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

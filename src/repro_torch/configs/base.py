@@ -1,11 +1,10 @@
 """Architecture registry plumbing (port of ``repro/configs/base.py``): input
 shapes, the uniform model API and ``ArchDef``.
 
-The transformer, SSM and hybrid families are ported (``transformer_api``,
-``ssm_api``, ``hybrid_api``); an arch of another family (encdec) keeps its
-registry entry and raises ``NotImplementedError`` from ``api()`` (ROADMAP
-A.10). ``init`` and ``init_cache`` take a ``device``: CUDA unless the
-caller passes ``device="cpu"`` (``"meta"`` makes shapes only).
+All four families are ported (``transformer_api``, ``ssm_api``,
+``hybrid_api``, ``encdec_api``). ``init`` and ``init_cache`` take a
+``device``: CUDA unless the caller passes ``device="cpu"`` (``"meta"``
+makes shapes only).
 """
 from __future__ import annotations
 
@@ -58,12 +57,22 @@ def _token_spec(shape: InputShape):
 
 
 def transformer_api(cfg) -> ModelAPI:
+    """Dense and MoE transformers; a cross-attention model (the VLM) also
+    takes ``cross_feats`` ``[B, cross_tokens, cross_dim]`` in its batch."""
     from repro_torch.models import transformer as tr
 
     def prefill(params, batch):
         logits, _aux, cache = tr.forward(params, batch["tokens"], cfg,
+                                         cross_feats=batch.get("cross_feats"),
                                          return_cache=True)
         return logits[:, -1:], cache
+
+    def batch_spec(shape: InputShape):
+        spec = _token_spec(shape)
+        if cfg.num_cross_layers:
+            spec["cross_feats"] = ((shape.global_batch, cfg.cross_tokens,
+                                    cfg.cross_dim), cfg.dtype)
+        return spec
 
     return ModelAPI(
         family="transformer", cfg=cfg,
@@ -76,7 +85,7 @@ def transformer_api(cfg) -> ModelAPI:
             tr.decode_step_paged(params, token, cache, pos, kv, cfg),
         init_cache=lambda b, s, device=None: tr.init_cache(cfg, b, s,
                                                            device=device),
-        batch_spec=_token_spec,
+        batch_spec=batch_spec,
         vocab_real=cfg.vocab_real,
     )
 
@@ -131,19 +140,52 @@ def hybrid_api(cfg) -> ModelAPI:
     )
 
 
+def encdec_api(cfg) -> ModelAPI:
+    """The Whisper-style encoder-decoder: its batch carries ``frames``
+    ``[B, num_frames, d_model]`` beside the tokens; the decoder's cross K/V
+    ride in the cache as ``xk``/``xv``, so it serves on the paged route."""
+    from repro_torch.models import encdec
+
+    def prefill(params, batch):
+        logits, _aux, cache = encdec.forward(
+            params, batch["tokens"], batch["frames"], cfg, return_cache=True)
+        return logits[:, -1:], cache
+
+    def batch_spec(shape: InputShape):
+        spec = _token_spec(shape)
+        spec["frames"] = ((shape.global_batch, cfg.num_frames, cfg.d_model),
+                          cfg.dtype)
+        return spec
+
+    return ModelAPI(
+        family="encdec", cfg=cfg,
+        init=lambda seed, device=None: encdec.init(seed, cfg, device=device),
+        loss=lambda params, batch: encdec.loss_fn(params, batch, cfg),
+        prefill=prefill,
+        decode=lambda params, token, cache, pos: encdec.decode_step(
+            params, token, cache, pos, cfg),
+        decode_paged=lambda params, token, cache, pos, kv:
+            encdec.decode_step_paged(params, token, cache, pos, kv, cfg),
+        init_cache=lambda b, s, device=None: encdec.init_cache(
+            cfg, b, s, device=device),
+        batch_spec=batch_spec,
+        vocab_real=cfg.vocab_real,
+    )
+
+
 _API_BUILDERS = {"transformer": transformer_api, "ssm": ssm_api,
-                 "hybrid": hybrid_api}
+                 "hybrid": hybrid_api, "encdec": encdec_api}
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchDef:
     """One assigned architecture. ``make_config(reduced, long_ctx)`` returns
-    the family config (None for an arch whose family is not ported)."""
+    the family config."""
     arch_id: str
     family: str                 # transformer | ssm | hybrid | encdec
     arch_type: str              # dense | moe | ssm | hybrid | audio | vlm
     citation: str
-    make_config: Optional[Callable[..., Any]] = None
+    make_config: Callable[..., Any]
     notes: str = ""
     train_optimizer: str = "adam"
     stale_s_default: int = 4
@@ -154,10 +196,6 @@ class ArchDef:
 
     def api(self, reduced: bool = False, long_ctx: bool = False,
             overrides: Optional[dict] = None) -> ModelAPI:
-        if self.make_config is None or self.family not in _API_BUILDERS:
-            raise NotImplementedError(
-                f"arch {self.arch_id!r} ({self.family}, {self.arch_type}) is "
-                "not ported yet (ROADMAP A.10, the language-model stack)")
         cfg = self.make_config(reduced=reduced, long_ctx=long_ctx)
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)

@@ -438,7 +438,10 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     if fused:
         _require_adam(optimizer, "fused=True")
 
-    def fused_tail(state, loss, gvec, comp):
+    def fused_tail(state, loss, box, comp):
+        # The packed gradient arrives in a one-element list, so that no
+        # frame keeps it once the pass has read it.
+        gvec = box.pop()
         spec = tm.pack_spec(state.params)
         dev = gvec.device
         cmetrics = {}
@@ -476,6 +479,8 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
             dneg, m2, v2 = dispatch.fused_adam(pzero, m, v, gvec, eta,
                                                osp["b1"], osp["b2"],
                                                osp["eps"], ostep)
+        # At full width every [D] copy alive beside the new params counts.
+        del gvec, pzero
         delta = _adam_delta(dneg, spec, state.params, factor, eta,
                             osp["weight_decay"])
         new_state = SyncTrainState(
@@ -491,14 +496,15 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
         if fused:
             # Pack, then drop the gradient tree before the fused pass: at
             # full width every [D] copy the tail holds at once counts.
-            gvec = tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN)
+            box = [tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN)]
             del grads
-            return fused_tail(state, loss, gvec, comp)
+            return fused_tail(state, loss, box, comp)
         cmetrics = {}
         if compensator is not None:
             grads, comp, cmetrics = compensator.sparsify_tree(comp, grads)
         delta, opt_state = optimizer.update(grads, state.opt_state,
                                             state.params)
+        del grads
         if compensator is not None and compensator.scales:
             factor = compensator.lr_factor(comp, 0.0, state.step)
             delta = compensator.scale_tree(delta, factor)

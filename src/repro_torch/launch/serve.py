@@ -21,6 +21,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.configs.base import InputShape
 from repro_torch.serving import Request, Server, ServingConfig
 
 
@@ -76,12 +77,21 @@ def main(argv=None):
                                   every_steps=args.refresh_every,
                                   base_step=base_step)
 
+    # Each request's features (enc-dec frames, VLM patch features) are
+    # drawn before its prompt, as the JAX CLI draws them.
+    spec = api.batch_spec(InputShape("serve_request", args.prompt_len, 1,
+                                     "prefill"))
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=rid,
-                    prompt=rng.integers(0, api.vocab_real,
-                                        (args.prompt_len,)).astype(np.int32),
-                    max_new_tokens=args.gen)
-            for rid in range(args.batch)]
+    reqs = []
+    for rid in range(args.batch):
+        features = {name: rng.standard_normal(shape).astype(np.float32)
+                    for name, (shape, _) in sorted(spec.items())
+                    if name != "tokens"}
+        reqs.append(Request(
+            rid=rid,
+            prompt=rng.integers(0, api.vocab_real,
+                                (args.prompt_len,)).astype(np.int32),
+            max_new_tokens=args.gen, features=features or None))
 
     report = server.run(reqs)
     rep = server.dispatch_report()

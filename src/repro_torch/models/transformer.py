@@ -1,7 +1,7 @@
-"""Decoder transformer, the self-attention path (port of
-``repro/models/transformer.py``).
+"""Decoder transformer (port of ``repro/models/transformer.py``).
 
-Dense or MoE FFN, GQA, qk-norm, RoPE and the sliding window, with the
+Dense or MoE FFN, GQA, qk-norm, RoPE, the sliding window and periodic
+tanh-gated cross-attention (the VLM / encoder-decoder bridge), with the
 reference's parameter and cache layouts kept as they are so that
 ``convert.params_from_jax`` and the checkpoint format carry over unchanged:
 
@@ -11,15 +11,22 @@ reference's parameter and cache layouts kept as they are so that
   * KV caches are ring buffers ``k``/``v`` ``[L, B, C, Hkv, hd]`` with an
     explicit per-row absolute-position array ``slot_pos`` ``[L, C]``
     (-1 = empty); one code path serves full-causal and sliding-window
-    attention, prefill and single-token decode.
+    attention, prefill and single-token decode;
+  * with ``cross_attn_period`` every ``period``-th layer is followed by a
+    cross layer (``params["cross_layers"]``, stacked ``[num_cross, ...]``:
+    ``ln1``, ``xattn``, ``ln2``, ``mlp`` and a scalar ``gate``, 0 at init,
+    that scales the cross-attention through ``tanh``). Layers after the
+    last full group run as a tail with no cross layer. The cross K/V of
+    the features are computed once at prefill and kept in the cache as
+    ``xk``/``xv`` ``[num_cross, B, cross_tokens, Hkv, hd]``.
 
 ``cfg.remat`` recomputes each layer's activations in the backward pass
 (``torch.utils.checkpoint`` per layer, as the JAX package wraps each scanned
 layer in ``jax.checkpoint``): it changes no number, only the memory a
-training step holds. The MoE FFN (``models/moe.py``) runs its one-device
-path. Periodic cross-attention raises ``NotImplementedError`` (ROADMAP
-A.10); ``cfg.tp`` and the attention sharding modes matter only to multi-GPU
-placement (A.12).
+training step holds; each cross layer is recomputed as one unit, as the
+JAX package checkpoints its ``run_cross``. The MoE FFN (``models/moe.py``)
+runs its one-device path. ``cfg.tp`` and the attention sharding modes
+matter only to multi-GPU placement (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -36,11 +43,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
 NEG_INF = -1e9
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A.10, the language-model stack)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +72,9 @@ class TransformerConfig:
     swa_window: Optional[int] = None     # sliding-window size (None = full)
     moe: Optional[MoESettings] = None
     causal: bool = True                  # False => encoder (bidirectional)
-    cross_attn_period: Optional[int] = None  # not ported (A.10)
-    cross_tokens: int = 0
-    cross_dim: int = 0
+    cross_attn_period: Optional[int] = None  # every Nth layer cross-attends
+    cross_tokens: int = 0                # encoder/vision sequence length
+    cross_dim: int = 0                   # encoder/vision feature dim
     tp: int = 16
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
@@ -104,11 +106,6 @@ class TransformerConfig:
         return self.num_layers // self.cross_attn_period
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.num_cross_layers:
-        raise _not_ported("periodic cross-attention (cross_attn_period)")
-
-
 # ---------------------------------------------------------------- init -----
 
 def _attn_axes(cfg: TransformerConfig):
@@ -123,15 +120,18 @@ def _attn_axes(cfg: TransformerConfig):
             (None, "head_dim_sharded", "embed"))
 
 
-def _init_attention(gen, cfg: TransformerConfig, dev, lead=()):
-    """One attention block's Params (``lead`` prepends stacked axes)."""
+def _init_attention(gen, cfg: TransformerConfig, dev, lead=(),
+                    cross: bool = False):
+    """One attention block's Params (``lead`` prepends stacked axes). A
+    cross block's K/V project from ``cross_dim`` features."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_in = cfg.cross_dim if cross else d
     q_axes, kv_axes, o_axes = _attn_axes(cfg)
     dense = lambda shape, axes, **kw: L.dense_init(
         gen, shape, axes, dtype=cfg.param_dtype, device=dev, lead=lead, **kw)
     attn = {"wq": dense((d, h, hd), q_axes),
-            "wk": dense((d, hkv, hd), kv_axes),
-            "wv": dense((d, hkv, hd), kv_axes),
+            "wk": dense((kv_in, hkv, hd), kv_axes),
+            "wv": dense((kv_in, hkv, hd), kv_axes),
             "wo": dense((h, hd, d), o_axes, in_axis=-1)}
     if cfg.qk_norm:
         for name in ("q_norm", "k_norm"):
@@ -167,12 +167,25 @@ def _init_layers(gen, cfg: TransformerConfig, dev):
     return layer
 
 
+def _init_cross_layers(gen, cfg: TransformerConfig, dev):
+    """All ``num_cross_layers`` cross layers at once, stacked; each
+    ``gate`` starts at 0, so an initialised model ignores its features."""
+    d, pdt = cfg.d_model, cfg.param_dtype
+    lead = (cfg.num_cross_layers,)
+    scale = lambda shape, axes, value=1.0: L.scale_init(
+        lead + shape, axes, value=value, dtype=pdt, device=dev)
+    return {"ln1": scale((d,), ("embed",)),
+            "xattn": _init_attention(gen, cfg, dev, lead, cross=True),
+            "ln2": scale((d,), ("embed",)),
+            "mlp": _init_dense_ffn(gen, cfg, dev, lead),
+            "gate": scale((), (), value=0.0)}
+
+
 def init(key, cfg: TransformerConfig, device=None) -> Tuple[Any, Any]:
     """Returns (params, axes), parallel trees. ``key`` is an int seed or a
     ``torch.Generator`` on ``device`` (CUDA unless ``device="cpu"``; on
     ``"meta"`` only shapes are made). The draws differ from ``jax.random``'s;
     carry JAX's weights over with ``convert.params_from_jax``."""
-    _check_supported(cfg)
     dev = device_lib.resolve(device)
     gen = device_lib.init_generator(key, dev)
     pdt = cfg.param_dtype
@@ -186,6 +199,10 @@ def init(key, cfg: TransformerConfig, device=None) -> Tuple[Any, Any]:
               "final_ln": final_ln.value, "layers": layer_values}
     axes = {"embed": emb.axes, "head": head.axes, "final_ln": final_ln.axes,
             "layers": L.stacked_axes(layer_axes)}
+    if cfg.num_cross_layers:
+        params["cross_layers"], cross_axes = L.unzip(
+            _init_cross_layers(gen, cfg, dev))
+        axes["cross_layers"] = L.stacked_axes(cross_axes)
     return params, axes
 
 
@@ -199,7 +216,6 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
                device=None):
     """Ring-buffer KV cache + per-row absolute positions (-1 = empty).
     Returns (cache, axes)."""
-    _check_supported(cfg)
     dev = device_lib.resolve(device)
     clen = cache_len(cfg, seq_len)
     hkv, hd, nl = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
@@ -215,6 +231,15 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
         "slot_pos": torch.full((nl, clen), -1, dtype=torch.int32, device=dev),
     }
     axes = {"k": kv_axes, "v": kv_axes, "slot_pos": ("layers", None)}
+    if cfg.num_cross_layers:
+        # The features' K/V: their length does not grow with seq_len, so
+        # the serving plane keeps them in a slot's resident row.
+        x_axes = ("layers", "cache_batch", None,
+                  "kv_heads" if cfg.num_kv_heads % cfg.tp == 0 else None, None)
+        xshape = (cfg.num_cross_layers, batch, cfg.cross_tokens, hkv, hd)
+        for name in ("xk", "xv"):
+            cache[name] = torch.zeros(xshape, dtype=cfg.dtype, device=dev)
+            axes[name] = x_axes
     return cache, axes
 
 
@@ -335,26 +360,81 @@ def _self_attention_decode(p, x, cache_k, cache_v, slot_pos, pos: int,
     return y, (ck, cv, spos)
 
 
+def _cross_attention(p, x, xk, xv, cfg: TransformerConfig):
+    """Cross-attend to precomputed feature K/V ``[B, T, Hkv, hd]``; x
+    ``[B, S, d]``. Every query sees every feature token."""
+    dt = cfg.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if cfg.qk_norm and "q_norm" in p:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    mask = torch.ones((1, x.shape[1], xk.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _attend(q, xk, xv, mask, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
+def _cross_kv(p, feats, cfg: TransformerConfig):
+    """The features' K/V ``[B, T, Hkv, hd]`` for one cross layer."""
+    dt = cfg.dtype
+    k = torch.einsum("bsd,dhk->bshk", feats.to(dt), p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", feats.to(dt), p["wv"].to(dt))
+    if cfg.qk_norm and "k_norm" in p:
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def _cross_decode_apply(h, xp, xk, xv, cfg: TransformerConfig):
+    """One cross layer over prefilled feature K/V (decode, and the second
+    half of :func:`_cross_body`): the tanh-gated cross-attention residual,
+    then a dense SwiGLU FFN residual (dense even in an MoE model)."""
+    a_in = L.rms_norm(h, xp["ln1"], cfg.norm_eps)
+    x_out = _cross_attention(xp["xattn"], a_in, xk, xv, cfg)
+    h = h + torch.tanh(xp["gate"]).to(h.dtype) * x_out
+    f_in = L.rms_norm(h, xp["ln2"], cfg.norm_eps)
+    return h + _dense_ffn(xp["mlp"], f_in, cfg)
+
+
+def _cross_body(h, xp, feats, cfg: TransformerConfig):
+    """One cross layer over the full sequence -> (h, xk, xv)."""
+    xk, xv = _cross_kv(xp["xattn"], feats, cfg)
+    return _cross_decode_apply(h, xp, xk, xv, cfg), xk, xv
+
+
 # --------------------------------------------------------------- ffn -------
+
+def _dense_ffn(p, x, cfg: TransformerConfig):
+    dt = cfg.dtype
+    gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
+    up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    return torch.einsum("bsf,fd->bsd", L.swiglu(gate, up), p["w_down"].to(dt))
+
 
 def _ffn(p_layer, x, cfg: TransformerConfig):
     """-> (y, aux loss): the MoE FFN's load-balance loss, 0 for a dense
     FFN."""
     if cfg.moe is not None:
         return moe_lib.moe_ffn(p_layer["moe"], x, cfg.moe, cfg.dtype)
-    p = p_layer["mlp"]
-    dt = cfg.dtype
-    gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
-    up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
-    y = torch.einsum("bsf,fd->bsd", L.swiglu(gate, up), p["w_down"].to(dt))
-    return y, torch.zeros((), device=x.device)
+    return (_dense_ffn(p_layer["mlp"], x, cfg),
+            torch.zeros((), device=x.device))
 
 
 # ----------------------------------------------------------- forward -------
 
-def _layer(params, i: int):
-    """Layer ``i``'s params: index ``i`` of every stacked leaf."""
-    return tm.tree_map(lambda x: x[i], params["layers"])
+def _layer(params, i: int, stack: str = "layers"):
+    """Layer ``i``'s params: index ``i`` of every stacked leaf of
+    ``params[stack]``."""
+    return tm.tree_map(lambda x: x[i], params[stack])
+
+
+def _cross_after(cfg: TransformerConfig, i: int) -> Optional[int]:
+    """The cross layer that follows self layer ``i``, or None. Self layers
+    run in groups of ``cross_attn_period``, each followed by its cross
+    layer; the ``num_layers % period`` after the last group are a tail
+    (the JAX package's grouped scan, in the same order)."""
+    period = cfg.cross_attn_period
+    if cfg.num_cross_layers and (i + 1) % period == 0:
+        return (i + 1) // period - 1
+    return None
 
 
 def _logits(params, h, cfg: TransformerConfig):
@@ -381,27 +461,32 @@ def _layer_body(h, lp, positions, cfg: TransformerConfig):
 def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
             return_cache: bool = False):
     """Full-sequence forward. tokens [B,S] -> (logits [B,S,V], aux loss),
-    plus a prefill cache with ``return_cache=True``."""
-    _check_supported(cfg)
+    plus a prefill cache with ``return_cache=True``. ``cross_feats``
+    ``[B, cross_tokens, cross_dim]`` feeds the cross layers."""
     b, s = tokens.shape
     h = params["embed"].to(cfg.dtype)[tokens.long()]
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     # With remat each layer keeps only its input for the backward pass and
     # runs again there (only while autograd records).
     remat = cfg.remat and torch.is_grad_enabled()
-    ks, vs = [], []
+    run = lambda body, h: (torch.utils.checkpoint.checkpoint(
+        body, h, use_reentrant=False) if remat else body(h))
+    ks, vs, xks, xvs = [], [], [], []
     aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        body = lambda h, lp=lp: _layer_body(h, lp, positions, cfg)
-        if remat:
-            h, k, v, layer_aux = torch.utils.checkpoint.checkpoint(
-                body, h, use_reentrant=False)
-        else:
-            h, k, v, layer_aux = body(h)
+        h, k, v, layer_aux = run(
+            lambda h, lp=lp: _layer_body(h, lp, positions, cfg), h)
         aux = aux + layer_aux
         ks.append(k)
         vs.append(v)
+        g = _cross_after(cfg, i)
+        if g is not None:
+            xp = _layer(params, g, "cross_layers")
+            h, xk, xv = run(
+                lambda h, xp=xp: _cross_body(h, xp, cross_feats, cfg), h)
+            xks.append(xk)
+            xvs.append(xv)
     logits = _logits(params, h, cfg)
     if not return_cache:
         return logits, aux
@@ -418,13 +503,15 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
         "slot_pos": last_pos.to(torch.int32)[None].expand(
             cfg.num_layers, clen).contiguous(),
     }
+    if xks:                                   # [num_cross, B, T, Hkv, hd]
+        cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
     return logits, aux, cache
 
 
 def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
     """One-token decode. token [B,1] int; ``pos`` the shared absolute
-    position (an int). Returns (logits [B,1,V], new_cache)."""
-    _check_supported(cfg)
+    position (an int). The cross layers read the prefilled ``xk``/``xv``,
+    which pass through unchanged. Returns (logits [B,1,V], new_cache)."""
     pos = int(pos)
     h = params["embed"].to(cfg.dtype)[token.long()]
     nk, nv, nspos = [], [], []
@@ -440,8 +527,12 @@ def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
         nk.append(ck)
         nv.append(cv)
         nspos.append(spos)
-    new_cache = {"k": torch.stack(nk), "v": torch.stack(nv),
-                 "slot_pos": torch.stack(nspos)}
+        g = _cross_after(cfg, i)
+        if g is not None:
+            h = _cross_decode_apply(h, _layer(params, g, "cross_layers"),
+                                    cache["xk"][g], cache["xv"][g], cfg)
+    new_cache = dict(cache, k=torch.stack(nk), v=torch.stack(nv),
+                     slot_pos=torch.stack(nspos))
     return _logits(params, h, cfg), new_cache
 
 
@@ -450,20 +541,24 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
 
     token [S,1] int; pos [S] int (one absolute position per slot, so one
     call serves a whole continuous batch). ``cache`` carries only the
-    length-independent leaves (none for this dense model: its K/V ring
-    leaves arrive as ``None``; their data lives in the page pool behind
-    ``kv``, a ``serving.cache.PagedKV``). Each layer's attention goes
-    through ``kv.attend`` (the CUDA page-table kernel, or its plain version
-    on the CPU; both take the softmax in fp32, as the Pallas kernel does,
-    whatever ``attn_softmax_dtype`` says). Returns (logits [S,1,V], the one-token cache update: k/v
-    ``[S, L, 1, 1, Hkv, hd]`` and slot_pos ``[S, L, 1]``, ready for the
-    serve step's single-row page scatter)."""
-    _check_supported(cfg)
+    length-independent leaves: the K/V ring leaves arrive as ``None``
+    (their data lives in the page pool behind ``kv``, a
+    ``serving.cache.PagedKV``), and a cross model's ``xk``/``xv`` arrive
+    slot-stacked from the resident rows, ``[S, num_cross, 1, T, Hkv, hd]``,
+    and are handed back unchanged. Each self layer's attention goes through
+    ``kv.attend`` (the CUDA page-table kernel, or its plain version on the
+    CPU; both take the softmax in fp32, as the Pallas kernel does, whatever
+    ``attn_softmax_dtype`` says). Returns (logits [S,1,V], the one-token
+    cache update: k/v ``[S, L, 1, 1, Hkv, hd]`` and slot_pos ``[S, L, 1]``,
+    ready for the serve step's single-row page scatter)."""
     s = token.shape[0]
     h = params["embed"].to(cfg.dtype)[token.long()]
     cos, sin = L.rotary(cfg.rope_theta, pos, cfg.head_dim)   # [S, hd/2]
     cos, sin = cos[:, None], sin[:, None]                    # [S, 1, hd/2]
     window = cfg.swa_window or 0
+    if cfg.num_cross_layers:                  # -> [num_cross, S, T, ...]
+        xk_s = torch.movedim(cache["xk"], 0, 1)[:, :, 0]
+        xv_s = torch.movedim(cache["xv"], 0, 1)[:, :, 0]
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
@@ -480,12 +575,18 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
         h = h + _ffn(lp, f_in, cfg)[0]
         ks.append(kc)
         vs.append(vc)
+        g = _cross_after(cfg, i)
+        if g is not None:
+            h = _cross_decode_apply(h, _layer(params, g, "cross_layers"),
+                                    xk_s[g], xv_s[g], cfg)
     new_cache = {
         "k": torch.stack(ks, dim=1)[:, :, None, None],
         "v": torch.stack(vs, dim=1)[:, :, None, None],
         "slot_pos": pos.to(torch.int32)[:, None, None].expand(
             s, cfg.num_layers, 1).contiguous(),
     }
+    if cfg.num_cross_layers:
+        new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
     return _logits(params, h, cfg), new_cache
 
 
@@ -504,7 +605,8 @@ def sharded_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
-    """Next-token CE. batch: {"tokens": [B, S+1]}."""
+    """Next-token CE. batch: {"tokens": [B, S+1], optional
+    "cross_feats"}."""
     tokens = batch["tokens"].long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, inputs, cfg,

@@ -249,16 +249,28 @@ class Server:
 
     def _prefill_inputs(self, reqs: Sequence[Request],
                         length: int) -> Dict[str, torch.Tensor]:
-        spec = self.api.batch_spec(self._pshape)
-        extra = sorted(set(spec) - {"tokens"})
-        if extra:
-            raise NotImplementedError(
-                f"prefill features {extra} are not ported yet (ROADMAP A.10)")
+        """The prefill batch: padded prompts, plus every extra feature of
+        the family's batch spec (enc-dec ``frames``, VLM ``cross_feats``):
+        a request's ``features[name]`` where it has one, else zeros of the
+        spec's batch-1 shape, concatenated over the requests."""
         prompts = np.zeros((len(reqs), length), np.int32)
         for b, r in enumerate(reqs):
             n = min(len(r.prompt), length)
             prompts[b, :n] = np.asarray(r.prompt[:n], np.int32)
-        return {"tokens": torch.as_tensor(prompts, device=self.device)}
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        spec = self.api.batch_spec(self._pshape)
+        for name, (shape, dtype) in spec.items():
+            if name == "tokens":
+                continue
+            rows = []
+            for r in reqs:
+                feat = (r.features or {}).get(name)
+                rows.append(torch.zeros(shape, dtype=dtype, device=self.device)
+                            if feat is None else
+                            torch.as_tensor(np.asarray(feat)).to(self.device,
+                                                                 dtype))
+            batch[name] = torch.cat(rows, dim=0)
+        return batch
 
     def _sample_first(self, logits: torch.Tensor, rid: int) -> int:
         row = logits[0, -1].float()

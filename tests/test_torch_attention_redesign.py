@@ -38,6 +38,10 @@ from repro.kernels import flash_attention as jfl
 from repro.kernels import ref as jref
 from repro_torch.kernels import paged_attention as tpa
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 # One bf16 rounding of the output (chip_smoke.py's TOL_FLASH_BF16).
 TOL_FLASH_BF16 = dict(rtol=2 ** -7, atol=1e-5)
 TOL_PAGED = 1e-5

@@ -29,6 +29,10 @@ from repro_torch.engine import (CheckpointHook, EngineConfig, Trainer,
                                 build_engine)
 from repro_torch.optim import sgd
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 
 def _tree(k: float):
     return {"w": torch.full((64, 8), k), "b": torch.full((8,), k)}

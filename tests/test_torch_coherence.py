@@ -22,6 +22,10 @@ from repro_torch.core import coherence as tcoh
 from repro_torch.kernels import dispatch
 from repro_torch.models import mlp as tmlp
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 

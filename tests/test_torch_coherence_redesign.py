@@ -37,6 +37,10 @@ from repro.kernels import coherence as jkco
 from repro.kernels import ref as jref
 from repro_torch.kernels import coherence as tco
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 COHERENCE_C = 64
 WARP = 32
 WARPS = tco.THREADS // WARP

@@ -20,6 +20,10 @@ from repro_torch.engine import EngineConfig, build_engine
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import sgd
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 
 def test_parse_compress_grammar_matches_jax():
     for text in ("none", None, "topk:0.1", "topk:128", "thresh:0.05",

@@ -390,6 +390,36 @@ def test_paged_attention_kernel_bf16(cuda_device, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,tokens,layers", [((8, 8, 64), 448, 6),
+                                                 ((32, 8, 128), 160, 40)])
+def test_paged_attention_cross_family_heads(cuda_device, heads, tokens,
+                                            layers, dtype):
+    """The self-attention head shapes of whisper-base (8/8/64, GQA group 1)
+    and llama-3.2-vision-11b (32/8/128) at their serves' ring lengths and
+    depths, last layer's columns, 8 slots with wrapped rings, a lazy and an
+    empty slot: fp32 within TOL_PAGED of the plain version, bf16 within one
+    output rounding of the plain version on the upcast operands; two calls
+    bitwise."""
+    h, hkv, hd = heads
+    c = _paged_case(cuda_device, h=h, hkv=hkv, hd=hd, t=8, tokens=tokens,
+                    layers=layers, layer=layers - 1, dtype=dtype,
+                    seed=tokens + layers)
+    assert int(c["pos"].max()) >= tokens            # a wrapped ring
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*_paged_args(c), **c["kw"])
+    assert tpa.paged_attention.launches == before + 1
+    assert got.dtype == dtype
+    up = dict(c, q=c["q"].float(), k_new=c["k_new"].float(),
+              v_new=c["v_new"].float())
+    want = ref.paged_attention(*_paged_args(up), **c["kw"])
+    tol = TOL_PAGED if dtype == torch.float32 else dict(rtol=2 ** -7,
+                                                         atol=1e-5)
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert torch.equal(got, tpa.paged_attention(*_paged_args(c), **c["kw"]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_split", [None, 1, 3, 200])
 @pytest.mark.parametrize("heads", [(32, 8, 80), (40, 8, 128), (6, 3, 40)])
 def test_paged_attention_split_counts_and_empty_chunks(cuda_device, heads,

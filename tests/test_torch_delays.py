@@ -12,6 +12,10 @@ import torch
 from repro import delays as jdel
 from repro_torch import delays as tdel
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 
 def _gen(seed=0):
     return torch.Generator(device="cpu").manual_seed(seed)

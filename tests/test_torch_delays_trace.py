@@ -34,6 +34,10 @@ from repro_torch.engine import (EngineConfig, TraceRecorderHook, Trainer,
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import optimizers as topt
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 P = 4
 

@@ -20,6 +20,10 @@ import torch
 from repro_torch import experiments, figures
 from repro_torch.models import mf, resnet, vae
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks import common  # noqa: E402
 from benchmarks import fig1_depth_staleness as fig1  # noqa: E402

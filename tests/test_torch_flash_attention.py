@@ -29,6 +29,10 @@ from repro_torch.kernels import flash_attention as tfl
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as ttr
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 REL = 1e-5
 
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -37,6 +37,10 @@ from repro_torch.configs.base import count_params
 from repro_torch.convert import params_from_jax
 from repro_torch.models import hybrid as thybrid
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 ARCH = "zamba2-7b"
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_REL = 1e-4

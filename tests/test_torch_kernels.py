@@ -22,6 +22,10 @@ from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import sparsify as tsp
 from repro_torch.kernels import stale_accum as tsa
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 # fp32 tolerances: stale_accum sums <= 3 weighted O(1) terms in another
 # order than Pallas' reduction (a few ulps); Adam repeats the same
 # operations, but XLA may contract or reorder them differently.

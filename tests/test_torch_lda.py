@@ -31,6 +31,10 @@ from repro_torch.core import drain
 from repro_torch.data import synthetic
 from repro_torch.models import lda as tlda
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks import common  # noqa: E402
 

@@ -26,6 +26,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,10 +39,15 @@ from repro.optim import optimizers as jopt
 from repro_torch import configs as tcfg
 from repro_torch import delays as tdel
 from repro_torch import treemath as tm
+from repro_torch.configs.base import InputShape
 from repro_torch.convert import params_from_jax
 from repro_torch.data.synthetic import token_lm_stream
 from repro_torch.engine import EngineConfig, build_engine
 from repro_torch.optim import optimizers as topt
+
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
 
 P, S, STEPS, BATCH, SEQ = 2, 2, 3, 4, 8
 LR = 1e-3
@@ -73,12 +79,24 @@ def mode_kw(mode, delays):
             "simulate": dict(s=S, delay=delays.Schedule(TABLE))}[mode]
 
 
+def with_gates(params, value=0.5):
+    """A copy of a JAX params tree with every cross layer's gate at
+    ``value``. The gates start at 0, where tanh(0) = 0 keeps the features
+    (``frames``, ``cross_feats``) out of the loss, so the parity runs open
+    them first."""
+    if isinstance(params, dict):
+        return {k: (jnp.full_like(v, value) if k == "gate"
+                    else with_gates(v, value)) for k, v in params.items()}
+    return params
+
+
 @functools.lru_cache(maxsize=None)
 def make_models(arch):
     """(JAX api, port api, JAX params, the same params as numpy)."""
     japi = jcfg.get(arch).api(reduced=True)
     tapi = tcfg.get(arch).api(reduced=True)
-    jp, _ = japi.init(jax.random.PRNGKey(0))
+    jp = with_gates(jax.jit(lambda k: japi.init(k)[0])(
+        jax.random.PRNGKey(0)))
     return japi, tapi, jp, jax.tree.map(np.asarray, jp)
 
 
@@ -87,9 +105,23 @@ def lm_batches(vocab, steps=STEPS, batch=BATCH, seq=SEQ, seed=0):
     return [next(stream) for _ in range(steps)]
 
 
-def _batches(mode, vocab, seq):
-    return [{"tokens": (t.reshape(P, BATCH // P, -1) if mode == "simulate"
-                        else t)} for t in lm_batches(vocab, seq=seq)]
+def _batches(arch, mode, seq):
+    """The leg's batches: ``lm_batches`` tokens plus, for an arch whose
+    batch spec has them, standard-normal features (``frames``,
+    ``cross_feats``); [P, BATCH/P, ...] leaves in simulate."""
+    tapi = make_models(arch)[1]
+    spec = tapi.batch_spec(InputShape("parity", seq, BATCH, "train"))
+    out = []
+    for t, tokens in enumerate(lm_batches(tapi.vocab_real, seq=seq)):
+        batch = {"tokens": tokens}
+        for i, name in enumerate(sorted(set(spec) - {"tokens"})):
+            batch[name] = np.random.default_rng([t, i]).standard_normal(
+                spec[name][0]).astype(np.float32)
+        if mode == "simulate":
+            batch = {k: v.reshape((P, BATCH // P) + v.shape[1:])
+                     for k, v in batch.items()}
+        out.append(batch)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +136,7 @@ def jax_run(arch, mode, optimizer, seq):
                                   **mode_kw(mode, jdel)))
     js = je.init(jax.random.PRNGKey(0), params=jp)
     losses = []
-    for batch in _batches(mode, japi.vocab_real, seq):
+    for batch in _batches(arch, mode, seq):
         js, jm = je.step(js, batch)
         losses.append(float(jm["loss"]))
     return np.array(losses), jax.tree_util.tree_flatten_with_path(
@@ -122,7 +154,7 @@ def port_run(arch, mode, kernels, optimizer, seq):
         device="cpu")
     ts = te.init(0, params=params_from_jax(npp, device="cpu"))
     losses = []
-    for batch in _batches(mode, tapi.vocab_real, seq):
+    for batch in _batches(arch, mode, seq):
         ts, tmet = te.step(ts, batch)
         losses.append(float(tmet["loss"]))
     return (np.array(losses),

@@ -42,6 +42,10 @@ from repro_torch.models import vae as tvae
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim.optimizers import value_and_grad
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 P, MF_BATCH = 2, 16
 
 

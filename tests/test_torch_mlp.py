@@ -13,6 +13,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import value_and_grad
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 

@@ -27,6 +27,10 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 from test_torch_lm_train import lm_batches, make_models
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 REL = 1e-5
 
 

@@ -20,6 +20,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-7)
 
 

@@ -32,6 +32,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 S, HD, LAYERS = 3, 32, 2
 TOL32 = 1e-5
 TOL_BF16 = 2 ** -5

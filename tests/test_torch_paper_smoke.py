@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core import staleness  # noqa: E402

@@ -37,6 +37,10 @@ from repro_torch.models import resnet as tres
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim.optimizers import value_and_grad
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 P, WIDTHS, HW, BATCH = 2, (4, 8, 8), 8, 4
 GRAD_REL = 2e-5
 

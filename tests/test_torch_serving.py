@@ -33,6 +33,10 @@ from repro_torch import serving as ts
 from repro_torch import treemath as tm
 from repro_torch.convert import params_from_jax
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 ARCH = "deepseek-7b"
 MAX_SEQ, PAGE_TOKENS, PROMPT = 24, 4, 8
 REL = 1e-5
@@ -231,10 +235,11 @@ def test_logits_along_jax_trajectory_have_margin(apis, params):
     jsrv = js.Server(_cfg(js, paged="on"), params=jp)
     reqs = _requests(js)
     served = _tokens(jsrv.run(reqs))
+    jprefill, jdecode = jax.jit(japi.prefill), jax.jit(japi.decode)
     margins = []
     for r in reqs:
         toks = served[r.rid]
-        jl, jc = japi.prefill(jp, {"tokens": jnp.asarray(r.prompt[None])})
+        jl, jc = jprefill(jp, {"tokens": jnp.asarray(r.prompt[None])})
         tl, tc = tapi.prefill(tp, {"tokens": torch.from_numpy(r.prompt[None])})
         jc = jax.tree.map(
             lambda dst, src: dst.at[tuple(slice(0, d) for d in src.shape)]
@@ -254,8 +259,8 @@ def test_logits_along_jax_trajectory_have_margin(apis, params):
             assert int(np.argmax(jrow)) == tok
             if j + 1 == len(toks):
                 break
-            jl, jc = japi.decode(jp, jnp.asarray([[tok]], jnp.int32), jc,
-                                 jnp.int32(PROMPT + j))
+            jl, jc = jdecode(jp, jnp.asarray([[tok]], jnp.int32), jc,
+                             jnp.int32(PROMPT + j))
             with torch.no_grad():
                 tl, tc = tapi.decode(tp, torch.tensor([[tok]]), tc, PROMPT + j)
     assert min(margins) > 100 * REL, min(margins)

@@ -19,6 +19,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.serving import (PagedDecodeCache, Server, ServingConfig,
                                  build_layout, synthetic_requests)
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 ARCH = "deepseek-7b"       # reduced: 2-layer fp32 transformer, vocab 512
 MAX_SEQ, PAGE_TOKENS, PROMPT = 24, 4, 8
 

@@ -40,6 +40,10 @@ from repro_torch.configs.base import count_params
 from repro_torch.convert import params_from_jax
 from repro_torch.models import ssm as tssm
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=2e-5)
 GRAD_REL = 1e-4
 BLOCK = dict(d_model=16, d_state=8, head_dim=8, expand=2, chunk=5,

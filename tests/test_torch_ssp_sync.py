@@ -24,6 +24,10 @@ from repro_torch.optim import optimizers as topt
 from test_torch_stale_sync import (BATCHES, COMPS, JP, P, ROUTES, S, TOL,
                                    assert_parity, run_jax, run_torch)
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("comp", list(COMPS))
 @pytest.mark.parametrize("kernels,mega", ROUTES)

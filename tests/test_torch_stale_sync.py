@@ -39,6 +39,10 @@ from repro_torch.engine import EngineConfig, Hook, Trainer, build_engine
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import optimizers as topt
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 P, S, STEPS = 4, 3, 6
 TOL = dict(rtol=1e-5, atol=2e-5)
 COMPS = {

@@ -29,6 +29,10 @@ from repro_torch.data import ShardedBatches
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import optimizers as topt
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 P, STEPS = 4, 5
 TOL = {"sgd": dict(rtol=1e-5, atol=1e-6), "adam": dict(rtol=1e-5, atol=1e-5)}
 

@@ -34,6 +34,10 @@ from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.kernels import dispatch as tdispatch
 from repro_torch.launch import train as ttrain
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 torch.backends.cuda.matmul.allow_tf32 = False

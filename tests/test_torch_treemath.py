@@ -16,6 +16,10 @@ from repro_torch import treemath as tm
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import dispatch
 
+# One intra-op thread: the suite's workers share the cores, and at these
+# sizes a thread pool a worker only makes them wait on each other.
+torch.set_num_threads(1)
+
 
 def _numpy_tree(seed: int):
     """Dict keys deliberately out of sorted order at every level."""
