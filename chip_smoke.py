@@ -123,7 +123,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    step), each holding request 0's greedy tokens against a plain loop,
    fp32 prefill + decode against one forward over 300 tokens, and the fp32
    paged and gather routes' tokens against each other (llama at 10 of 40
-   layers).
+   layers);
+12. the mesh path (``mesh_path``): the DNN's simulate Adam, stale-psum
+   Adam, SGD top-k ring and sync legs (P = 8, s = 16, 50 steps, kernels
+   on) through ``build_engine(mesh=)``: on a 1x1 ``DeviceMesh`` over a
+   one-rank ``nccl`` group, bit for bit as the mesh-less run with the same
+   launch counts; and in two processes on the one card over ``gloo`` at
+   data = 2 (``--mesh-rank``), each rank's launch counts checked, the
+   per-worker legs bit for bit as the one-process run, sync within the
+   ring legs' limits, and the collectives' share of a step from the
+   profiler on rank 0.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -2537,8 +2546,11 @@ FIRST_FLIP_SHARE = 1e-4
 # it by 3.5e-5, on vs off by 3e-6 (PERF.md).
 AUX_CEILING = 5e-4
 # The coherence legs' mu, on against off: never further apart than this,
-# unless the one-ulp witness's mu parts further (ring_legs).
+# unless the one-ulp witness's mu parts further (ring_legs), and never
+# further than MU_CEILING however far the witness parts (the gaps measured
+# on the H100 were at most 1.4e-3, PERF.md).
 MU_FLOOR = 1e-3
+MU_CEILING = 1e-2
 
 
 def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -3152,9 +3164,10 @@ def ring_legs(dev, tmp: str, failures: list, arch_id: str = TRAIN_ARCH,
             mu_wit = runs["witness"]["mu"]
             # mu is read from each run's own gradients, so it parts as the
             # runs part: held to MU_FLOOR, or WITNESS_FACTOR times how far
-            # the witness's mu parts from the off run's where that is more.
-            lim = max(MU_FLOOR, WITNESS_FACTOR * max(
-                abs(a - b) for a, b in zip(mu_wit, mu_off)))
+            # the witness's mu parts from the off run's where that is more,
+            # capped at MU_CEILING.
+            lim = min(MU_CEILING, max(MU_FLOOR, WITNESS_FACTOR * max(
+                abs(a - b) for a, b in zip(mu_wit, mu_off))))
             print(f"train {name}: mu on {mu_on} off {mu_off} witness "
                   f"{mu_wit}; limit {lim!r}")
             if None in mu_on or any(abs(a - b) > lim
@@ -4171,6 +4184,372 @@ def add_cross_rows(kernels: list, cross: dict) -> None:
                 for arch in CROSS_TIMING}
 
 
+# -- phase 12: the mesh path ------------------------------------------------------
+
+# The DNN legs over a DeviceMesh: (name, mode, optimizer, compensation
+# knobs, exact, launches a step on every rank). ``exact``: the mesh gathers
+# the crossing rows and reduces them in the one-process order, so the run
+# must equal the one-process run bit for bit; sync's all-reduce averages
+# the two ranks' half-batch gradients in another order than one backward,
+# so it is held to MESH_SYNC_TOL.
+MESH_LEGS = (
+    ("simulate adam", "simulate", "adam", {}, True,
+     dict(stale_accum=1, fused_adam=1)),
+    ("stale-psum adam", "stale-psum", "adam", {}, True,
+     dict(fused_update_plain=1)),
+    ("stale-psum sgd topk", "stale-psum", "sgd", dict(compress="topk:0.1"),
+     True, dict(sparsify_topk=1, stale_accum=1)),
+    ("sync adam", "sync", "adam", {}, False, dict(fused_adam=1)),
+)
+MESH_RANKS, MESH_TIMED, MESH_PROFILE = 2, 10, 5
+# The two-rank sync leg against the one-process run, about 10x its sound
+# readings on the H100 (loss 1.19e-7, param 6.67e-6, rel 2.09e-7, the same
+# on five runs; PERF.md). The phase also runs the leg with the ranks'
+# all_reduce dropped (each rank steps on its own half-batch) and fails
+# unless that planted fault parts past this limit.
+MESH_SYNC_TOL = dict(loss=1e-6, param=1e-4, rel=2e-6)
+MESH_SYNC_LEG = MESH_LEGS[3]
+PLANTED = "sync adam, all_reduce dropped"
+COLLECTIVES = ("all_gather", "allgather", "all_reduce", "allreduce",
+               "broadcast")
+
+
+def mesh_run(dev, leg, params0, data, table, mesh=None, *, steps=STEPS,
+             timed_steps=MESH_TIMED, profile=0, plant=False) -> dict:
+    """One DNN leg through ``build_engine(mesh=)`` with kernels on: the
+    launch counters zeroed just before ``steps`` steps and read just after,
+    then ``timed_steps`` steps on the host clock and ``profile`` steps
+    under the profiler, whose collective ops give their share of a step.
+    Every rank calls it alike (the eval view and the gathers are
+    collectives). ``plant`` builds the engine with the data ranks' mean
+    made the identity (no all_reduce: each rank steps on its own
+    half-batch), the fault MESH_SYNC_TOL must catch."""
+    import torch
+    from repro_torch import delays
+    from repro_torch import treemath as tm
+    from repro_torch.data import ShardedBatches
+    from repro_torch.engine import EngineConfig, build_engine
+    from repro_torch.engine.placement import MeshPlacement
+    from repro_torch.models import mlp
+    from repro_torch.optim import paper_default
+
+    _, mode, algo, knobs = leg[:4]
+    delay_kw = {} if mode == "sync" else dict(delay=delays.Schedule(table))
+    cfg = EngineConfig(mode=mode, num_workers=WORKERS, s=STALENESS,
+                       kernels="on", **delay_kw, **knobs)
+    real_mean = MeshPlacement.mean
+    if plant:
+        # The step binds the placement's mean when it is built.
+        MeshPlacement.mean = lambda self, x, split=True: x
+    try:
+        engine = build_engine(mlp.loss_fn, paper_default(algo), cfg,
+                              mesh=mesh, device=dev)
+    finally:
+        MeshPlacement.mean = real_mean
+    src = ShardedBatches([data.x_train, data.y_train], WORKERS, BATCH, seed=0)
+    batches = iter(src) if mode == "simulate" else src.flat_iter()
+    state = engine.init(0, params=tm.tree_map(torch.clone, params0))
+    losses = []
+    reset_counters()
+    for _ in range(steps):
+        state, m = engine.step(state, next(batches))
+        losses.append(m["loss"])
+    launches = counters()
+    out = {"losses": torch.stack(losses).cpu(), "launches": launches,
+           "params": tm.tree_map(lambda x: x.detach().cpu(),
+                                 engine.params(state))}
+    if mode == "simulate":
+        caches = state.inner.caches
+        if engine.placement is not None:
+            caches = engine.placement.gather_tree(caches)
+        out["workers"] = tm.tree_map(lambda x: x.detach().cpu(), caches)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        state, _ = engine.step(state, next(batches))
+    sync()
+    out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / max(timed_steps, 1)
+    if profile:
+        out["collectives"] = profile_collectives(engine, state, batches,
+                                                 profile, sync)
+    return out
+
+
+def profile_collectives(engine, state, batches, k: int, sync) -> dict:
+    """``k`` steps under the profiler, each collective the placement calls
+    inside a ``record_function`` range (``mesh.all_gather`` and so on: the
+    call and its wait, which c10d's own ops leave out), after one step that
+    warms the profiler up. Each range opens after a device synchronize, so
+    it holds the collective alone (gloo's copy of the CUDA tensors to the
+    host, the exchange, the copy back), not the drain of the kernels the
+    step queued before it. Returns each range's host ms a step and its
+    share of the step's wall time, the synchronizes included. The profiler
+    traces the host only: gloo blocks the calling thread until a
+    collective of CUDA tensors is done, and with CUDA activity traced too
+    these ranges read no host time on the H100 (PERF.md)."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    class Timed:
+        """The placement's ``torch.distributed``, its collectives in
+        ranges."""
+
+        def __init__(self, dist):
+            self.dist = dist
+
+        def __getattr__(self, name):
+            fn = getattr(self.dist, name)
+            if name not in ("all_gather", "all_reduce", "broadcast"):
+                return fn
+
+            def timed(*a, **kw):
+                sync()
+                with record_function(f"mesh.{name}"):
+                    return fn(*a, **kw)
+            return timed
+
+    engine.placement.dist = Timed(engine.placement.dist)
+    acts = [ProfilerActivity.CPU]
+    with torch_profile(activities=acts):
+        state, _ = engine.step(state, next(batches))
+        sync()
+    sync()
+    t0 = time.perf_counter()
+    with torch_profile(activities=acts) as prof:
+        for _ in range(k):
+            state, _ = engine.step(state, next(batches))
+        sync()
+    wall = (time.perf_counter() - t0) * 1e3 / k
+    rows = {}
+    for e in prof.key_averages():
+        if e.key.startswith("mesh.") or any(c in e.key.lower()
+                                            for c in COLLECTIVES):
+            ms = e.cpu_time_total / 1e3 / k
+            rows[e.key] = {"ms_per_step": ms, "calls_per_step": e.count / k,
+                           "share": ms / wall}
+    return {"wall_ms_per_step": wall, "ops": rows}
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str,
+              device: str = "cuda") -> int:
+    """``--mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of the two-rank
+    leg on the one card, over ``gloo`` (NCCL refuses two ranks on one
+    device). Runs every MESH_LEGS leg on a ``world x 1`` mesh and saves the
+    runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mlp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        build.library()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(world, 1, device=dev.type)
+        table, data = mesh_inputs()
+        params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
+        runs = {}
+        for leg in MESH_LEGS:
+            try:
+                # Every rank profiles too: the ranks must make the same
+                # collective calls.
+                runs[leg[0]] = mesh_run(dev, leg, params0, data, table, mesh,
+                                        profile=MESH_PROFILE)
+            except Exception as e:      # noqa: BLE001 (reported, then raised)
+                runs[leg[0]] = {"error": f"{type(e).__name__}: {e}"}
+                raise
+            finally:
+                torch.save(runs, os.path.join(out_dir, f"rank{rank}.pt"))
+        runs[PLANTED] = mesh_run(dev, MESH_SYNC_LEG, params0, data, table,
+                                 mesh, timed_steps=0, plant=True)
+        torch.save(runs, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_inputs():
+    """The DNN legs' delay table and data (the ring path's)."""
+    import numpy as np
+    from repro_torch.data import synthetic
+    table = np.random.default_rng(0).integers(0, STALENESS, (STEPS, WORKERS))
+    table[0, 0] = STALENESS - 1
+    return table, synthetic.teacher_classification(seed=0)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    from repro_torch import treemath as tm
+    la, lb = tm.tree_leaves(a), tm.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def mesh_path(dev) -> dict:
+    """Phase 12: the DNN legs (D = 335,114, P = 8, s = 16, one [50, 8]
+    Schedule) through ``build_engine(mesh=)``: (a) on a 1x1 mesh over a
+    one-rank ``nccl`` group, bit for bit as the mesh-less run with the same
+    launch counts; (b) two ranks on the one card over ``gloo`` at data = 2,
+    each rank's launch counts checked, against the one-process run as the
+    CPU tests hold it (MESH_LEGS)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for, make_host_mesh
+    from repro_torch.models import mlp
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        # The two rank processes share the card: hand back what the earlier
+        # phases' caching allocator still holds.
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    table, data = mesh_inputs()
+    params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
+    failures, out = [], {}
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    plain = {leg[0]: mesh_run(dev, leg, params0, data, table)
+             for leg in MESH_LEGS}
+    backend = backend_for(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=dev.type)
+        for leg in MESH_LEGS:
+            name, per_step = leg[0], leg[5]
+            one = mesh_run(dev, leg, params0, data, table, mesh)
+            ref = plain[name]
+            bitwise = (same_bits(one["params"], ref["params"])
+                       and torch.equal(one["losses"], ref["losses"])
+                       and same_bits(one.get("workers", {}),
+                                     ref.get("workers", {})))
+            want = expect(STEPS, **per_step)
+            print(f"mesh 1x1 {backend} {name}: bitwise {bitwise}; launches "
+                  f"{one['launches']} (mesh-less {ref['launches']}); "
+                  f"ms_per_step {one['ms_per_step']!r} (mesh-less "
+                  f"{ref['ms_per_step']!r})")
+            if not bitwise:
+                failures.append(f"1x1 {name}: not bitwise")
+            if one["launches"] != ref["launches"] or one["launches"] != want:
+                failures.append(f"1x1 {name}: launches {one['launches']} vs "
+                                f"{ref['launches']} (expected {want})")
+            out[f"1x1 {name}"] = {"bitwise": bitwise,
+                                  "launches": one["launches"],
+                                  "ms_per_step": one["ms_per_step"],
+                                  "mesh_less_ms_per_step":
+                                      ref["ms_per_step"]}
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh phase: 1x1 legs took {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(MESH_RANKS), str(port), tmp, dev.type], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_RANKS)]
+        try:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            ranks.append(torch.load(path, weights_only=False)
+                         if os.path.exists(path) else {})
+            if p.returncode != 0:
+                tail = log.strip().splitlines()[-12:]
+                print(f"mesh rank {r} exited {p.returncode}:\n  "
+                      + "\n  ".join(tail))
+                failures.append(f"two-rank gloo leg: rank {r} exited "
+                                f"{p.returncode}")
+    for leg in MESH_LEGS:
+        name, exact, per_step = leg[0], leg[4], leg[5]
+        ref = plain[name]
+        want = expect(STEPS, **per_step)
+        for r, runs in enumerate(ranks):
+            run = runs.get(name)
+            if run is None or "error" in run:
+                msg = run["error"] if run else "no result"
+                print(f"mesh 2x1 gloo {name} rank {r}: {msg}")
+                failures.append(f"2x1 {name} rank {r}: {msg}")
+                continue
+            bitwise = (same_bits(run["params"], ref["params"])
+                       and torch.equal(run["losses"], ref["losses"])
+                       and same_bits(run.get("workers", {}),
+                                     ref.get("workers", {})))
+            dist_ = run_distance(run, ref)
+            print(f"mesh 2x1 gloo {name} rank {r}: bitwise {bitwise}; "
+                  f"distance {json.dumps(dist_)}; launches "
+                  f"{run['launches']} (expected {want}); ms_per_step "
+                  f"{run['ms_per_step']!r}")
+            if exact and not bitwise:
+                failures.append(f"2x1 {name} rank {r}: not bitwise")
+            if not exact and any(dist_[k] > v
+                                 for k, v in MESH_SYNC_TOL.items()):
+                failures.append(f"2x1 {name} rank {r}: {dist_} over "
+                                f"{MESH_SYNC_TOL}")
+            if run["launches"] != want:
+                failures.append(f"2x1 {name} rank {r}: launches "
+                                f"{run['launches']} != {want}")
+            if "collectives" in run and r == 0:
+                print(f"mesh 2x1 gloo {name} rank {r} profile: "
+                      f"{json.dumps(run['collectives'])}")
+            out[f"2x1 {name} rank {r}"] = {
+                "bitwise": bitwise, "distance": dist_,
+                "launches": run["launches"],
+                "ms_per_step": run["ms_per_step"],
+                "collectives": run.get("collectives")}
+    for r, runs in enumerate(ranks):
+        run = runs.get(PLANTED)
+        if run is None:
+            failures.append(f"2x1 {PLANTED} rank {r}: no result")
+            continue
+        dist_ = run_distance(run, plain[MESH_SYNC_LEG[0]])
+        caught = [k for k, v in MESH_SYNC_TOL.items() if dist_[k] > v]
+        print(f"mesh 2x1 gloo {PLANTED} rank {r} (planted fault): distance "
+              f"{json.dumps(dist_)}; over {MESH_SYNC_TOL} on {caught}")
+        if not caught:
+            failures.append(f"2x1 {PLANTED} rank {r}: the planted fault "
+                            f"stays within {MESH_SYNC_TOL}")
+        out[f"2x1 {PLANTED} rank {r}"] = {"distance": dist_, "caught": caught}
+    print(f"mesh phase: two-rank legs took {time.perf_counter() - t1:.1f} s; "
+          f"the phase {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("mesh phase: " + "; ".join(failures))
+    return out
+
+
+def add_mesh_rows(kernels: list, mesh: dict) -> None:
+    """Beside each kernel, its launches on every leg of the mesh phase (the
+    planted fault's run is not one)."""
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_mesh"] = {
+            leg: sum(n for k, n in row["launches"].items()
+                     if k.split(".")[0] == name)
+            for leg, row in mesh.items() if "launches" in row}
+
+
 def blocks_per_sm(regs: int, threads: int = 256) -> int:
     """Blocks of ``threads`` an H100 SM holds at ``regs`` registers a
     thread: 65,536 registers allocated per warp in units of 256, at most
@@ -4406,6 +4785,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cross = cross_path(dev, tmp)
 
+    # The mesh path: the DNN legs through build_engine(mesh=) on a 1x1
+    # nccl mesh and over two gloo ranks on the one card.
+    mesh = mesh_path(dev)
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
     kernels.append(coherence_entry(timings, coh, coh_err))
@@ -4414,6 +4797,7 @@ def main() -> int:
     add_lm_rows(kernels, train)
     add_ssm_rows(kernels, ssm)
     add_cross_rows(kernels, cross)
+    add_mesh_rows(kernels, mesh)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -4443,6 +4827,7 @@ def main() -> int:
         {k: v for k, v in ssm.items() if k not in ("lm", "full_adam")})},
         default=str))
     print(json.dumps({"cross": without_profiles(cross)}, default=str))
+    print(json.dumps({"mesh": mesh}, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4457,4 +4842,6 @@ if __name__ == "__main__":
         sys.exit(attention_times(sys.argv[2]))
     if sys.argv[1:2] == ["--coherence-times"]:
         sys.exit(coherence_times(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
     sys.exit(main())

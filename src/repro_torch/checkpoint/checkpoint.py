@@ -4,8 +4,9 @@ The format is the JAX package's, so each package restores the other's
 snapshots: leaves are stored as ``leaf_<i>`` in the JAX leaf order (sorted
 dict keys) and named in the metadata with ``jax.tree_util.keystr``'s
 spelling (``['layers'][0]['w']``); the metadata (step, names, shardings,
-extra) rides in a JSON side file. The port runs on one device, so
-``shardings`` is written as a list of ``None``.
+extra) rides in a JSON side file. ``shardings`` is written as a list of
+``None``: the snapshot holds whole tensors, and ``restore(shardings=)``
+places each leaf on a mesh.
 
 Writes are ATOMIC: both files land via write-to-temp + ``os.replace``, and
 the meta file is renamed LAST: it is the commit marker. A reader polling
@@ -42,6 +43,23 @@ def _walk_names(node, path: str, names: List[str], leaves: list) -> None:
     else:
         names.append(path)
         leaves.append(node)
+
+
+def _zip_places(like, shardings, out: list) -> None:
+    """One placement per leaf of ``like``, in its leaf order: a placement
+    (or None) at a node of ``shardings`` covers that node's whole
+    subtree."""
+    if shardings is None or hasattr(shardings, "place"):
+        out.extend([shardings] * len(_leaf_names(like)[0]))
+    elif isinstance(like, dict):
+        for k in sorted(like):
+            _zip_places(like[k], shardings[k], out)
+    elif isinstance(like, (list, tuple)):
+        for child, sh in zip(like, shardings):
+            _zip_places(child, sh, out)
+    else:
+        raise ValueError(f"shardings node {shardings!r} is neither a "
+                         "placement nor a subtree of the restored tree")
 
 
 def _leaf_names(tree: Pytree):
@@ -93,11 +111,10 @@ def restore(path: str, like: Pytree, shardings: Optional[Pytree] = None):
     """Restore into the structure of ``like``. Returns (tree, step, extra).
     Each leaf comes back as a tensor on the device of ``like``'s matching
     leaf (the CPU where that leaf is not a tensor), with the saved dtype and
-    values bit for bit."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) is not ported yet (ROADMAP A.12, "
-            "multi-GPU placement)")
+    values bit for bit. ``shardings`` (a tree like ``like`` whose leaves are
+    ``sharding.rules.NamedSharding`` or None) places each leaf as the
+    plan does: this rank's rows of a worker axis as a plain tensor, a
+    model-sharded dim as a DTensor on the model sub-mesh."""
     with open(_meta_path(path)) as f:
         meta = json.load(f)
     names, like_leaves = _leaf_names(like)
@@ -109,6 +126,11 @@ def restore(path: str, like: Pytree, shardings: Optional[Pytree] = None):
         arrays = [npz[f"leaf_{i}"] for i in range(len(names))]
     leaves = [torch.from_numpy(a).to(l.device if torch.is_tensor(l) else "cpu")
               for a, l in zip(arrays, like_leaves)]
+    if shardings is not None:
+        places: list = []
+        _zip_places(like, shardings, places)
+        leaves = [x if s is None else s.place(x)
+                  for x, s in zip(leaves, places)]
     return (tm.tree_unflatten(tm.tree_structure(like), leaves), meta["step"],
             meta["extra"])
 

@@ -205,3 +205,9 @@ class ArchDef:
 def count_params(api: ModelAPI) -> int:
     params, _ = api.init(0, device="meta")
     return sum(math.prod(x.shape) for x in tm.tree_leaves(params))
+
+
+def param_axes(api: ModelAPI):
+    """The logical-axes tree of an arch's params, made on the meta device
+    (nothing is allocated)."""
+    return api.init(0, device="meta")[1]

@@ -110,13 +110,15 @@ def _require_adam(optimizer: Optimizer, what: str) -> None:
 
 
 def init_state(params: Pytree, optimizer: Optimizer, cfg: StaleSyncConfig,
-               key) -> StaleTrainState:
+               key, rows: Optional[int] = None) -> StaleTrainState:
     """Zero ring and optimizer state. ``key`` is an int seed or a
-    ``torch.Generator`` on the params' device."""
+    ``torch.Generator`` on the params' device. ``rows`` (default: all P)
+    is the number of workers whose ring rows this process holds on a
+    mesh."""
     dev = tm.tree_leaves(params)[0].device
     gen = key if isinstance(key, torch.Generator) else device_lib.generator(key, dev)
-    lead = ((cfg.slots, cfg.num_workers) if cfg.per_worker_delays
-            else (cfg.slots,))
+    lead = ((cfg.slots, cfg.num_workers if rows is None else rows)
+            if cfg.per_worker_delays else (cfg.slots,))
     if cfg.kernels:
         gbuf = torch.zeros(lead + (_packed_width(params),),
                            dtype=cfg.buffer_dtype, device=dev)
@@ -165,8 +167,24 @@ def _adam_delta(dneg, spec, params, factor, eta, wd) -> Pytree:
     return tm.tree_map(leaf, delta32, params)
 
 
+def _mesh_helpers(shard, p: int):
+    """``(lo, hi, gather, mean, norm)`` of a process on a mesh
+    (``engine.placement.MeshPlacement``), or the one-process identities."""
+    if shard is None:
+        return 0, p, (lambda x: x), (lambda x, split=True: x), tm.tree_norm
+    return shard.lo, shard.hi, shard.gather, shard.mean, shard.norm
+
+
+def _rows_mean(metrics: dict, per: bool, mean) -> dict:
+    """Metrics of this process's rows, averaged over the data ranks (the
+    per-worker split's sparsity); aggregate-form metrics are already
+    global."""
+    return {k: mean(v) for k, v in metrics.items()} if per else metrics
+
+
 def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
-                          cfg: StaleSyncConfig, compensator=None):
+                          cfg: StaleSyncConfig, compensator=None,
+                          shard=None):
     """Returns ``step(state, batch, bound=None, comp=None)``.
 
     ``batch`` leaves carry a leading global-batch axis, reshaped to
@@ -181,8 +199,17 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``dispatch.fused_update`` pass. Compressed, it gathers the ring rows
     BEFORE writing this step's payload and the kernel substitutes this
     step's ``sent`` for fresh (delay 0) rows; dense, it writes first and
-    reads after. Both deliver what the write-then-read order delivers."""
+    reads after. Both deliver what the write-then-read order delivers.
+
+    ``shard`` (``engine.placement.MeshPlacement``) runs the step on one
+    process of a mesh. Per-worker delays: the process computes the
+    gradients of its workers ``[lo, hi)`` and holds their ring rows; the
+    rows each step reads are gathered from every process and reduced in the
+    one-process order. The aggregate form splits the batch over the data
+    ranks and averages the gradient with an all-reduce; its ring is the
+    same on every process."""
     p = cfg.num_workers
+    lo, hi, gather, mean, norm = _mesh_helpers(shard, p)
     if cfg.fused_update:
         _require_adam(optimizer, "fused_update=True")
     # Schedules whose bound exceeds the ring would wrap onto fresher slots,
@@ -196,9 +223,10 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
     clamp_slots = source.bound > slots - 1
 
     def per_worker_grads(params, batch):
-        stacked = tm.tree_broadcast_leading(params, p)
+        stacked = tm.tree_broadcast_leading(params, hi - lo)
         shaped = tm.tree_map(
-            lambda x: x.reshape((p, x.shape[0] // p) + tuple(x.shape[1:])),
+            lambda x: x.reshape((hi - lo, x.shape[0] // (hi - lo))
+                                + tuple(x.shape[1:])),
             batch)
         return value_and_grad(loss_fn, stacked, shaped)  # [P], [P, ...]
 
@@ -225,6 +253,7 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
         staleness = d if per else d.expand(p)
         mean_stale = staleness.float().mean()
         read = torch.remainder(state.step - d, slots)
+        mine = read[lo:hi] if per else read
 
         cmetrics = {}
         factor = 1.0
@@ -247,8 +276,13 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             # step's sent for fresh rows, so the payload reaches the ring
             # after the kernel.
             acc, thr, mom_in = compensator.ef_inputs(comp, gvec, spec.total)
-            sel = _gather(gbuf, read)
-            if not per:
+            sel = _gather(gbuf, mine)
+            if per:
+                # Every worker's row enters the one pass; each process
+                # keeps its own rows of the split.
+                acc, thr, sel = gather(acc), gather(thr), gather(sel)
+                mom_in = None if mom_in is None else gather(mom_in)
+            else:
                 acc, thr = acc.unsqueeze(0), thr.reshape(1)
                 mom_in = None if mom_in is None else mom_in.unsqueeze(0)
             fresh = (d == 0).float().reshape(weights.shape)
@@ -258,15 +292,18 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             dneg, m2, v2, u, sent, resid = outs[:6]
             mom_out = outs[6] if mom_in is not None else None
             comp = compensator.ef_commit(
-                comp, resid if per else resid[0],
-                mom_out if (per or mom_out is None) else mom_out[0])
+                comp, resid[lo:hi] if per else resid[0],
+                None if mom_out is None
+                else (mom_out[lo:hi] if per else mom_out[0]))
             cmetrics.update(compensator.ef_metrics(sent, spec.total))
-            gbuf[write] = sent if per else sent[0]
+            gbuf[write] = sent[lo:hi] if per else sent[0]
         else:
             # Dense: write first, then gather (fresh rows come back as
             # written).
             gbuf[write] = gvec
-            sel = _gather(gbuf, read)
+            sel = _gather(gbuf, mine)
+            if per:
+                sel = gather(sel)
             dneg, m2, v2, u = dispatch.fused_update(pzero, m, v, sel,
                                                     weights, **adam_kw)
 
@@ -286,12 +323,18 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
     def step(state: StaleTrainState, batch, bound: Optional[int] = None,
              comp: Pytree = None):
         per = cfg.per_worker_delays
+        split = shard is not None and not per and shard.splits_batch(batch)
+        if shard is not None:
+            batch = tm.tree_map(lambda x: shard.batch_rows(x, per), batch)
         if per:
             losses, grads = per_worker_grads(state.params, batch)
+            losses = gather(losses)
         else:
             # The aggregate form needs only the global mean gradient: one
-            # backward pass.
+            # backward pass (on a mesh, one a data rank, then averaged).
             loss, gmean = mean_grad(loss_fn, state.params, batch)
+            loss, gmean = mean(loss, split), tm.tree_map(
+                lambda g: mean(g, split), gmean)
             losses, grads = loss.reshape(1), None
         if cfg.fused_update:
             # Pack, then drop the gradient tree before the fused pass: at
@@ -316,7 +359,7 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             if compensator is not None and compensator.sparsifies:
                 gvec, comp, cm = compensator.sparsify_packed(comp, gvec,
                                                              spec.total)
-                cmetrics.update(cm)
+                cmetrics.update(_rows_mean(cm, per, mean))
             gbuf[write] = gvec
 
             def kernel_agg(sel, weights):
@@ -329,7 +372,7 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             if compensator is not None and compensator.sparsifies:
                 to_buffer, comp, cm = compensator.sparsify_tree(
                     comp, to_buffer, lead_ndim=1 if per else 0)
-                cmetrics.update(cm)
+                cmetrics.update(_rows_mean(cm, per, mean))
             for buf, g in zip(tm.tree_leaves(gbuf),
                               tm.tree_leaves(to_buffer)):
                 buf[write] = g
@@ -337,9 +380,10 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
         dev = tm.tree_leaves(gbuf)[0].device
         if cfg.s == 0:
             if cfg.kernels and per:
-                agg = kernel_agg(gvec, torch.full((p,), 1.0 / p, device=dev))
+                agg = kernel_agg(gather(gvec),
+                                 torch.full((p,), 1.0 / p, device=dev))
             elif per:
-                agg = tm.tree_map(lambda g: g.mean(dim=0), to_buffer)
+                agg = tm.tree_map(lambda g: gather(g).mean(dim=0), to_buffer)
             elif (cfg.kernels and compensator is not None
                   and compensator.sparsifies):
                 # The sparse payload is what transport delivers, even with
@@ -350,13 +394,14 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             staleness = torch.zeros((p,), dtype=torch.int64, device=dev)
         elif per:
             d = realized_delays(state, bound, (p,))
-            read = torch.remainder(state.step - d, slots)        # [P]
+            read = torch.remainder(state.step - d, slots)[lo:hi]  # [P]
             if cfg.kernels:
-                agg = kernel_agg(_gather(gbuf, read),
+                agg = kernel_agg(gather(_gather(gbuf, read)),
                                  torch.full((p,), 1.0 / p, device=dev))
             else:
                 agg = tm.tree_map(
-                    lambda buf: _gather(buf, read).float().mean(dim=0), gbuf)
+                    lambda buf: gather(_gather(buf, read)).float().mean(dim=0),
+                    gbuf)
             staleness = d
         else:
             # Theorem-1 form: one delayed AGGREGATE gradient per step.
@@ -380,7 +425,7 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
         new_state = StaleTrainState(
             params=tm.tree_add(state.params, delta), opt_state=opt_state,
             gbuf=gbuf, step=state.step + 1, key=state.key)
-        metrics = {"loss": losses.mean(), "grad_norm": tm.tree_norm(agg),
+        metrics = {"loss": losses.mean(), "grad_norm": norm(agg),
                    "mean_staleness": mean_stale, **cmetrics}
         if compensator is not None:
             return new_state, comp, metrics
@@ -423,7 +468,8 @@ def init_sync_state(params: Pytree, optimizer: Optimizer,
 
 
 def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
-                              compensator=None, fused: bool = False):
+                              compensator=None, fused: bool = False,
+                              shard=None):
     """Buffer-free synchronous step: ``step(state, batch, comp=None)``.
 
     ``fused=True`` (an Adam-spec optimizer) runs the post-gradient tail over
@@ -434,9 +480,15 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     takes the factor as a device scalar; dense without one,
     ``dispatch.fused_adam`` alone. Staleness is identically 0 here, so
     ``inverse`` leaves the stepsize as it is and ``theorem1`` reduces to
-    its schedule factor."""
+    its schedule factor.
+
+    ``shard`` (``engine.placement.MeshPlacement``) splits the batch over
+    the data ranks of a mesh and averages the gradient with an all-reduce
+    (of the packed vector when ``fused``), so every process applies the
+    same update."""
     if fused:
         _require_adam(optimizer, "fused=True")
+    mean = _mesh_helpers(shard, 1)[3]
 
     def fused_tail(state, loss, box, comp):
         # The packed gradient arrives in a one-element list, so that no
@@ -492,13 +544,19 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
         return new_state, {"loss": loss}
 
     def step(state: SyncTrainState, batch, comp: Pytree = None):
+        split = shard is not None and shard.splits_batch(batch)
+        if shard is not None:
+            batch = tm.tree_map(lambda x: shard.batch_rows(x, False), batch)
         loss, grads = mean_grad(loss_fn, state.params, batch)
+        loss = mean(loss, split)
         if fused:
             # Pack, then drop the gradient tree before the fused pass: at
             # full width every [D] copy the tail holds at once counts.
-            box = [tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN)]
+            box = [mean(tm.tree_pack(grads, pad_to=dispatch.PACK_ALIGN),
+                        split)]
             del grads
             return fused_tail(state, loss, box, comp)
+        grads = tm.tree_map(lambda g: mean(g, split), grads)
         cmetrics = {}
         if compensator is not None:
             grads, comp, cmetrics = compensator.sparsify_tree(comp, grads)

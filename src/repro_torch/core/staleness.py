@@ -100,14 +100,15 @@ def _is_packed(state: SimState) -> bool:
 
 
 def init_sim_state(params: Pytree, update_state: Pytree,
-                   cfg: StalenessConfig, key, server_state: Pytree = ()
-                   ) -> SimState:
+                   cfg: StalenessConfig, key, server_state: Pytree = (),
+                   rows: Optional[int] = None) -> SimState:
     """All workers start from identical ``params``; buffers start empty.
 
     ``update_state``/``server_state`` are given per single worker and
     broadcast across the worker axis. ``key`` is an int seed or a
-    ``torch.Generator`` on the params' device."""
-    p = cfg.num_workers
+    ``torch.Generator`` on the params' device. ``rows`` (default: all P)
+    is the number of workers this process holds on a mesh."""
+    p = cfg.num_workers if rows is None else rows
     dev = tm.tree_leaves(params)[0].device
     gen = key if isinstance(key, torch.Generator) else device_lib.generator(key, dev)
     caches = tm.tree_broadcast_leading(params, p)
@@ -148,14 +149,18 @@ def _deliver_server(caches: Pytree, pending: Pytree, server_state: Pytree,
 
 
 def _dispatch(pending: Pytree, updates: Pytree, delays: torch.Tensor,
-              slots: int) -> Pytree:
+              slots: int, lo: int = 0) -> Pytree:
     # onehot[src, dst, slot] routes update[src] into pending[dst, slot]; the
-    # contraction over src is a fixed-order matmul.
+    # contraction over src is a fixed-order matmul. On a mesh ``updates``
+    # holds every source and ``pending`` the destinations from ``lo``: the
+    # product runs over all P destinations, as in one process, and this
+    # process keeps its rows of it.
     onehot = (delays.unsqueeze(-1)
               == torch.arange(slots, device=delays.device)).float()
 
     def scatter(buf, u):
         acc = torch.tensordot(onehot, u.float(), dims=([0], [0]))  # [P,B,...]
+        acc = acc[lo:lo + buf.shape[0]]
         return buf + acc.to(buf.dtype)
 
     return tm.tree_map(scatter, pending, updates)
@@ -168,13 +173,16 @@ def _ring_dispatch(ring: torch.Tensor, uvec: torch.Tensor,
     ``(dst, (step + 1 + r[src, dst]) mod B)`` for every dst, and return a
     copy of the next step's arrivals. One ``index_add_`` per source: within
     a source the P targets are distinct, so no element takes two adds in one
-    launch, and sources add in a fixed order."""
+    launch, and sources add in a fixed order. On a mesh the ring holds this
+    process's destinations (``delays`` their columns) and ``uvec`` every
+    source, so each row takes the one-process adds in the one-process
+    order."""
     p, slots, width = ring.shape
     ring[:, step % slots].zero_()
     slot = torch.remainder(delays + (step + 1), slots)           # [src, dst]
     rows = ring.view(p * slots, width)
     base = torch.arange(p, device=ring.device) * slots
-    for src in range(p):
+    for src in range(uvec.shape[0]):
         rows.index_add_(0, base + slot[src],
                         uvec[src].unsqueeze(0).expand(p, width))
     return ring[:, (step + 1) % slots].clone()
@@ -182,7 +190,7 @@ def _ring_dispatch(ring: torch.Tensor, uvec: torch.Tensor,
 
 def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
                   server_apply=None, compensator=None,
-                  fused: Optional[dict] = None):
+                  fused: Optional[dict] = None, shard=None):
     """Build one engine step: ``step(state, batches, bound=None) ->
     (state, metrics)``.
 
@@ -209,6 +217,12 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
     ``update_state = {"m": [P, D], "v": [P, D]}``. Keys of ``fused``:
     ``loss``, ``takes_key``, ``lr``, ``b1``, ``b2``, ``eps``,
     ``weight_decay``.
+
+    ``shard`` (``engine.placement.MeshPlacement``) runs the step for this
+    process's workers ``[lo, hi)`` of a mesh: the state and the batches
+    hold those rows only, every process draws the whole delay matrix, and
+    the dispatch gathers every source's update before each process adds
+    into its own destinations.
     """
     if cfg.server_side and server_apply is None:
         raise ValueError("server_side=True requires a server_apply transform")
@@ -216,6 +230,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         raise ValueError("fused simulate step requires kernels=True "
                          "(it runs over the packed ring)")
     p = cfg.num_workers
+    lo, hi = (0, p) if shard is None else (shard.lo, shard.hi)
+    gather = (lambda x: x) if shard is None else shard.gather
     slots = cfg.buffer_slots
     source = cfg.delay.realize(num_workers=p)
 
@@ -232,7 +248,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         lr_metrics = {}
         if compensator.scales:
             out_delay = delays.float().mean(dim=1)                # [P]
-            factor = compensator.lr_factor(comp, out_delay, step).expand(p)
+            factor = compensator.lr_factor(comp, out_delay,
+                                           step).expand(p)[lo:hi]
             if packed_true_size is not None:
                 updates = updates * factor[:, None]
             else:
@@ -261,7 +278,7 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
         flat = dispatch.stale_accum(
             cvec.reshape(-1), arrived.reshape(1, -1),
             torch.ones((1,), device=arrived.device))
-        cflat = flat.reshape(p, -1)
+        cflat = flat.reshape(hi - lo, -1)
         return tm.tree_unpack(cflat, pspec), cflat
 
     def finish_packed(state, caches, update_state, uvec, delays, metrics,
@@ -272,8 +289,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
                 packed_true_size=tm.pack_spec(caches, lead_ndim=1).total)
             metrics = {**metrics, **cmetrics}
         ring = state.pending["ring"]
-        arrived_next = _ring_dispatch(ring, uvec.to(ring.dtype), delays,
-                                      state.step)
+        arrived_next = _ring_dispatch(ring, gather(uvec.to(ring.dtype)),
+                                      delays[:, lo:hi], state.step)
         new_state = SimState(
             caches=caches, pending={"ring": ring, "arrived": arrived_next},
             update_state=update_state, server_state=state.server_state,
@@ -304,13 +321,14 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
             torch.zeros((m.numel(),), device=m.device), m.reshape(-1),
             v.reshape(-1), gvec.reshape(-1), eta, fused["b1"], fused["b2"],
             fused["eps"], ostep)
-        uvec = dneg.reshape(p, -1)                               # [P, D]
+        uvec = dneg.reshape(hi - lo, -1)                         # [P, D]
         wd = fused["weight_decay"]
         if wd:
             # Decoupled decay against the post-delivery cache each gradient
             # was computed at: the packed image of the per-leaf AdamW rule.
             uvec = uvec - eta * wd * cflat
-        update_state = {"m": m2.reshape(p, -1), "v": v2.reshape(p, -1)}
+        update_state = {"m": m2.reshape(hi - lo, -1),
+                        "v": v2.reshape(hi - lo, -1)}
         delays = draw(state, bound)
         return finish_packed(state, caches, update_state, uvec, delays,
                              {"loss": losses}, comp)
@@ -330,7 +348,8 @@ def make_sim_step(update_fn: UpdateFn, cfg: StalenessConfig,
             updates, comp, cmetrics = compensate(comp, updates, delays,
                                                  state.step)
             metrics = {**metrics, **cmetrics}
-        pending = _dispatch(pending, updates, delays, slots)
+        pending = _dispatch(pending, tm.tree_map(gather, updates), delays,
+                            slots, lo)
         new_state = SimState(caches=caches, pending=pending,
                              update_state=update_state,
                              server_state=server_state,

@@ -30,4 +30,11 @@ from repro_torch.engine.hooks import (
     StdoutSink,
     TraceRecorderHook,
 )
+from repro_torch.engine.plan import (
+    Plan,
+    build,
+    make_train_engine,
+    plan_decode,
+    plan_prefill,
+)
 from repro_torch.engine.trainer import Hook, StepContext, Trainer, TrainResult

@@ -26,13 +26,12 @@ Every mode honours the compensation layer (``lr_scale``, ``compress``,
 ``EngineState.comp`` (``()`` when both knobs are ``"none"``).
 
 Routing: ``kernels="off"`` keeps the tree layouts in plain torch; ``"auto"``
-and ``"on"`` run the packed ring through the CUDA kernels. On one device
-the only placement veto is the JAX package's FSDP one
-(``kernel_placement_ok``, read from ``ArchDef.fsdp``): an FSDP arch keeps
+and ``"on"`` run the packed ring through the CUDA kernels, under the JAX
+package's placement verdict (``kernel_placement_ok``): an FSDP arch keeps
 the tree layout under ``"auto"`` (so it runs no kernel, and
-``meta["kernels"]["fallback"]`` says why) and refuses ``"on"``. One device
-has no data axis to keep, but the port takes the verdict as it is until
-multi-GPU placement gives it one (ROADMAP A.12). An Adam-spec optimizer on the packed path
+``meta["kernels"]["fallback"]`` says why) and refuses ``"on"``, on one
+device too; a mesh with a model axis > 1 vetoes the packed views under
+``"auto"``. An Adam-spec optimizer on the packed path
 runs the megakernel tail (``fused_update`` in the ring modes and in sync
 with a compensation knob, ``fused_adam`` in simulate and in plain dense
 sync) unless ``megakernel="off"``.
@@ -42,9 +41,14 @@ Delays: any ``DelaySpec`` in the sampled modes (samplers, ``Schedule``,
 ``Trace`` (measured wall-times), a ``Schedule`` or ``delay=None`` (the
 lognormal speed model).
 
-``arch=`` and ``shape=`` are accepted as the JAX signature has them; with
-no mesh, ``arch`` feeds the placement verdict and ``shape`` is unused (it
-sizes the JAX package's sharding plan).
+Placement: ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_host_mesh``)
+spreads the P workers over the mesh's data axis, one process a rank, and
+holds params on the model axis by the sharding rules
+(``engine/placement.py`` says which collective runs where). With ``shape``
+and a ``ModelAPI`` the engine also carries the placement plan
+(``engine.plan()``, ``engine/plan.py::attach_train_plan``); an
+``AbstractMesh`` builds that plan and runs nothing. ``arch`` feeds the
+placement verdict and the FSDP rule.
 
 ``server_side`` (the ablation that delivers arrivals through a
 ``server_apply`` transform) runs on the simulate tree route: under
@@ -52,8 +56,9 @@ sizes the JAX package's sharding plan).
 ["fallback"]`` says why), ``"on"`` refuses it, and the other modes accept
 the flag and ignore it, as in the JAX package.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A.12).
+Not run yet, and raising ``NotImplementedError`` that names the ROADMAP
+item: an FSDP arch over a data axis > 1 (A.17), the packed kernels or
+compression over a model axis > 1 (A.18), a ``pod`` axis (A.19).
 """
 from __future__ import annotations
 
@@ -72,8 +77,10 @@ from repro_torch.delays.models import DelaySpec, UniformDelay, as_spec
 from repro_torch.delays.multipod import MultiPod
 from repro_torch.delays.schedule import Schedule
 from repro_torch.delays.trace import Trace
+from repro_torch.engine import placement as placement_lib
 from repro_torch.kernels import dispatch
 from repro_torch.optim import optimizers as optlib
+from repro_torch.sharding import rules as rules_lib
 
 Pytree = Any
 
@@ -184,6 +191,26 @@ class Engine:
     _max_bound: int = 0
     _init_comp: Callable = None    # params -> comp state (None = no comp)
     _init_params: Callable = None  # (seed, device) -> params (ModelAPI)
+    mesh: Any = None
+    placement: Any = None          # MeshPlacement on a DeviceMesh
+    _plan: Any = None
+
+    def plan(self):
+        """The placement plan ``build_engine(mesh=, shape=)`` attached
+        (``engine/plan.py::Plan``)."""
+        if self._plan is None:
+            raise ValueError("no plan attached: build the engine with mesh= "
+                             "and shape= from a ModelAPI")
+        return self._plan
+
+    def _attach_plan(self, plan) -> None:
+        self._plan = plan
+
+    def _need_run(self) -> None:
+        if self.mesh is not None and self.placement is None:
+            raise ValueError(
+                "an abstract mesh plans placements only; run on a "
+                "DeviceMesh (launch.mesh.make_host_mesh)")
 
     def init(self, seed=0, params: Pytree = None,
              update_state: Pytree = None) -> EngineState:
@@ -193,14 +220,20 @@ class Engine:
         engine's device) seeds that initialiser and the engine's delay
         stream; ``update_state`` overrides the per-worker optimizer state in
         ``simulate`` mode (defaults to ``optimizer.init(params)``)."""
+        self._need_run()
         if params is None:
             if self._init_params is None:
                 raise ValueError(
                     "engine built from a bare loss function: pass params= "
                     "(or build from a ModelAPI, which knows how to init)")
             params = self._init_params(seed, self.device)
-        params = tm.tree_map(lambda x: torch.as_tensor(x).to(self.device),
-                             params)
+        params = tm.tree_map(
+            lambda x: torch.as_tensor(_whole(x)).to(self.device), params)
+        if self.placement is not None:
+            # Every rank made (or was given) the same whole params; each
+            # keeps its model-axis shards.
+            self.placement.set_full_shapes(params)
+            params = self.placement.shard_params(params)
         gen = (seed if isinstance(seed, torch.Generator)
                else device_lib.generator(seed, self.device))
         inner = self._init_inner(params, update_state, gen)
@@ -211,7 +244,9 @@ class Engine:
         """One engine step: ``(state, batch) -> (state, metrics)``. Numpy
         batches are moved to the engine's device. The step updates the
         input state's ring, moments and residuals in place (see
-        ``core/staleness.py`` and ``core/stale_sync.py``)."""
+        ``core/staleness.py`` and ``core/stale_sync.py``). On a mesh every
+        rank passes the same global batch and keeps its own rows."""
+        self._need_run()
         inner, comp, metrics = self._step_inner(
             state.inner, _to_device(batch, self.device), state.bound,
             state.comp)
@@ -219,8 +254,13 @@ class Engine:
 
     def params(self, state: EngineState) -> Pytree:
         """The evaluation view: worker 0's cache in ``simulate`` mode, the
-        global params otherwise."""
-        return self._params_of(state.inner)
+        global params otherwise. On a mesh it is a collective (simulate
+        broadcasts worker 0's cache from its rank), and the params come
+        back as DTensors on the model sub-mesh when the model axis > 1."""
+        params = self._params_of(state.inner)
+        if self.placement is not None:
+            params = self.placement.public(params)
+        return params
 
     def step_count(self, state: EngineState) -> int:
         return state.inner.step
@@ -264,26 +304,32 @@ class Engine:
         return dataclasses.replace(state, comp=comp)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _whole(x):
+    """A DTensor's whole value (a collective); anything else as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _not_run(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} does not run yet (ROADMAP {item})")
 
 
 def kernel_placement_ok(kernels: str, arch=None,
                         mesh=None) -> Tuple[bool, str]:
-    """Can packed flat [D] views keep this arch's placement? Returns
-    ``(ok, why_not)``. On one device only two vetoes of the JAX verdict
-    apply: ``kernels="off"``, and FSDP archs (whose params the JAX package
-    shards over 'data'; ``"on"`` does not override that one). The
-    model-axis veto needs a mesh (ROADMAP A.12)."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.12, multi-GPU placement")
+    """Can packed flat [D] views keep this (arch, mesh) placement? Returns
+    ``(ok, why_not)``, the JAX package's verdict: FSDP archs shard param
+    dims over 'data' and a mesh with a model axis > 1 shards them over
+    'model'; a packed view mixes leaves, so either placement would be lost.
+    ``kernels="on"`` overrides the model-axis veto but never the FSDP one.
+    ``mesh`` is a DeviceMesh, an AbstractMesh or a duck-typed mesh."""
     if kernels == "off":
         return False, "config off"
-    if isinstance(arch, str):
-        from repro_torch import configs as cfglib
-        arch = cfglib.REGISTRY.get(arch)
-    if getattr(arch, "fsdp", False):
+    arch_id = getattr(arch, "arch_id", arch)
+    if arch_id in rules_lib.FSDP_ARCHS or getattr(arch, "fsdp", False):
         return False, "FSDP placement"
+    if kernels == "auto" and mesh is not None:
+        extent = rules_lib.model_extent(mesh)
+        if extent > 1:
+            return False, f"model axis extent {extent}"
     return True, ""
 
 
@@ -296,6 +342,20 @@ def _stacked_loss(api_loss):
         return torch.stack([api_loss(tm.tree_index(params, i),
                                      tm.tree_index(batch, i))
                             for i in range(p)])
+    return loss
+
+
+def _mesh_loss(loss_fn, placement, mesh, per_worker: bool):
+    """The loss on one rank of a mesh: whole params gathered from the model
+    axis shards (``placement.full``), under the ambient mesh the MoE layer
+    groups its tokens by. Per-worker modes see the mesh, as each JAX worker
+    does; a rank of a batch-split mode holds one data shard, which is its
+    one group."""
+    ambient = mesh if per_worker or placement.n == 1 else None
+
+    def loss(params, batch, *rest):
+        with rules_lib.use_mesh(ambient):
+            return loss_fn(placement.full(params, lead=1), batch, *rest)
     return loss
 
 
@@ -315,22 +375,55 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     bypasses the loss/optimizer adaptation in ``simulate`` mode (see
     ``core.staleness.UpdateFn``); ``server_apply`` delivers its arrivals
     under ``cfg.server_side`` (see ``core.staleness.ServerApply``).
-    ``arch`` (an ``ArchDef`` or arch id) feeds the placement verdict;
-    ``shape`` is accepted and unused without a mesh, as in the JAX
-    package.
+    ``arch`` (an ``ArchDef`` or arch id) feeds the placement verdict.
+
+    ``mesh`` (a ``DeviceMesh`` over the initialised process group, whose
+    device type is ``device``'s) runs the engine on this rank's share of
+    the mesh (``engine/placement.py``); every rank builds the same engine
+    and steps it with the same batches. With ``shape`` and a ``ModelAPI``
+    the engine carries the placement plan (``engine.plan()``) under
+    ``sharding.rules.rules_for_arch``; an ``AbstractMesh`` builds that plan
+    and runs nothing.
     """
+    if device is None and mesh is not None and \
+            not placement_lib.is_device_mesh(mesh):
+        device = "meta"             # an abstract mesh plans, runs nothing
     dev = device_lib.resolve(device)
-    init_params = None
+    init_params, api = None, None
     if loss_fn is not None and hasattr(loss_fn, "loss"):
         api = loss_fn
         init_params = lambda seed, d: api.init(seed, device=d)[0]
         loss_fn = _stacked_loss(api.loss)
-    if mesh is not None:
-        raise _not_ported("mesh=", "A.12, multi-GPU placement")
     if loss_fn is not None and not callable(loss_fn):
         raise TypeError(f"loss_fn must be callable, got {type(loss_fn)!r}")
 
     mode = cfg.mode
+    arch_id = getattr(arch, "arch_id", arch)
+    if shape is not None and isinstance(shape, str):
+        from repro_torch.configs.base import SHAPES
+        shape = SHAPES[shape]
+    placement = None
+    if placement_lib.is_device_mesh(mesh):
+        if mesh.device_type != dev.type:
+            raise ValueError(f"mesh on {mesh.device_type!r} devices, engine "
+                             f"on {dev.type!r}: pass device= to match")
+        n = rules_lib.data_extent(mesh)
+        if n > 1 and kernel_placement_ok("on", arch)[1] == "FSDP placement":
+            raise _not_run(f"the FSDP arch {arch_id!r} over a data axis of "
+                           f"{n}", placement_lib.FSDP_ITEM)
+        model_specs = None
+        if rules_lib.model_extent(mesh) > 1 and api is not None:
+            from repro_torch.engine import plan as plan_lib
+            model_specs = plan_lib.model_specs(api, mesh, arch_id, shape)
+        placement = placement_lib.MeshPlacement(mesh, cfg.num_workers,
+                                                model_specs)
+        per_worker = mode in ("simulate", "ssp") or (
+            mode == "stale-psum" and cfg.per_worker_delays)
+        if loss_fn is not None:
+            loss_fn = _mesh_loss(loss_fn, placement, mesh, per_worker)
+        if placement.m > 1 and cfg.compress != "none":
+            raise _not_run(f"compression over a model axis of {placement.m}",
+                           placement_lib.MODEL_ITEM)
     # The ring (stale-psum, ssp) and the simulate pending ring go packed
     # unless kernels="off" or the arch's placement vetoes it. simulate's
     # server_side transform consumes per-leaf arrivals, so it stays on tree
@@ -345,7 +438,8 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                     "server transform consumes per-leaf arrivals; use "
                     "kernels='auto' (falls back to tree math)")
         else:
-            kernel_delivery, why = kernel_placement_ok(cfg.kernels, arch)
+            kernel_delivery, why = kernel_placement_ok(cfg.kernels, arch,
+                                                       mesh)
     if mode == "sync":
         delivery = "none"   # sync is buffer-free
     else:
@@ -356,9 +450,16 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                 "buffer cannot keep the 'embed'->data placement; use "
                 "kernels='auto' (falls back to tree math)")
         delivery = "packed" if kernel_delivery else "tree"
+    if placement is not None and placement.m > 1 and (
+            kernel_delivery or (mode == "sync" and kernel_placement_ok(
+                cfg.kernels, arch, mesh)[0])):
+        raise _not_run(f"the packed kernels over a model axis of "
+                       f"{placement.m}", placement_lib.MODEL_ITEM)
     meta = {"mode": mode, "workers": cfg.num_workers, "s": cfg.s,
             "device": str(dev),
             "kernels": {"config": cfg.kernels, "delivery": delivery}}
+    if mesh is not None:
+        meta["mesh"] = rules_lib.mesh_sizes(mesh)
     if why and mode != "sync":
         meta["kernels"]["fallback"] = why
     if cfg.delay is not None:
@@ -382,9 +483,10 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         per_source = (mode == "simulate"
                       or (mode in ("stale-psum", "ssp")
                           and cfg.per_worker_delays))
-        comp_workers = cfg.num_workers if per_source else None
-        init_comp = lambda params: compensator.init(
-            params, num_workers=comp_workers)
+        comp_workers = ((placement.rows if placement is not None
+                         else cfg.num_workers) if per_source else None)
+        init_comp = lambda params, rows=comp_workers: compensator.init(
+            params, num_workers=rows)
 
     def resolve_mega(supported: bool, why_not: str) -> bool:
         """Resolve the megakernel knob; records the verdict in meta."""
@@ -405,11 +507,18 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         meta["kernels"]["megakernel"] = "fused"
         return True
 
+    rows = placement.rows if placement is not None else None
+
     def engine(init_inner, step_inner, params_of, max_bound) -> Engine:
-        return Engine(cfg=cfg, device=dev, meta=meta, _init_inner=init_inner,
-                      _step_inner=step_inner, _params_of=params_of,
-                      _max_bound=max_bound, _init_comp=init_comp,
-                      _init_params=init_params)
+        eng = Engine(cfg=cfg, device=dev, meta=meta, _init_inner=init_inner,
+                     _step_inner=step_inner, _params_of=params_of,
+                     _max_bound=max_bound, _init_comp=init_comp,
+                     _init_params=init_params, mesh=mesh,
+                     placement=placement)
+        if mesh is not None and shape is not None and api is not None:
+            from repro_torch.engine import plan as plan_lib
+            plan_lib.attach_train_plan(eng, api, shape, arch_id=arch_id)
+        return eng
 
     if mode == "simulate":
         custom_update = update_fn is not None
@@ -437,9 +546,10 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                             eps=sp["eps"], weight_decay=sp["weight_decay"])
         raw = staleness.make_sim_step(update_fn, sim_cfg,
                                       server_apply=server_apply,
-                                      compensator=compensator, fused=fused_kw)
+                                      compensator=compensator, fused=fused_kw,
+                                      shard=placement)
 
-        def sim_init(params, update_state, gen):
+        def sim_init(params, update_state, gen, rows=rows):
             if update_state is None:
                 if mega:
                     # Fused layout: per-worker Adam moments live packed
@@ -450,17 +560,29 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                 else:
                     update_state = optimizer.init(params)
             return staleness.init_sim_state(params, update_state, sim_cfg,
-                                            gen)
+                                            gen, rows=rows)
 
         def sim_step_inner(inner, batch, bound, comp):
+            if placement is not None:
+                batch = tm.tree_map(placement.local_rows, batch)
             if compensator is None:
                 inner, m = raw(inner, batch, bound=bound)
             else:
                 inner, comp, m = raw(inner, batch, bound=bound, comp=comp)
+            if placement is not None:
+                # Per-worker rows from every rank, then the one-process
+                # mean; scalars of this rank's rows average over ranks.
+                m = {k: (placement.gather(v) if v.dim() >= 1
+                         else placement.mean(v))
+                     if torch.is_tensor(v) else v for k, v in m.items()}
             return inner, comp, _mean_over_workers(m)
 
-        return engine(sim_init, sim_step_inner,
-                      lambda inner: tm.tree_map(lambda x: x[0], inner.caches),
+        def sim_params(inner):
+            if placement is not None:
+                return placement.broadcast_rows0(inner.caches)
+            return tm.tree_map(lambda x: x[0], inner.caches)
+
+        return engine(sim_init, sim_step_inner, sim_params,
                       sim_cfg.delay.bound)
 
     if loss_fn is None or optimizer is None:
@@ -469,10 +591,11 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     if mode == "sync":
         # No ring, but the megakernel still fuses the packed Adam tail,
         # under the same placement verdict.
-        sync_ok, sync_why = kernel_placement_ok(cfg.kernels, arch)
+        sync_ok, sync_why = kernel_placement_ok(cfg.kernels, arch, mesh)
         mega = resolve_mega(sync_ok, sync_why or "kernels='off'")
         sync_raw = stale_sync.make_sync_train_step_lean(
-            loss_fn, optimizer, compensator=compensator, fused=mega)
+            loss_fn, optimizer, compensator=compensator, fused=mega,
+            shard=placement)
 
         def sync_step_inner(inner, batch, _bound, comp):
             if compensator is None:
@@ -481,7 +604,7 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             return sync_raw(inner, batch, comp=comp)
 
         return engine(
-            lambda params, _ust, _gen: stale_sync.init_sync_state(
+            lambda params, _ust, _gen, rows=None: stale_sync.init_sync_state(
                 params, optimizer, fused=mega),
             sync_step_inner, lambda inner: inner.params, 0)
 
@@ -550,7 +673,8 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                 f"{eff_bound + 1}")
         max_bound = eff_bound
     raw = stale_sync.make_stale_train_step(loss_fn, optimizer, scfg,
-                                           compensator=compensator)
+                                           compensator=compensator,
+                                           shard=placement)
 
     def ring_step_inner(inner, batch, bound, comp):
         if compensator is None:
@@ -559,6 +683,6 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         return raw(inner, batch, bound=bound, comp=comp)
 
     return engine(
-        lambda params, _ust, gen: stale_sync.init_state(params, optimizer,
-                                                        scfg, gen),
+        lambda params, _ust, gen, rows=rows: stale_sync.init_state(
+            params, optimizer, scfg, gen, rows=rows),
         ring_step_inner, lambda inner: inner.params, max_bound)

@@ -38,7 +38,8 @@ def main(argv=None):
                     help="argmax decoding (same as --temperature 0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1x1",
-                    help="host mesh 'DATAxMODEL' (only 1x1 runs)")
+                    help="host mesh 'DATAxMODEL' (only 1x1 runs: serving "
+                         "on a mesh is ROADMAP A.16)")
     ap.add_argument("--params", default=None, metavar="CKPT_DIR",
                     help="serve from the latest committed snapshot instead "
                          "of fresh-init params")

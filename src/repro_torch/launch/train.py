@@ -1,18 +1,24 @@
 """Training driver (twin of ``python -m repro.launch.train``):
 staleness-aware data-parallel training of a registered architecture through
-the ``repro_torch.engine`` surface, on one GPU.
+the ``repro_torch.engine`` surface, on one GPU or over a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --reduced --steps 200 --stale 4 --batch 16 --seq 128 --coherence \\
       [--cpu]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch deepseek-7b --reduced --mesh 2x1 --workers 2 [--cpu]
 
 Runs on CUDA unless ``--cpu`` is given (then the kernels' plain versions
 run). ``--mode`` selects the staleness regime (sync / stale-psum / ssp /
 simulate); the default ``auto`` picks sync when ``--stale 0`` and
 stale-psum otherwise. Every flag of the JAX driver is taken with the same
-meaning and the same errors; ``--mesh`` accepts only ``1x1`` until
-multi-GPU placement is ported (ROADMAP A.12). The JAX package's deprecated
-``launch/steps.py`` shim has no counterpart.
+meaning and the same errors. ``--mesh DATAxMODEL`` other than ``1x1``
+runs under ``torchrun`` with DATA x MODEL ranks (``gloo`` with ``--cpu``,
+``nccl`` on the cards): every rank builds the same engine and draws the
+same batches, and rank 0 prints the rows the one-process run prints. The
+coherence monitor, checkpoints and trace recording stay on the one-process
+run. The JAX package's deprecated ``launch/steps.py`` shim has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -107,7 +113,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--coherence", action="store_true",
                     help="enable the gradient-coherence monitor + controller")
     ap.add_argument("--mesh", default="1x1",
-                    help="host mesh 'DATAxMODEL' (only 1x1 runs)")
+                    help="host mesh 'DATAxMODEL'; other than 1x1, run under "
+                         "torchrun with DATA x MODEL ranks")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -142,15 +149,23 @@ def main(argv=None) -> dict:
                          f"--stale > 0 or --mode (got mode={mode})")
     arch = cfglib.get(args.arch)
     api = arch.api(reduced=args.reduced)
-    print(f"arch={args.arch} reduced={args.reduced} family={api.family} "
-          f"mode={mode} stale_s={args.stale} workers={args.workers}")
+    device = "cpu" if args.cpu else None
+    mesh = meshlib.parse_host_mesh(args.mesh, device=device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None and (args.coherence or args.ckpt_dir
+                             or args.trace_out):
+        raise SystemExit("--coherence, --ckpt-dir and --trace-out run on "
+                         "the one-process run only (no --mesh)")
+    say(f"arch={args.arch} reduced={args.reduced} family={api.family} "
+        f"mode={mode} stale_s={args.stale} workers={args.workers}")
 
     if mode != "sync" and args.batch % args.workers:
         raise SystemExit(f"mode={mode} needs --batch divisible by --workers")
-    meshlib.parse_host_mesh(args.mesh)      # '1x1' runs; one device
     opt_name = args.optimizer or arch.train_optimizer
     opt_kwargs = {"lr": args.lr} if args.lr else {}
-    if opt_name == "adam" and kernel_placement_ok(args.kernels, arch)[0]:
+    if opt_name == "adam" and kernel_placement_ok(args.kernels, arch,
+                                                  mesh)[0]:
         opt_kwargs["kernel"] = True   # fused-Adam hot spot (opt-in)
     opt = optlib.get_optimizer(opt_name, **opt_kwargs)
     shape = InputShape(f"train_cli_{args.seq}", args.seq, args.batch, "train")
@@ -161,14 +176,14 @@ def main(argv=None) -> dict:
                         delay=delay_spec, kernels=args.kernels,
                         compress=args.compress, lr_scale=args.lr_scale,
                         ssp_steps=max(args.steps, 1), ssp_seed=args.seed)
-    engine = build_engine(api, opt, ecfg, arch=arch, shape=shape,
-                          device="cpu" if args.cpu else None)
+    engine = build_engine(api, opt, ecfg, mesh=mesh, arch=arch, shape=shape,
+                          device=device)
     # The driver keeps no reference to the initial state once training
     # starts, so a full-width run holds one copy of its params, moments
     # and ring at a time.
     states = [engine.init(args.seed)]
     n_params = tm.tree_size(engine.params(states[0]))
-    print(f"params: {n_params/1e6:.1f}M")
+    say(f"params: {n_params/1e6:.1f}M")
 
     next_batch = make_batch_fn(
         api, args.batch, args.seq, args.seed,
@@ -189,7 +204,8 @@ def main(argv=None) -> dict:
     if args.trace_out:
         hooks.append(TraceRecorderHook(args.trace_out,
                                        num_workers=args.workers))
-    hooks.append(StdoutSink())  # sinks last: they see hook-merged rows
+    if lead:
+        hooks.append(StdoutSink())  # sinks last: they see hook-merged rows
 
     result = Trainer(engine, hooks=hooks).run(
         next_batch, args.steps, state=states.pop(), log_every=args.log_every)
@@ -197,8 +213,8 @@ def main(argv=None) -> dict:
     if delay_spec is not None and result.history:
         realized = result.history[-1].get("mean_total_delay")
         if realized is not None:
-            print(f"delay: realized mean total delay {realized:.3f} "
-                  f"(nominal {delay_spec.mean_total_delay:.3f})")
+            say(f"delay: realized mean total delay {realized:.3f} "
+                f"(nominal {delay_spec.mean_total_delay:.3f})")
 
     if (args.compress != "none" or args.lr_scale != "none") and result.history:
         last = result.history[-1]
@@ -207,28 +223,30 @@ def main(argv=None) -> dict:
             bits.append(f"realized sparsity {last['sparsity']:.3f}")
         if "lr_scale" in last:
             bits.append(f"effective factor {last['lr_scale']:.4f}")
-        print("compensate: " + " ".join(bits))
+        say("compensate: " + " ".join(bits))
 
     if args.kernels != "off":
         rep = engine.dispatch_report()
-        print(f"kernel dispatch: config={rep['config']} "
-              f"delivery={rep['delivery']}")
+        say(f"kernel dispatch: config={rep['config']} "
+            f"delivery={rep['delivery']}")
         for op, backend in rep["decisions"].items():
-            print(f"  {op:<16} -> {backend}")
+            say(f"  {op:<16} -> {backend}")
 
-    if args.out:
+    if args.out and lead:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"args": vars(args), "history": result.history,
                        "params_m": n_params / 1e6}, f, indent=1)
     if result.history:
-        print(f"done: {args.steps} steps in {result.wall_s:.1f}s "
-              f"(final loss {result.history[-1]['loss']:.4f})")
+        say(f"done: {args.steps} steps in {result.wall_s:.1f}s "
+            f"(final loss {result.history[-1]['loss']:.4f})")
     else:
-        print("done")
+        say("done")
     return {"engine": engine, "result": result, "params_m": n_params / 1e6}
 
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -2,8 +2,7 @@
 
 Params are built as nested dicts whose leaves are ``Param(value, axes)``;
 ``unzip`` splits one tree into (values, axes). The logical-axes trees are
-kept as plain tuples: nothing in the port reads them until multi-GPU
-placement (ROADMAP A.12).
+plain tuples; ``sharding/rules.py`` maps them to mesh placements.
 
 The initialisers draw from a ``torch.Generator``, so the weights differ from
 ``jax.random``'s; tests carry JAX's weights across with

@@ -1,15 +1,19 @@
-"""Mixture-of-experts FFN (port of ``repro/models/moe.py``), one device.
+"""Mixture-of-experts FFN (port of ``repro/models/moe.py``).
 
 Sort-based dispatch with a fixed capacity (GShard-style dropping): each
 (token, choice) entry is ranked within its expert by a stable sort, entries
 ranked past the capacity go to one overflow slot whose row is dropped, the
-experts run as one batched matmul over ``[E, cap, d]`` buffers, and the
+experts run as one batched matmul over ``[G, E, cap, d]`` buffers, and the
 outputs are gathered back and weighted.
 
-The JAX package splits tokens into data-parallel groups when a mesh is
-ambient; on one device there is none, so there is one group and no sharding
-constraint. The grouped, expert-sharded path waits for multi-GPU placement
-(ROADMAP A.12).
+Grouped local dispatch, as in the JAX package: the tokens split into G
+groups, G the largest divisor of the token count within the data extent of
+the ambient mesh (``sharding.rules.use_mesh``; one group without one, and
+one group for decode-sized work, ``t * k <= 4 * E``). Each group ranks and
+drops against its own capacity ``cf * T/G * k / E``, and the aux loss is the
+mean of the groups'. On a mesh the engine decides what a rank's tokens are:
+a per-worker step sees the mesh and groups each worker's tokens, a
+batch-split step holds one data shard, which is its one group.
 
 Routed-expert counts are padded (dead experts: router logits forced to
 ``NEG_INF``, so they are never selected).
@@ -25,6 +29,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules as rules_lib
 
 NEG_INF = -1e9
 
@@ -105,9 +110,18 @@ def capacity(tokens: int, moe) -> int:
     return min(tokens * k, max(int(moe.capacity_factor * tokens * k / e), 8))
 
 
-def _dispatch(xt, logits, moe, cap: int, dtype):
-    """Scatter the tokens into their ``[E, cap, d]`` buffers; run nothing.
-    Returns (xin [E,cap,d], slot [t*k], w_keep [t*k], aux)."""
+def groups_for(tokens: int, moe) -> int:
+    """Dispatch groups: the largest divisor of ``tokens`` within the
+    ambient mesh's data extent; one for decode-sized work."""
+    extent = rules_lib.data_extent(rules_lib.ambient_mesh())
+    g = max(g for g in range(1, extent + 1)
+            if tokens % g == 0 and extent % g == 0)
+    return 1 if tokens * moe.top_k <= 4 * moe.num_experts else g
+
+
+def _dispatch_group(xt, logits, moe, cap: int, dtype):
+    """Scatter one group's tokens into their ``[E, cap, d]`` buffers; run
+    nothing. Returns (xin [E,cap,d], slot [t*k], w_keep [t*k], aux)."""
     t, d = xt.shape
     weights, idx, aux = router_topk(logits, moe)
     k, e = moe.top_k, moe.num_experts
@@ -126,25 +140,35 @@ def _dispatch(xt, logits, moe, cap: int, dtype):
 
 
 def moe_ffn(p: Any, x: torch.Tensor, moe, dtype):
-    """x [B, S, d] -> (y [B, S, d], aux_loss), one dispatch group."""
+    """x [B, S, d] -> (y [B, S, d], aux_loss) over ``groups_for`` groups."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     k, e = moe.top_k, moe.num_experts
     logits = xt.float() @ p["router"]
-    cap = capacity(t, moe)
-    xin, slot, w_keep, aux = _dispatch(xt, logits, moe, cap, dtype)
+    groups = groups_for(t, moe)
+    t_loc = t // groups
+    cap = capacity(t_loc, moe)
+    parts = [_dispatch_group(xt[g * t_loc:(g + 1) * t_loc],
+                             logits[g * t_loc:(g + 1) * t_loc], moe, cap,
+                             dtype) for g in range(groups)]
+    # [G, E, cap, d]; one group (one device, decode) is a view, no copy.
+    xin = (parts[0][0].unsqueeze(0) if groups == 1
+           else torch.stack([q[0] for q in parts]))
 
-    gate = torch.einsum("ecd,edf->ecf", xin, p["w_gate"].to(dtype))
-    up = torch.einsum("ecd,edf->ecf", xin, p["w_up"].to(dtype))
-    h = torch.einsum("ecf,efd->ecd", L.swiglu(gate, up), p["w_down"].to(dtype))
+    gate = torch.einsum("gecd,edf->gecf", xin, p["w_gate"].to(dtype))
+    up = torch.einsum("gecd,edf->gecf", xin, p["w_up"].to(dtype))
+    h = torch.einsum("gecf,efd->gecd", L.swiglu(gate, up),
+                     p["w_down"].to(dtype))
 
-    # Combine: gather expert outputs back to entries (the overflow row is
-    # zero), weight them and sum each token's k choices.
-    h_flat = torch.cat([h.reshape(e * cap, d),
-                        torch.zeros((1, d), dtype=h.dtype, device=h.device)])
-    y_ent = h_flat[slot] * w_keep.to(dtype)[:, None]
-    y = y_ent.reshape(t, k, d).sum(dim=1)
+    # Combine, per group: gather expert outputs back to entries (the
+    # overflow row is zero), weight them and sum each token's k choices.
+    zero = torch.zeros((1, d), dtype=h.dtype, device=h.device)
+    ys = [(torch.cat([h[g].reshape(e * cap, d), zero])[slot]
+           * w_keep.to(dtype)[:, None]).reshape(t_loc, k, d).sum(dim=1)
+          for g, (_, slot, w_keep, _) in enumerate(parts)]
+    y = ys[0] if groups == 1 else torch.cat(ys)
+    aux = torch.stack([q[3] for q in parts]).mean()
 
     if "shared" in p:
         sp = p["shared"]

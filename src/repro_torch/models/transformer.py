@@ -25,8 +25,10 @@ reference's parameter and cache layouts kept as they are so that
 layer in ``jax.checkpoint``): it changes no number, only the memory a
 training step holds; each cross layer is recomputed as one unit, as the
 JAX package checkpoints its ``run_cross``. The MoE FFN (``models/moe.py``)
-runs its one-device path. ``cfg.tp`` and the attention sharding modes
-matter only to multi-GPU placement (ROADMAP A.12).
+groups its tokens by the ambient mesh. ``cfg.tp`` and the attention
+sharding modes steer the JAX package's tensor-parallel layout; the port's
+model axis gathers whole params for the forward pass
+(``engine/placement.py``), so they change nothing here.
 """
 from __future__ import annotations
 

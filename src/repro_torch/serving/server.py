@@ -38,6 +38,7 @@ from repro_torch import configs as cfglib
 from repro_torch import device as device_lib
 from repro_torch.configs.base import InputShape
 from repro_torch.engine import plan as planlib
+from repro_torch.engine import placement as placement_lib
 from repro_torch.launch import mesh as meshlib
 from repro_torch.serving.batcher import ContinuousBatcher, SlotState
 from repro_torch.serving.cache import PagedDecodeCache, build_layout
@@ -163,7 +164,10 @@ class Server:
         self.device = device_lib.resolve(device)
         self.arch = cfglib.get(cfg.arch)
         self.api = self.arch.api(reduced=cfg.reduced, overrides=cfg.overrides)
-        meshlib.parse_host_mesh(cfg.mesh)            # only "1x1" runs
+        if meshlib.parse_spec(cfg.mesh) != (1, 1):
+            raise NotImplementedError(
+                f"mesh {cfg.mesh!r}: serving on a mesh does not run yet "
+                f"(ROADMAP {placement_lib.SERVE_ITEM})")
         self.layout = build_layout(self.api, cfg.max_seq, cfg.page_tokens,
                                    device=self.device)
 
@@ -179,7 +183,7 @@ class Server:
                                       lazy=self._lazy_pages,
                                       device=self.device)
         self.splan = planlib.plan_serve_step(
-            self.arch, dshape, layout=self.layout,
+            self.arch, dshape, None, layout=self.layout,
             num_pages=self.cache.num_pages, overrides=cfg.overrides,
             reduced=cfg.reduced, paged=cfg.paged)
         self._prefill_plans = {}
@@ -241,7 +245,7 @@ class Server:
         if fn is None:
             fn = planlib.plan_prefill(
                 self.arch, InputShape(f"serve_prefill_{length}x{batch}",
-                                      length, batch, "prefill"),
+                                      length, batch, "prefill"), None,
                 overrides=self.cfg.overrides,
                 reduced=self.cfg.reduced)
             self._prefill_plans[(length, batch)] = fn

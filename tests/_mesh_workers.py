@@ -1,0 +1,233 @@
+"""Rank programs for the port's mesh tests (``test_torch_mesh_engine.py``).
+
+Each spawned process joins a ``gloo`` group, runs every case of its world
+size on CPU tensors and saves what the parent compares (``rank<r>.pt``).
+The same case functions run in the parent with no mesh, as the one-process
+reference. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch import delays as tdel
+from repro_torch import treemath as tm
+from repro_torch.data import synthetic
+from repro_torch.engine import EngineConfig, build_engine
+from repro_torch.engine import plan as planlib
+from repro_torch.models import mlp as tmlp
+from repro_torch.optim import optimizers as topt
+from repro_torch.sharding import rules as rules_lib
+
+P, DIM, B_WORKER, STEPS, S = 4, 24, 6, 6, 3
+LM_STEPS, LM_BATCH, LM_SEQ = 3, 4, 16
+
+# name -> (EngineConfig kwargs, optimizer, exact). ``exact``: the mesh
+# gathers the rows and reduces them in the one-process order (bitwise);
+# otherwise an all-reduce averages batch-split gradients (fp32 roundoff).
+MLP_CASES = {
+    "simulate-sgd-tree": (dict(mode="simulate", s=S), "sgd", True),
+    "simulate-adam-packed": (dict(mode="simulate", s=S, kernels="on"),
+                             "adam", True),
+    "simulate-topk-inverse": (dict(mode="simulate", s=S, kernels="on",
+                                   compress="topk:0.3", lr_scale="inverse"),
+                              "sgd", True),
+    "simulate-uniform-delays": (dict(mode="simulate", s=S, kernels="on",
+                                     delay="uniform"), "adam", True),
+    "stale-psum-adam-tree": (dict(mode="stale-psum", s=S), "adam", True),
+    "stale-psum-adam-fused": (dict(mode="stale-psum", s=S, kernels="on"),
+                              "adam", True),
+    "stale-psum-sgd-topk": (dict(mode="stale-psum", s=S, kernels="on",
+                                 compress="topk:0.3"), "sgd", True),
+    "stale-psum-adam-topk-fused": (dict(mode="stale-psum", s=S, kernels="on",
+                                        compress="topk:0.3", ef_momentum=0.5),
+                                   "adam", True),
+    "stale-psum-tree-topk": (dict(mode="stale-psum", s=S,
+                                  compress="topk:0.3"), "sgd", True),
+    "stale-psum-aggregate": (dict(mode="stale-psum", s=S, kernels="on",
+                                  per_worker_delays=False), "adam", False),
+    "ssp-adam": (dict(mode="ssp", s=S, kernels="on"), "adam", True),
+    "ssp-tree": (dict(mode="ssp", s=S), "sgd", True),
+    "sync-adam-fused": (dict(mode="sync", kernels="on"), "adam", False),
+    "sync-sgd-tree": (dict(mode="sync"), "sgd", False),
+    "simulate-three-workers": (dict(mode="simulate", s=S, num_workers=3),
+                               "sgd", True),
+}
+
+
+def _data():
+    return synthetic.teacher_classification(seed=0, dim=DIM, n_train=512,
+                                            n_test=64)
+
+
+def _optimizer(name: str):
+    return topt.adam(1e-2) if name == "adam" else topt.sgd(0.1)
+
+
+def _config(kw: dict) -> EngineConfig:
+    kw = dict(kw)
+    p = kw.pop("num_workers", P)
+    if kw.pop("delay", None) == "uniform":
+        return EngineConfig(num_workers=p, **kw)
+    if kw["mode"] in ("simulate", "stale-psum", "ssp") and \
+            kw.get("per_worker_delays", True):
+        table = np.random.default_rng(p).integers(0, S, (STEPS + 2, p))
+        kw["delay"] = tdel.Schedule(table)
+    return EngineConfig(num_workers=p, **kw)
+
+
+def mlp_case(name: str, mesh=None):
+    """Run one MLP case for STEPS steps; returns {"params", "losses",
+    "workers"} with whole tensors (simulate: every worker's cache)."""
+    kw, opt, _ = MLP_CASES[name]
+    cfg = _config(kw)
+    data = _data()
+    params = tmlp.init(0, tmlp.MLPConfig(in_dim=DIM, hidden=16, depth=2),
+                       device="cpu")
+    eng = build_engine(tmlp.loss_fn, _optimizer(opt), cfg, mesh=mesh,
+                       device="cpu")
+    state = eng.init(1, params=params)
+    p = cfg.num_workers
+    losses = []
+    for t in range(STEPS):
+        lo = t * p * B_WORKER
+        x = torch.from_numpy(data.x_train[lo:lo + p * B_WORKER])
+        y = torch.from_numpy(data.y_train[lo:lo + p * B_WORKER])
+        if cfg.mode == "simulate":
+            x, y = x.reshape(p, B_WORKER, -1), y.reshape(p, B_WORKER)
+        state, m = eng.step(state, (x, y))
+        losses.append(float(m["loss"]))
+    out = {"params": tm.tree_map(torch.clone, eng.params(state)),
+           "losses": losses}
+    if cfg.mode == "simulate":
+        caches = state.inner.caches
+        if eng.placement is not None:
+            caches = eng.placement.gather_tree(caches)
+        out["workers"] = tm.tree_map(torch.clone, caches)
+    return out
+
+
+LM_CASES = {
+    "deepseek-7b-stale-psum": ("deepseek-7b", dict(mode="stale-psum",
+                                                   stale_s=2)),
+    "deepseek-7b-sync": ("deepseek-7b", dict(mode="sync")),
+    "qwen2-moe-stale-psum": ("qwen2-moe-a2.7b", dict(mode="stale-psum",
+                                                     stale_s=2)),
+}
+LM_MESH = rules_lib.AbstractMesh(("data", "model"), (2, 2))
+
+
+def lm_case(name: str, mesh=None):
+    """A reduced LM through ``make_train_engine`` (kernels auto, P = 2);
+    without a mesh it runs under ``use_mesh(LM_MESH)``, so the MoE layer
+    groups its tokens as the sharded run does."""
+    from repro_torch.configs.base import InputShape
+    arch, kw = LM_CASES[name]
+    shape = InputShape("mesh_lm", LM_SEQ, LM_BATCH, "train")
+    eng = planlib.make_train_engine(arch, shape, mesh, reduced=True,
+                                    num_workers=2, kernels="auto",
+                                    device="cpu", **kw)
+    stream = synthetic.token_lm_stream(3, eng_vocab(arch), LM_SEQ, LM_BATCH)
+    with rules_lib.use_mesh(LM_MESH if mesh is None else None):
+        state = eng.init(0)
+        losses = []
+        for _ in range(LM_STEPS):
+            state, m = eng.step(state, {"tokens": next(stream)})
+            losses.append(float(m["loss"]))
+    params = eng.params(state)
+    params = tm.tree_map(lambda x: x.full_tensor() if hasattr(
+        x, "full_tensor") else x.clone(), params)
+    return {"params": params, "losses": losses,
+            "kernels": eng.meta["kernels"]}
+
+
+def eng_vocab(arch: str) -> int:
+    from repro_torch import configs as cfglib
+    return cfglib.get(arch).api(reduced=True).vocab_real
+
+
+def restore_case(mesh, tmpdir: str, params_spec=(None,)):
+    """Save a worker-stacked tree on rank 0; every rank restores it with a
+    plan's placements (``params_spec`` on a 2x2 mesh: ``("model",)``, a
+    DTensor). Returns (restored, whole, step), DTensors as their local
+    shards."""
+    import torch.distributed as dist
+    whole = {"caches": torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6),
+             "params": torch.linspace(-1, 1, 10),
+             "step": torch.tensor(7)}
+    path = ckpt.step_path(tmpdir, 3)
+    if dist.get_rank() == 0:
+        ckpt.save(path, whole, step=3)
+    dist.barrier()
+    sh = rules_lib.named({"caches": ("data", None), "params": params_spec,
+                          "step": ()}, mesh)
+    got, step, _ = ckpt.restore(path, like=whole, shardings=sh)
+    got = {k: (v.to_local(), type(v).__name__) if hasattr(v, "to_local")
+           else v for k, v in got.items()}
+    return got, whole, step
+
+
+def constraint_case(mesh) -> dict:
+    """``constraint``/``ambient_constraint`` on DTensors of a 2x2 mesh:
+    each result's placements (as strings) and whether its whole tensor is
+    the input's."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    whole = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    rep = distribute_tensor(whole, mesh, [Replicate(), Replicate()])
+    cols = distribute_tensor(whole, mesh, [Replicate(), Shard(1)])
+    with rules_lib.use_mesh(mesh):
+        outs = {"batch-mlp": rules_lib.constraint(rep, mesh, "batch", "mlp"),
+                "data-unc": rules_lib.ambient_constraint(cols, "data", "UNC"),
+                "data-none": rules_lib.ambient_constraint(cols, "data", None),
+                "pod-only": rules_lib.ambient_constraint(cols, "pod", None)}
+    return {k: ([str(pl) for pl in v.placements],
+                torch.equal(v.full_tensor(), whole)) for k, v in outs.items()}
+
+
+def _raised(build) -> str:
+    try:
+        build()
+    except NotImplementedError as e:
+        return str(e)
+    return "did not raise"
+
+
+def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Spawn target: join the gloo group and run this world size's cases."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = {"raises": {}}
+        mesh = make_host_mesh(world, 1, device="cpu")
+        out["raises"]["fsdp"] = _raised(lambda: planlib.make_train_engine(
+            "deepseek-67b", "train_4k", mesh, stale_s=2, reduced=True,
+            device="cpu"))
+        for name in MLP_CASES:
+            out[name] = mlp_case(name, mesh)
+        if world == 2:
+            out["restore"] = restore_case(mesh, out_dir)
+            out["plan_in_shardings"] = planlib.make_train_engine(
+                "deepseek-7b", "train_4k", mesh, stale_s=2, reduced=True,
+                device="cpu").plan().in_shardings[0].inner.gbuf
+        if world == 4:
+            mesh22 = make_host_mesh(2, 2, device="cpu")
+            out["restore"] = restore_case(mesh22, out_dir, ("model",))
+            out["constraint"] = constraint_case(mesh22)
+            for what, kw in (("model-compress", dict(compress="topk:0.1")),
+                             ("model-kernels", dict(kernels="on"))):
+                out["raises"][what] = _raised(lambda: build_engine(
+                    tmlp.loss_fn, topt.sgd(0.1),
+                    EngineConfig(mode="stale-psum", s=2, num_workers=2, **kw),
+                    mesh=mesh22, device="cpu"))
+            for name in LM_CASES:
+                out[name] = lm_case(name, mesh22)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()

@@ -99,8 +99,17 @@ def test_restore_structure_mismatch_and_shardings(tmp_path):
     ckpt.save(path, _tree(1.0), step=1)
     with pytest.raises(ValueError, match="structure mismatch"):
         ckpt.restore(path, like={"w": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="A.12"):
-        ckpt.restore(path, like=_tree(0.0), shardings={"w": None, "b": None})
+    # restore(shardings=) is ported (A.12): None leaves keep the whole
+    # tensor; a placement on an abstract mesh has nowhere to go. The
+    # two-rank placement is in test_torch_mesh_engine.py.
+    got, _, _ = ckpt.restore(path, like=_tree(0.0),
+                             shardings={"w": None, "b": None})
+    _equal_bitwise(got, _tree(1.0))
+    from repro_torch.sharding.rules import AbstractMesh, NamedSharding
+    with pytest.raises(ValueError, match="abstract mesh"):
+        ckpt.restore(path, like=_tree(0.0), shardings={
+            "w": NamedSharding(AbstractMesh(("data",), (2,)), ("data",)),
+            "b": None})
     with open(path[:-4] + ".meta.json") as f:
         assert json.load(f)["shardings"] == [None, None]
 

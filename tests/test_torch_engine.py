@@ -11,6 +11,7 @@ logit tie broken differently moves it by 1/512, so curves may differ by
 2/512.
 """
 import ast
+import contextlib
 import os
 import subprocess
 import sys
@@ -44,6 +45,23 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 P = 4
+
+
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A 1x1 DeviceMesh over a one-rank gloo group, torn down after."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -193,24 +211,41 @@ def test_engine_surface(setup):
 
 
 @pytest.mark.parametrize("kw,mesh,item", [
-    (dict(mode="stale-psum", s=2), object(), "A.12"),
-    (dict(mode="ssp", s=2), object(), "A.12"),
-    (dict(mode="sync"), object(), "A.12"),
+    (dict(mode="stale-psum", s=2), "1x1", "A.12"),
+    (dict(mode="ssp", s=2), "1x1", "A.12"),
+    (dict(mode="sync"), "1x1", "A.12"),
     (dict(mode="stale-psum", s=2, server_side=True), None, "A.2"),
     (dict(mode="simulate", compress="topk:0.1", server_side=True), None,
      "A.2"),
     (dict(mode="simulate", server_side=True), None, "A.2")])
 def test_unported_modes_and_options_raise(kw, mesh, item):
-    """Every mode and compensation knob is ported; mesh= (A.12) still
-    raises, naming its ROADMAP item. The server_side ablation (A.2) is
+    """Every mode and compensation knob is ported. mesh= (A.12) is ported
+    too: each A.12 case now steps on a 1x1 ``DeviceMesh`` over a one-rank
+    gloo group, bitwise as the mesh-less engine (the many-rank runs are in
+    ``test_torch_mesh_engine.py``). The server_side ablation (A.2) is
     ported: each A.2 case now builds as the JAX engine does. In simulate it
     needs a server_apply (both raise ValueError without one) and takes tree
     delivery; stale-psum accepts the flag and ignores it."""
     cfg = EngineConfig(num_workers=2, **kw)
     if item == "A.12":
-        with pytest.raises(NotImplementedError, match=item):
-            build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg, mesh=mesh,
-                         device="cpu")
+        with _one_rank_mesh() as host_mesh:
+            meshed = build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg,
+                                  mesh=host_mesh, device="cpu")
+            plain = build_engine(tmlp.loss_fn, topt.sgd(0.1), cfg,
+                                 device="cpu")
+            params = tmlp.init(0, tmlp.MLPConfig(in_dim=8, hidden=4),
+                               device="cpu")
+            gen = torch.Generator().manual_seed(0)
+            batch = (torch.randn(8, 8, generator=gen),
+                     torch.randint(0, 10, (8,), generator=gen))
+            a, b = meshed.init(0, params=params), plain.init(0, params=params)
+            for _ in range(3):
+                (a, ma), (b, mb) = meshed.step(a, batch), plain.step(b, batch)
+                assert torch.equal(ma["loss"], mb["loss"])
+            assert meshed.meta["mesh"] == {"data": 1, "model": 1}
+            assert all(torch.equal(x, y) for x, y in zip(
+                tm.tree_leaves(meshed.params(a)),
+                tm.tree_leaves(plain.params(b))))
         return
     jcfg = JConfig(num_workers=2, **kw)
     apply_kw = {}
@@ -297,10 +332,15 @@ def test_config_validation_and_mesh():
     assert EngineConfig(mode="sync", delay=tdel.Zero()).delay == tdel.Zero()
     with pytest.raises(ValueError, match="Schedule"):
         EngineConfig(mode="ssp", s=2, delay=tdel.UniformDelay(2))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        build_engine(tmlp.loss_fn, topt.sgd(0.1),
-                     EngineConfig(mode="simulate"), mesh=object(),
-                     device="cpu")
+    # An abstract mesh plans placements (A.12) and runs nothing.
+    from repro_torch.sharding.rules import AbstractMesh
+    planned = build_engine(tmlp.loss_fn, topt.sgd(0.1),
+                           EngineConfig(mode="simulate"),
+                           mesh=AbstractMesh(("data", "model"), (2, 1)),
+                           device="cpu")
+    with pytest.raises(ValueError, match="abstract mesh"):
+        planned.init(0, params=tmlp.init(0, tmlp.MLPConfig(in_dim=8),
+                                         device="cpu"))
 
 
 # -- guards ---------------------------------------------------------------------

@@ -1,0 +1,208 @@
+"""The port's engine across the ranks of a ``DeviceMesh``, held against the
+one-process engine on the CPU (``gloo``).
+
+Each world size starts its process group once (``_mesh_workers.rank_main``
+in 2 and 4 processes, about 7 and 12 s) and runs every case there; the
+parent runs the same cases with no mesh. What the tolerance is, and why:
+
+* **Bitwise** wherever the mesh gathers a crossing's rows and reduces them
+  in the one-process order: simulate's dispatch (every source into every
+  destination), the per-worker rings of stale-psum and ssp (the delayed
+  aggregate), and the 2x2 runs of those modes, whose model axis only
+  gathers whole params for the loss.
+* **fp32 roundoff** where an all-reduce averages the gradients of a split
+  batch (sync, the aggregate ring): each rank's backward sums its half of
+  the batch, and the mean of two halves is not one backward's sum over
+  the whole batch. MLP params within 1e-6, losses within 1e-6 relative;
+  the 2x2 deepseek-7b sync run, whose Adam steps turn roundoff in
+  near-zero gradient elements into steps of up to ``lr``, within 2e-4 in
+  params and 1e-5 relative in loss.
+"""
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import _mesh_workers as W
+from repro_torch import treemath as tm
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "tests"), env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    return env
+
+
+def _run_world(world: int, out_dir: str) -> list:
+    """Start ``world`` rank processes once; returns each rank's results."""
+    port = _free_port()
+    code = ("import sys, _mesh_workers as W; "
+            "W.rank_main(int(sys.argv[1]), int(sys.argv[2]), "
+            "int(sys.argv[3]), sys.argv[4])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world), str(port), out_dir],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    return {w: _run_world(w, str(tmp_path_factory.mktemp(f"world{w}")))
+            for w in (2, 4)}
+
+
+@pytest.fixture(scope="module")
+def one_process():
+    return {name: W.mlp_case(name) for name in W.MLP_CASES}
+
+
+def _max_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tm.tree_leaves(a), tm.tree_leaves(b)))
+
+
+def _same(got: dict, ref: dict, exact: bool, atol: float = 1e-6,
+          rtol: float = 1e-6) -> None:
+    keys = [k for k in ("params", "workers") if k in ref]
+    for k in keys:
+        assert tm.tree_structure(got[k]) == tm.tree_structure(ref[k])
+        if exact:
+            assert all(torch.equal(x, y) for x, y in
+                       zip(tm.tree_leaves(got[k]), tm.tree_leaves(ref[k]))), k
+        else:
+            assert _max_diff(got[k], ref[k]) <= atol, k
+    if exact:
+        assert got["losses"] == ref["losses"]
+    else:
+        for g, r in zip(got["losses"], ref["losses"]):
+            assert abs(g - r) <= rtol * abs(r)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", list(W.MLP_CASES))
+def test_sharded_mlp_equals_one_process(worlds, one_process, world, case):
+    """All four modes at data = 2 and 4 (P = 4; the 3-worker case
+    replicates the worker axis, which neither extent divides). Every rank
+    ends with the same params, and simulate's gathered caches equal every
+    worker's cache of the one-process run."""
+    exact = W.MLP_CASES[case][2]
+    for rank_out in worlds[world]:
+        _same(rank_out[case], one_process[case], exact)
+
+
+@pytest.mark.parametrize("case", list(W.LM_CASES))
+def test_2x2_lm_equals_one_process(worlds, case):
+    """Reduced deepseek-7b and qwen2-moe-a2.7b on a 2x2 mesh: params on the
+    model axis by the rules, the worker axis over data, against one process
+    under ``use_mesh`` of the same shape (so the MoE groups its tokens the
+    same way). Kernels are ``auto``, which the model axis vetoes."""
+    ref = W.lm_case(case)
+    sync = "sync" in case
+    for rank_out in worlds[4]:
+        got = rank_out[case]
+        assert got["kernels"]["delivery"] == ("none" if sync else "tree")
+        if sync:
+            _same(got, ref, exact=False, atol=2e-4, rtol=1e-5)
+        else:
+            _same(got, ref, exact=True)
+
+
+def test_restore_places_each_leaf(worlds):
+    """``restore(shardings=)`` gives each rank its worker rows of a
+    ``("data", None)`` leaf and the replicated leaves whole, bit for bit;
+    on a 2x2 mesh a ``("model",)`` leaf comes back as a DTensor holding
+    this rank's model shard (rank r sits at data r // 2, model r % 2)."""
+    for rank, out in enumerate(worlds[2]):
+        got, whole, step = out["restore"]
+        assert step == 3
+        assert torch.equal(got["caches"], whole["caches"][2 * rank:2 * rank + 2])
+        assert torch.equal(got["params"], whole["params"])
+        assert torch.equal(got["step"], whole["step"])
+    for rank, out in enumerate(worlds[4]):
+        got, whole, _ = out["restore"]
+        d, m = divmod(rank, 2)
+        assert torch.equal(got["caches"], whole["caches"][2 * d:2 * d + 2])
+        local, kind = got["params"]
+        assert kind == "DTensor"
+        assert torch.equal(local, whole["params"][5 * m:5 * m + 5])
+
+
+def test_constraints_redistribute_dtensors(worlds):
+    """On a 2x2 mesh, ``constraint`` and ``ambient_constraint`` move a
+    DTensor to its spec's placements (``"UNC"`` keeps a dim's sharding, an
+    axis the mesh lacks is dropped) and keep its whole tensor."""
+    for out in worlds[4]:
+        assert out["constraint"] == {
+            "batch-mlp": (["S(0)", "S(1)"], True),
+            "data-unc": (["S(0)", "S(1)"], True),
+            "data-none": (["S(0)", "R"], True),
+            "pod-only": (["R", "S(1)"], True)}
+
+
+def test_plan_on_a_device_mesh(worlds):
+    """A real 2x1 mesh plans as JAX does: the per-worker ring's worker dim
+    on 'data', its param dims on 'model'."""
+    gbuf = worlds[2][0]["plan_in_shardings"]
+    assert gbuf["embed"] == (None, "data", "model", None)
+    assert gbuf["layers"]["attn"]["wo"][:2] == (None, "data")
+
+
+def test_what_a_mesh_does_not_run_names_its_item(worlds):
+    for out in worlds[2] + worlds[4]:
+        for what, msg in out["raises"].items():
+            assert "ROADMAP A.1" in msg, (what, msg)
+    assert set(worlds[2][0]["raises"]) == {"fsdp"}
+    assert set(worlds[4][0]["raises"]) == {"fsdp", "model-compress",
+                                           "model-kernels"}
+
+
+def test_train_cli_under_torchrun_prints_the_one_process_rows():
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 2x1
+    --cpu``: rank 0 prints the one-process run's rows (the per-worker ring
+    gathers in the one-process order, so the losses are equal)."""
+    import json
+    from repro_torch.launch import train
+    args = ["--arch", "deepseek-7b", "--reduced", "--cpu", "--steps", "4",
+            "--stale", "2", "--batch", "8", "--seq", "16", "--workers", "2",
+            "--log-every", "2"]
+    env = _env()
+    env.pop("PYTHONPATH")
+    env["PYTHONPATH"] = str(REPO / "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(_free_port()), "-m",
+         "repro_torch.launch.train", "--mesh", "2x1"] + args,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    ref = train.main(args)["result"].history
+    assert len(rows) == len(ref) == 2
+    for got, want in zip(rows, ref):
+        got.pop("wall_s"), want.pop("wall_s")
+        assert got == want
+    assert out.stdout.count("done:") == 1          # rank 0 alone prints

@@ -91,7 +91,9 @@ def test_system_exits_match_the_jax_driver(argv, msg, monkeypatch):
 def test_mesh_specs():
     with pytest.raises(SystemExit, match="--mesh expects 'DATAxMODEL'"):
         ttrain.main(BASE + ["--mesh", "four", "--cpu"])
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # A mesh other than 1x1 runs under torchrun (A.12; the two-rank run is
+    # in test_torch_mesh_engine.py); without its process group it says so.
+    with pytest.raises(RuntimeError, match="torchrun"):
         ttrain.main(BASE + ["--mesh", "2x1", "--cpu"])
 
 
@@ -247,9 +249,15 @@ def test_fsdp_arch_refuses_the_packed_ring_as_the_jax_engine_does():
     with pytest.raises(ValueError, match="FSDP"):
         tmake("deepseek-67b", "train_4k", reduced=True, stale_s=2,
               kernels="on", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tmake("deepseek-7b", "train_4k", mesh=object(), reduced=True,
-              device="cpu")
+    # On a mesh (A.12) the FSDP veto holds and the plan puts 'embed' on
+    # the data axis; running an FSDP arch over a data axis > 1 is A.17.
+    from repro_torch.sharding.rules import AbstractMesh
+    planned = tmake("deepseek-67b", "train_4k",
+                    mesh=AbstractMesh(("data", "model"), (2, 1)),
+                    reduced=True, stale_s=2, kernels="auto")
+    assert planned.meta["kernels"]["fallback"] == "FSDP placement"
+    assert planned.plan().in_shardings[0].inner.params["embed"] == \
+        ("model", "data")
 
 
 @pytest.mark.parametrize("arch_id", sorted(tcfg.REGISTRY))
