@@ -132,7 +132,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    data = 2 (``--mesh-rank``), each rank's launch counts checked, the
    per-worker legs bit for bit as the one-process run, sync within the
    ring legs' limits, and the collectives' share of a step from the
-   profiler on rank 0.
+   profiler on rank 0;
+13. serving on a mesh (``serve_mesh_path``): the full-width, full-depth
+   h2o-danube-1.8b (bf16 compute over fp32 params, 8 requests over 8
+   slots, paged route) booted from a snapshot through ``restore_params``
+   and refreshed to a second snapshot mid-serve, mesh-less (the
+   reference: tokens, staleness stamps, ``paged_attention`` launches), on
+   a 1x1 ``DeviceMesh`` over a one-rank ``nccl`` group (bitwise, equal
+   launches) and in two processes on the one card over ``gloo`` at 1x2
+   (``--serve-mesh-rank``: "auto" resolves to the gather route there;
+   ``paged="on"`` overrides it; the model axis shards the restored params
+   and the placement gathers them once a load; each rank bitwise as the
+   mesh-less run), then the same ranks with the gather planted (each
+   rank's other half zeros), which must part; ms a decode step, the
+   gathers' host wall time and each leg's peak memory.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -3048,6 +3061,13 @@ def full_leg(dev, arch: str, f: dict, label: str, failures: list,
 
     flags = dict(steps=f["steps"], batch=f["batch"], seq=f["seq"], stale=0,
                  workers=1, log_every=1, seed=0)
+    laps, clock = {}, [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        laps[what] = round(now - clock[0], 1)
+        clock[0] = now
+
     p0 = init_params(dev, arch)
     n_params = sum(x.numel() for x in tm.tree_leaves(p0))
     on = train_cli(dev, cli_argv(arch, kernels="on", **flags),
@@ -3061,6 +3081,7 @@ def full_leg(dev, arch: str, f: dict, label: str, failures: list,
           f"{on['peak_mem_gb']:.1f} GB ({on['start_mem_gb']:.2f} GB "
           f"allocated before the run), CLI wall {on['wall_s']:.1f} s")
     print(f"profile train {label}: {json.dumps(on['profile'])}")
+    lap("on")
     extra = {}
     if after_on is not None:
         params = tm.tree_map(lambda x: x.to(dev), on["params"])
@@ -3069,12 +3090,17 @@ def full_leg(dev, arch: str, f: dict, label: str, failures: list,
         gc.collect()
         torch.cuda.empty_cache()
     off_argv = cli_argv(arch, kernels="off", **flags)
+    lap("after on")
     off = train_cli(dev, off_argv, batch=f["batch"], seq=f["seq"])
     check_counts(f"{label} off", off, expect(f["steps"]), failures)
+    lap("off")
     witness = witness_run(dev, off_argv, nudged(p0))
+    lap("witness")
     dist = check_lm_pair(
         dev, label, on, off, witness, p0, failures,
         shared_step=lambda: first_step_check(dev, arch, flags, p0, failures))
+    lap("checks")
+    print(f"train {label}: seconds by part {json.dumps(laps)}")
     out = {"n_params": n_params, "losses_on": on["losses"],
            "losses_off": off["losses"], "distance": dist,
            "ms_per_step": on["ms_per_step"], "profile": on["profile"],
@@ -3480,11 +3506,14 @@ def train_path(dev, tmp: str) -> dict:
 
 # -- phase 10: the state-space families ----------------------------------------
 
-# mamba2-1.3b at full width and depth (48 layers, d_model 2048, 64 SSD heads
-# of dim 64, state 128, chunk 256; 1,446,538,240 params, vocab 50,288),
-# random weights from seed 0, through the train CLI in sync mode with remat
-# and Adam. Memory: fp32 params, Adam's two moments and the gradients take
-# 4 x 5.79 = 23.1 GB; the sync fused tail packs a [D] copy of each of
+# mamba2-1.3b at full width (d_model 2048, 64 SSD heads of dim 64, state
+# 128, chunk 256; vocab 50,288), random weights from seed 0, through the
+# train CLI in sync mode with remat and Adam. At full depth (48 layers,
+# 1,446,538,240 params) it took ~117 s of the run; since the serving-mesh
+# phase joined, its depth is cut to SSM_FULL["layers"] to fit the run's
+# limit. At full depth (the figures below; 24 layers take about half):
+# fp32 params, Adam's two moments and the gradients take 4 x 5.79 =
+# 23.1 GB; the sync fused tail packs a [D] copy of each of
 # params and gradients (~11.6 GB more). With remat a step keeps each
 # layer's input (8 x 1024 x 2048 bf16, 33.5 MB x 48 = 1.6 GB) and rebuilds
 # one layer at a time: its intra-chunk tensors are [B, NC, H, Q, Q] fp32 =
@@ -3493,7 +3522,8 @@ def train_path(dev, tmp: str) -> dict:
 # 1.6 GB fp32, a few fp32 copies in the loss and its backward, ~6 GB).
 # Predicted peak ~45-50 GB of the card's 80.
 SSM_ARCH = "mamba2-1.3b"
-SSM_FULL = dict(batch=8, seq=1024, steps=4, timed=3, profile=2)
+SSM_FULL = dict(layers=24, batch=8, seq=1024, steps=4, timed=3, profile=2)
+SSM_FULL_LABEL = f"mamba {SSM_FULL['layers']} layers"
 # Ring legs: every width kept, 4 of 48 layers (~0.31 B params, 1.24 GB a
 # copy), P = 2, s = 3 (a [3, 2, D] ring of 7.4 GB): the danube legs' flags.
 SSM_RING = dict(TRAIN_RING)
@@ -3517,9 +3547,12 @@ HYBRID_LEGS = TRAIN_LEGS[:1]                     # stale-psum Adam
 # a loop), host-bound at ~0.73 s a decode step on the H100 (PERF.md), so
 # the new tokens are cut to fit the run's time: mamba 4-12 (of up to 96),
 # zamba 8 (of 32), half what they were before phase 11 joined the run.
-SSM_SERVE = dict(arch=SSM_ARCH, n=16, new_tokens=(4, 12),
+# Since the serving-mesh phase joined, the depths are cut too: mamba to 24
+# of 48 layers, zamba to 42 of 81 (seven groups of six, seven
+# shared-block invocations).
+SSM_SERVE = dict(arch=SSM_ARCH, layers=24, n=16, new_tokens=(4, 12),
                  serve_kw=dict(max_seq=224))
-HYBRID_SERVE = dict(arch=HYBRID_ARCH, n=8, new_tokens=(8, 8),
+HYBRID_SERVE = dict(arch=HYBRID_ARCH, layers=42, n=8, new_tokens=(8, 8),
                     serve_kw=dict(slots=4, max_seq=160, prefill_batch=4))
 # Prefill + decode against one full forward, fp32, over 300 tokens (not a
 # multiple of the 256-token chunk): the prefill's 290 logits, then 10 decode
@@ -3676,15 +3709,16 @@ def full_forward_hold(dev, arch: str, params) -> dict:
 
 
 def ssm_serve(dev, spec: dict) -> dict:
-    """One full-width serve of ``spec["arch"]`` (bf16 compute over fp32
-    params from seed 0) with the launch counters checked (no kernel runs:
-    the resident and gather routes attend through none), its profile, the
-    greedy hold and the fp32 full-forward hold."""
+    """One full-width serve of ``spec["arch"]`` at ``spec["layers"]``
+    layers (bf16 compute over fp32 params from seed 0) with the launch
+    counters checked (no kernel runs: the resident and gather routes attend
+    through none), its profile, the greedy hold and the fp32 full-forward
+    hold."""
     import torch
     from repro_torch import configs as cfglib
     from repro_torch import treemath as tm
 
-    arch = spec["arch"]
+    arch = cut_arch(spec["arch"], spec["layers"])
     api = cfglib.get(arch).api()
     t0 = time.perf_counter()
     params, _ = api.init(0, device=dev)
@@ -3730,7 +3764,8 @@ def ssm_serve(dev, spec: dict) -> dict:
     print(f"serve {arch}: fp32 prefill + decode vs one full forward "
           f"{json.dumps(row['full_forward'])}")
     row["n_params"] = n_params
-    if row["route"] != {"mamba2-1.3b": "resident"}.get(arch, "gather"):
+    if row["route"] != {"mamba2-1.3b": "resident"}.get(spec["arch"],
+                                                        "gather"):
         raise AssertionError(f"serve {arch}: route {row['route']}")
     del params
     torch.cuda.empty_cache()
@@ -3760,9 +3795,9 @@ def ssm_path(dev, tmp: str) -> dict:
         print(f"ssm phase: {what} took {now - clock[0]:.1f} s")
         clock[0] = now
 
-    out = {"full": full_leg(dev, SSM_ARCH, SSM_FULL, "full mamba",
-                            failures)}
-    lap("the full mamba leg")
+    out = {"full": full_leg(dev, cut_arch(SSM_ARCH, SSM_FULL["layers"]),
+                            SSM_FULL, SSM_FULL_LABEL, failures)}
+    lap(f"the {SSM_FULL_LABEL} leg")
     out["ring"] = ring_legs(dev, tmp, failures, arch_id=SSM_ARCH, r=SSM_RING,
                             legs=SSM_LEGS)
     lap("the mamba ring legs")
@@ -3854,8 +3889,8 @@ def without_profiles(node):
 def add_ssm_rows(kernels: list, ssm: dict) -> None:
     """Beside each of kernels 1-5, its times at the mamba ring legs' width
     and its launches on every leg of the state-space phase (the serves
-    launch none); fused_adam also over the full mamba leg's D."""
-    legs = {"full mamba": ssm["full"]["launches"]}
+    launch none); fused_adam also over the sync mamba leg's D."""
+    legs = {SSM_FULL_LABEL: ssm["full"]["launches"]}
     for part in ("ring", "hybrid"):
         legs.update({f"{ssm[part]['arch']} {name}": row["launches"]
                      for name, row in ssm[part].items()
@@ -4550,6 +4585,401 @@ def add_mesh_rows(kernels: list, mesh: dict) -> None:
             for leg, row in mesh.items() if "launches" in row}
 
 
+# -- phase 13: serving on a mesh --------------------------------------------------
+
+# The full-width, full-depth danube serve (SERVE: 8 slots, prompts of 128,
+# bf16 compute over fp32 params, paged route "on") at snapshot 1, one
+# warm-up request of MESH_SERVE["warm_tokens"] tokens (its decode steps put
+# the server's step count past 0), then MESH_SERVE["n"] requests with a
+# refresher polling every MESH_SERVE["every"] decode steps of a directory
+# that also holds snapshot 2: the swap lands mid-serve, at decode step
+# ``every``. Snapshot k is the arch's init from seed k. Legs: mesh-less
+# (the reference), handed snapshot 1's params as the publisher made them;
+# on a 1x1 mesh over a one-rank nccl group, handed them too, with a
+# refresher that never swaps (its tokens before the reference's swap are
+# the ones compared: a refresh restore there would prove nothing the two
+# ranks do not); two gloo ranks on the one card at 1x2, which boot through
+# ``restore_params`` (each rank reads its shards of the model axis, the
+# placement gathers them) and refresh; then on those ranks the boot's
+# shards made whole by a gather that delivers nothing (each rank keeps the
+# other rank's half of every model-sharded leaf as zeros), whose snapshot-1
+# tokens must part from the reference's.
+MESH_SERVE = dict(n=8, new_tokens=(16, 32), warm_tokens=3, every=8)
+MESH_SERVE_RANKS = 2
+
+
+def publish_snapshots(dev, tmp: str):
+    """Snapshots 2 and 1 of the full danube in ``tmp/live``, snapshot 1
+    also in ``tmp/boot`` (a hard link): a boot restores the latest of
+    ``boot``, the refresher polls ``live``. Returns the directories and
+    snapshot 1's params."""
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch.checkpoint import checkpoint as ckpt
+    api = cfglib.get(SERVE_ARCH).api(reduced=False)
+    dirs = {"boot": os.path.join(tmp, "boot"),
+            "live": os.path.join(tmp, "live")}
+    os.makedirs(dirs["boot"], exist_ok=True)
+    t0 = time.perf_counter()
+    for step in (2, 1):
+        params, _ = api.init(step, device=dev)
+        ckpt.save(ckpt.step_path(dirs["live"], step), params, step=step,
+                  extra={"published_at": time.time()})
+        if step == 2:
+            del params
+            torch.cuda.empty_cache()
+    for suffix in (".npz", ".meta.json"):
+        os.link(os.path.join(dirs["live"], "step_1" + suffix),
+                os.path.join(dirs["boot"], "step_1" + suffix))
+    print(f"serve mesh phase: two snapshots of {SERVE_ARCH} written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dirs, params
+
+
+class NoGather:
+    """``torch.distributed``, but ``all_gather`` delivers nothing: every
+    part but the caller's own stays zeros (the planted fault)."""
+
+    def __getattr__(self, name):
+        import torch.distributed as dist
+        return getattr(dist, name)
+
+    def all_gather(self, parts, x, group=None):
+        import torch.distributed as dist
+        me = dist.get_group_rank(group, dist.get_rank())
+        for i, part in enumerate(parts):
+            part.copy_(x) if i == me else part.zero_()
+
+
+def mesh_server(dev, mesh=None, params=None):
+    from repro_torch.serving import Server, ServingConfig
+    return Server(ServingConfig(arch=SERVE_ARCH, reduced=False, paged="on",
+                                **SERVE), params=params, device=dev,
+                  mesh=mesh)
+
+
+def mesh_serve_stream(server, dev, refresh_dir=None, boot=1,
+                      every=MESH_SERVE["every"]) -> tuple:
+    """The warm-up request, then MESH_SERVE's requests (a refresher on
+    ``refresh_dir`` from step ``boot``, polling every ``every`` decode
+    steps; 0 never swaps): the served run's report, its launch counters,
+    decode steps and host seconds, and the refresh load's host seconds."""
+    import torch
+    vocab = server.api.vocab_real
+    server.run(serve_requests(vocab, 1, new_tokens=(
+        MESH_SERVE["warm_tokens"],) * 2))
+    laps = {}
+    if refresh_dir is not None:
+        refresher = server.make_refresher(
+            refresh_dir, every_steps=every, base_step=boot)
+        load = refresher.load
+
+        def timed_load(step):
+            t = time.perf_counter()
+            got = load(step)
+            torch.cuda.synchronize(dev)
+            laps["refresh_load_s"] = time.perf_counter() - t
+            return got
+        refresher.load = timed_load
+    reqs = serve_requests(vocab, MESH_SERVE["n"], MESH_SERVE["new_tokens"])
+    torch.cuda.synchronize(dev)
+    before = server.decode_steps            # the warm-up's (a running count)
+    reset_counters()
+    t0 = time.perf_counter()
+    rep = server.run(reqs)
+    laps["run_s"] = time.perf_counter() - t0
+    return rep, counters(), rep.decode_steps - before, laps
+
+
+def mesh_serve_leg(dev, dirs: dict, mesh=None, params=None,
+                   keep_boot=None, every=MESH_SERVE["every"]) -> dict:
+    """One leg: a Server (on ``mesh``) at snapshot 1 (``params`` where
+    given, else booted from ``dirs["boot"]`` through ``restore_params``)
+    serves the stream with a refresher on ``dirs["live"]`` polling every
+    ``every`` decode steps (0: it never swaps). Returns the
+    served tokens and staleness stamps, the launch counters of the served
+    run, ms a decode step, the host wall time of each gather (the boot's,
+    then the refresh's; none without a mesh), the swap's step and the peak
+    device memory of the leg. ``keep_boot`` (a list) receives the boot's
+    shards."""
+    import torch
+    torch.cuda.reset_peak_memory_stats(dev)
+    given = params is not None
+    server = mesh_server(dev, mesh, params)
+    del params
+    gathers, laps = [], {}
+    if server.placement is not None:
+        whole = server.placement.whole
+
+        def timed(shards):
+            if keep_boot is not None and not gathers:
+                keep_boot.append(shards)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = whole(shards)
+            torch.cuda.synchronize(dev)
+            gathers.append(time.perf_counter() - t0)
+            return got
+        server.placement.whole = timed
+    boot = 1
+    if not given:
+        t0 = time.perf_counter()
+        boot = server.restore_params(dirs["boot"])
+        laps["boot_s"] = time.perf_counter() - t0
+    rep, launches, steps, more = mesh_serve_stream(server, dev, dirs["live"],
+                                                   boot, every)
+    laps.update(more)
+    out = {"route": (server.paged_route, server._paged_why),
+           "tokens": {r.rid: r.tokens for r in rep.completed},
+           "stamps": {r.rid: r.staleness for r in rep.completed},
+           "report": rep, "launches": launches, "decode_steps": steps,
+           "ms_per_decode_step": 1e3 * rep.phase_s["decode"] / steps,
+           "tokens_per_s": rep.tokens_per_s, "gather_s": gathers,
+           "boot": boot, "step": server.refresher.current_step,
+           "refreshes": rep.refreshes, "laps": laps,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def planted_leg(dev, mesh, shards) -> dict:
+    """The boot's ``shards`` made whole by a gather that delivers nothing
+    (``NoGather``), served as the leg serves them but with no refresher:
+    its tokens."""
+    import torch
+    server = mesh_server(dev, mesh)
+    collectives = server.placement.dist
+    server.placement.dist = NoGather()
+    server.params = server.placement.whole(shards)
+    server.placement.dist = collectives
+    del shards
+    rep = mesh_serve_stream(server, dev)[0]
+    del server
+    torch.cuda.empty_cache()
+    return {"tokens": {r.rid: r.tokens for r in rep.completed}}
+
+
+def serve_mesh_rank(rank: int, world: int, port: int, out_dir: str,
+                    device: str = "cuda") -> int:
+    """``--serve-mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of the
+    1 x WORLD serve on the one card over ``gloo``. Resolves the route under
+    "auto" on the mesh, runs the leg and the planted leg on the snapshots
+    under DIR, and saves them as ``DIR/rank<R>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as cfglib
+    from repro_torch.engine import plan as planlib
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import build_layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        build.library()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    dirs = {"boot": os.path.join(out_dir, "boot"),
+            "live": os.path.join(out_dir, "live")}
+    out = {}
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    try:
+        mesh = make_host_mesh(1, world, device=dev.type)
+        api = cfglib.get(SERVE_ARCH).api(reduced=False)
+        layout = build_layout(api, SERVE["max_seq"], SERVE["page_tokens"],
+                              device=dev)
+        out["auto"] = planlib.resolve_serve_paged(api, layout, SERVE_ARCH,
+                                                  mesh, "auto")
+        boot = []
+        for leg in ("leg", "planted"):
+            try:
+                out[leg] = (mesh_serve_leg(dev, dirs, mesh, keep_boot=boot)
+                            if leg == "leg" else
+                            planted_leg(dev, mesh, boot.pop()))
+            except Exception as e:      # noqa: BLE001 (reported, then raised)
+                out[leg] = {"error": f"{type(e).__name__}: {e}"}
+                raise
+            finally:
+                torch.save(out, path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def same_serve(a: dict, b: dict, keep=None) -> bool:
+    """Equal tokens and staleness stamps: steps behind equal, and the age
+    present at the same tokens (its value is a wall-clock reading).
+    ``keep`` ({rid: [bool a token]}) compares only the tokens it marks."""
+    def served(x):
+        return {rid: [(t, s, age is None) for i, (t, (s, age)) in
+                      enumerate(zip(x["tokens"][rid], x["stamps"][rid]))
+                      if keep is None or keep[rid][i]]
+                for rid in x["tokens"]}
+    return (a["tokens"].keys() == b["tokens"].keys()
+            and served(a) == served(b))
+
+
+def snapshot1_tokens(ref: dict) -> dict:
+    """{rid: [bool a token]}: the reference's tokens served from snapshot
+    1, those stamped a step behind (before the swap)."""
+    return {rid: [behind > 0 for behind, _ in st]
+            for rid, st in ref["stamps"].items()}
+
+
+def serve_mesh_path(dev) -> dict:
+    """Phase 13: the full-width danube served mesh-less, on a 1x1 nccl mesh
+    and on two gloo ranks at 1x2 (with the planted gather), each booted
+    from snapshot 1 and refreshed to snapshot 2 mid-serve (MESH_SERVE)."""
+    import gc
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as cfglib
+    from repro_torch.launch.mesh import backend_for, make_host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    failures, out = [], {}
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    def row(leg: dict) -> dict:
+        return {k: leg[k] for k in (
+            "decode_steps", "ms_per_decode_step", "tokens_per_s", "gather_s",
+            "laps", "boot", "step", "refreshes", "peak_mem_gb", "route")} | {
+            "launches": leg["launches"]["paged_attention"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs, params1 = publish_snapshots(dev, tmp)
+        ref = mesh_serve_leg(dev, dirs, params=params1)
+        want = cfglib.get(SERVE_ARCH).api(
+            reduced=False).cfg.num_layers * ref["decode_steps"]
+        others = {k: n for k, n in ref["launches"].items()
+                  if k != "paged_attention" and n}
+        print(f"serve mesh-less: {json.dumps(row(ref))}")
+        if ref["launches"]["paged_attention"] != want or others:
+            failures.append(f"mesh-less: launches {ref['launches']}, "
+                            f"expected paged_attention={want} only")
+        if (ref["boot"], ref["step"], ref["refreshes"]) != (1, 2, 1):
+            failures.append(f"mesh-less: boot {ref['boot']}, step "
+                            f"{ref['step']}, refreshes {ref['refreshes']}; "
+                            "expected one swap from 1 to 2")
+        out["mesh-less"] = row(ref)
+
+        backend = backend_for(dev)
+        dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1)
+        try:
+            one = mesh_serve_leg(dev, dirs, make_host_mesh(
+                1, 1, device=dev.type), params=params1, every=0)
+        finally:
+            dist.destroy_process_group()
+        del params1
+        pre = snapshot1_tokens(ref)
+        ok = same_serve(one, ref, keep=pre)
+        print(f"serve mesh 1x1 {backend}: the {sum(map(sum, pre.values()))} "
+              f"snapshot-1 tokens bitwise {ok}; {json.dumps(row(one))}")
+        if not ok:
+            failures.append("1x1: snapshot-1 tokens or stamps differ from "
+                            "mesh-less")
+        if one["refreshes"]:
+            failures.append(f"1x1: {one['refreshes']} refreshes, expected "
+                            "none")
+        if one["launches"] != ref["launches"]:
+            failures.append(f"1x1: launches {one['launches']} vs "
+                            f"{ref['launches']}")
+        out[f"1x1 {backend}"] = dict(row(one), bitwise=ok)
+        print(f"serve mesh phase: mesh-less and 1x1 legs took "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        t1 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank",
+             str(r), str(MESH_SERVE_RANKS), str(port), tmp, dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(MESH_SERVE_RANKS)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            ranks.append(torch.load(path, weights_only=False)
+                         if os.path.exists(path) else {})
+            if p.returncode != 0:
+                tail = log.strip().splitlines()[-12:]
+                print(f"serve mesh rank {r} exited {p.returncode}:\n  "
+                      + "\n  ".join(tail))
+                failures.append(f"two-rank serve: rank {r} exited "
+                                f"{p.returncode}")
+    for r, got in enumerate(ranks):
+        auto = got.get("auto")
+        if auto != ("gather", f"model axis extent {MESH_SERVE_RANKS}"):
+            failures.append(f"1x2 rank {r}: auto resolved to {auto}")
+        leg, planted = got.get("leg"), got.get("planted")
+        if leg is None or "error" in leg:
+            failures.append(f"1x2 rank {r}: {leg['error'] if leg else 'none'}")
+            continue
+        ok = same_serve(leg, ref)
+        print(f"serve mesh 1x2 gloo rank {r}: auto {auto}; bitwise {ok}; "
+              f"{json.dumps(row(leg))}")
+        if not ok:
+            failures.append(f"1x2 rank {r}: tokens or stamps differ from "
+                            "mesh-less")
+        if leg["launches"] != ref["launches"]:
+            failures.append(f"1x2 rank {r}: launches {leg['launches']} vs "
+                            f"{ref['launches']}")
+        if len(leg["gather_s"]) != 2:
+            failures.append(f"1x2 rank {r}: {len(leg['gather_s'])} gathers, "
+                            "expected the boot's and the refresh's")
+        if leg["report"] != ranks[0].get("leg", {}).get("report"):
+            failures.append(f"1x2 rank {r}: its report is not rank 0's")
+        out[f"1x2 gloo rank {r}"] = dict(row(leg), auto=auto, bitwise=ok)
+        if planted is None or "error" in planted:
+            failures.append(f"1x2 planted rank {r}: "
+                            f"{planted['error'] if planted else 'none'}")
+            continue
+        parted = sum(a != b and early for rid in ref["tokens"]
+                     for a, b, early in zip(planted["tokens"][rid],
+                                            ref["tokens"][rid], pre[rid]))
+        print(f"serve mesh 1x2 gloo rank {r} (planted fault): {parted} of "
+              f"the {sum(map(sum, pre.values()))} snapshot-1 tokens part "
+              "from the mesh-less run's")
+        if not parted:
+            failures.append(f"1x2 planted rank {r}: no token parts")
+        out[f"1x2 planted rank {r}"] = {"parted_tokens": parted}
+    print(f"serve mesh phase: two-rank legs took "
+          f"{time.perf_counter() - t1:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("serve mesh phase: " + "; ".join(failures))
+    return out
+
+
+def add_serve_mesh_rows(kernels: list, serve_mesh: dict) -> None:
+    """Beside paged_attention, its launches on every leg of phase 13 (the
+    planted fault's run is not one)."""
+    for entry in kernels:
+        if entry["name"] == "paged_attention":
+            entry["launches_serve_mesh"] = {
+                leg: row["launches"] for leg, row in serve_mesh.items()
+                if "launches" in row}
+
+
 def blocks_per_sm(regs: int, threads: int = 256) -> int:
     """Blocks of ``threads`` an H100 SM holds at ``regs`` registers a
     thread: 65,536 registers allocated per warp in units of 256, at most
@@ -4716,11 +5146,19 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    clock = [t_start]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     path, log, secs = build.build()
     build.library()
     print(f"build: {path.name} in {secs:.1f} s")
     print_ptxas(log)
     print_tensor_core_ops(path)
+    lap("build")
 
     # The packed width at the main path's shapes, times P = 8 workers.
     width = dnn_width(dev)
@@ -4729,9 +5167,11 @@ def main() -> int:
     errs = kernel_checks(dev, n)
 
     ring_errs = ring_kernel_checks(dev, width)
+    lap("kernel checks")
 
     runs = main_path(dev)
     sequential_check(dev)
+    lap("main path")
 
     import numpy as np
     from repro_torch.data import synthetic
@@ -4740,6 +5180,7 @@ def main() -> int:
     table = np.random.default_rng(0).integers(0, STALENESS, (STEPS, WORKERS))
     table[0, 0] = STALENESS - 1
     paper = paper_path(dev, table)
+    lap("paper path")
 
     # The ring path: the same DNN, data and seeds as the simulate path, and
     # lognormal worker speeds (numpy, seed 0) for ssp's clock schedule.
@@ -4748,6 +5189,7 @@ def main() -> int:
         0.0, 0.5, (64, WORKERS)).astype(np.float32)
     data = synthetic.teacher_classification(seed=0)
     ring = ring_path(dev, params0, data, table, speeds)
+    lap("ring path")
 
     timings = kernel_timings(dev, n)
     timings.update(ring_kernel_timings(dev, width))
@@ -4759,6 +5201,7 @@ def main() -> int:
     cost = hook_cost(dev, params0, data, table)
     timings.update(coherence_timings(dev, width))
     coherence_sweep(dev, width)
+    lap("kernel timings, coherence path")
 
     # The serve path: paged_attention against its plain version, its
     # timings, then the full-width danube serve.
@@ -4766,17 +5209,20 @@ def main() -> int:
     timings.update(paged_timings(dev))
     paged_split_sweep(dev)
     serve = serve_path(dev)
+    lap("serve path")
 
     # The train path: flash_attention, then LM training through the train
     # CLI (full-config danube, cut-depth ring legs) and the MoE leg.
     with tempfile.TemporaryDirectory() as tmp:
         train = train_path(dev, tmp)
+    lap("train path")
 
     # The state-space families: mamba2-1.3b trained at full width and
     # depth and served on the resident route, zamba2-7b served at full
     # width and depth on the gather route and trained at 7 layers.
     with tempfile.TemporaryDirectory() as tmp:
         ssm = ssm_path(dev, tmp)
+    lap("ssm path")
 
     # Cross-attention: paged_attention at whisper's and llama-vision's head
     # shapes, whisper-base trained at full width and depth (sync and the
@@ -4784,10 +5230,17 @@ def main() -> int:
     # full width and depth on the paged route.
     with tempfile.TemporaryDirectory() as tmp:
         cross = cross_path(dev, tmp)
+    lap("cross path")
 
     # The mesh path: the DNN legs through build_engine(mesh=) on a 1x1
     # nccl mesh and over two gloo ranks on the one card.
     mesh = mesh_path(dev)
+    lap("mesh path")
+
+    # Serving on a mesh: the full danube served mesh-less, on a 1x1 nccl
+    # mesh and on two gloo ranks at 1x2, refreshed mid-serve.
+    serve_mesh = serve_mesh_path(dev)
+    lap("serve mesh path")
 
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
@@ -4798,6 +5251,7 @@ def main() -> int:
     add_ssm_rows(kernels, ssm)
     add_cross_rows(kernels, cross)
     add_mesh_rows(kernels, mesh)
+    add_serve_mesh_rows(kernels, serve_mesh)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -4828,6 +5282,7 @@ def main() -> int:
         default=str))
     print(json.dumps({"cross": without_profiles(cross)}, default=str))
     print(json.dumps({"mesh": mesh}, default=str))
+    print(json.dumps({"serve_mesh": serve_mesh}, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -4844,4 +5299,6 @@ if __name__ == "__main__":
         sys.exit(coherence_times(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
+    if sys.argv[1:2] == ["--serve-mesh-rank"]:
+        sys.exit(serve_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
     sys.exit(main())

@@ -19,7 +19,10 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, List, Optional
+import struct
+import zipfile
+import zlib
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +117,8 @@ def restore(path: str, like: Pytree, shardings: Optional[Pytree] = None):
     values bit for bit. ``shardings`` (a tree like ``like`` whose leaves are
     ``sharding.rules.NamedSharding`` or None) places each leaf as the
     plan does: this rank's rows of a worker axis as a plain tensor, a
-    model-sharded dim as a DTensor on the model sub-mesh."""
+    model-sharded dim as a DTensor on the model sub-mesh; only this rank's
+    block of a placed leaf is read from the file."""
     with open(_meta_path(path)) as f:
         meta = json.load(f)
     names, like_leaves = _leaf_names(like)
@@ -122,17 +126,73 @@ def restore(path: str, like: Pytree, shardings: Optional[Pytree] = None):
         raise ValueError(
             "checkpoint/model structure mismatch:\n"
             f" ckpt: {meta['names'][:5]}...\n tree: {names[:5]}...")
-    with np.load(_npz_path(path)) as npz:
-        arrays = [npz[f"leaf_{i}"] for i in range(len(names))]
-    leaves = [torch.from_numpy(a).to(l.device if torch.is_tensor(l) else "cpu")
-              for a, l in zip(arrays, like_leaves)]
+    places: list = [None] * len(names)
     if shardings is not None:
-        places: list = []
+        places = []
         _zip_places(like, shardings, places)
-        leaves = [x if s is None else s.place(x)
-                  for x, s in zip(leaves, places)]
+    read = _read_leaves(_npz_path(path),
+                        [None if s is None else s.index for s in places])
+    leaves = []
+    for (a, shape), l, s in zip(read, like_leaves, places):
+        x = torch.from_numpy(a).to(l.device if torch.is_tensor(l) else "cpu")
+        leaves.append(x if s is None else s.wrap(x, shape))
     return (tm.tree_unflatten(tm.tree_structure(like), leaves), meta["step"],
             meta["extra"])
+
+
+def _read_leaves(npz: str, parts: list) -> List[Tuple[np.ndarray, tuple]]:
+    """``(block, whole shape)`` of each leaf of a snapshot: the whole leaf
+    where ``parts[i]`` is None, else the block ``parts[i](shape)`` indexes
+    (a slice a dim)."""
+    with zipfile.ZipFile(npz) as zf, open(npz, "rb") as f:
+        return [_read_stored(f, zf.getinfo(f"leaf_{i}.npy"), part)
+                for i, part in enumerate(parts)]
+
+
+def _read_stored(f, info: zipfile.ZipInfo, part=None):
+    """One stored ``.npy`` member, as ``np.savez`` writes it, read in place
+    from the zip: the whole array with one ``np.fromfile``, checked against
+    the zip's CRC-32 (about twice ``np.load``'s rate, which copies 256 KiB
+    at a time), or only a block of it through a memory map, reading only
+    its pages (a CRC covers the whole member, so a block is checked
+    against the header and the member's size alone)."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise zipfile.BadZipFile(f"{info.filename}: compressed; a snapshot "
+                                 "stores its members (np.savez)")
+    f.seek(info.header_offset)
+    local = f.read(30)
+    if local[:4] != b"PK\x03\x04":
+        raise zipfile.BadZipFile(f"{info.filename}: bad local header")
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    if f.read(name_len).decode() != info.orig_filename:
+        raise zipfile.BadZipFile(f"{info.filename}: names in directory and "
+                                 "header differ")
+    start = info.header_offset + 30 + name_len + extra_len
+    f.seek(start)
+    version = np.lib.format.read_magic(f)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(f)
+    if dtype.hasobject:
+        raise zipfile.BadZipFile(f"{info.filename}: an object array")
+    head_len = f.tell() - start
+    count = int(np.prod(shape))
+    if head_len + count * dtype.itemsize != info.file_size:
+        raise zipfile.BadZipFile(f"{info.filename}: size differs from the "
+                                 "zip's")
+    order = "F" if fortran else "C"
+    index = None if part is None else part(shape)
+    if count and index is not None and any(
+            (s.start, s.stop) != (0, n) for s, n in zip(index, shape)):
+        block = np.memmap(f, dtype=dtype, mode="r", offset=start + head_len,
+                          shape=shape, order=order)[index]
+        return np.ascontiguousarray(block), shape
+    f.seek(start)
+    crc = zlib.crc32(f.read(head_len))
+    arr = np.fromfile(f, dtype=dtype, count=count)
+    if zlib.crc32(arr, crc) != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+    return arr.reshape(shape, order=order), shape
 
 
 def steps_in(ckpt_dir: str) -> List[int]:

@@ -1,11 +1,22 @@
 """Core: the paper's staleness simulation model (``staleness``), the
 gradient-ring data-parallel steps (``stale_sync``), SSP clock semantics
 (``ssp``) and coherence theory (``coherence``: the Definition-1 monitor,
-the Theorem-1 stepsize and the coherence-gated controller)."""
+the Theorem-1 stepsize and the coherence-gated controller). The delay
+samplers of ``repro_torch.delays`` are re-exported here too, as the JAX
+package's ``repro.core`` re-exports them."""
+from repro_torch.delays.models import (
+    ConstantDelay,
+    DelayModel,
+    GeometricDelay,
+    UniformDelay,
+    Zero,
+    matched_geometric,
+)
 from repro_torch.core.staleness import (
     SimState,
     StalenessConfig,
     drain,
+    draw_delay_matrix,
     init_sim_state,
     make_sim_step,
     sequential_reference,

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import treemath as tm
-from repro_torch.delays.models import DelaySpec, as_spec
+from repro_torch.delays.models import DelayModel, DelaySpec, as_spec
 from repro_torch.kernels import dispatch
 from repro_torch.optim.optimizers import lr_at, value_and_grad
 
@@ -400,6 +400,15 @@ def drain(state: SimState, server_apply: Optional[ServerApply] = None,
                                server_state=server_state)
 
 
+def draw_delay_matrix(gen: torch.Generator, delay: DelayModel,
+                      p: int) -> torch.Tensor:
+    """``r[src, dst]``, one delay a (source, destination) pair: the
+    sampler's ``[p, p]`` draw (the step draws through
+    ``delay.realize().delays(gen, step, (p, p))``, which for a sampler is
+    this call)."""
+    return delay.sample(gen, (p, p))
+
+
 def sequential_reference(update_fn: UpdateFn, params: Pytree,
                          update_state: Pytree, batches_per_step,
                          keys=None) -> Pytree:
@@ -411,3 +420,12 @@ def sequential_reference(update_fn: UpdateFn, params: Pytree,
         u, ust, _ = update_fn(x, ust, batch, key)
         x = tm.tree_add(x, u)
     return x
+
+
+def effective_staleness_histogram(delay: DelayModel, gen: torch.Generator,
+                                  p: int, steps: int) -> torch.Tensor:
+    """Empirical distribution of the total delay (1 + r) over ``steps``
+    draws of ``[p, p]``: a ``bincount`` of length ``delay.bound + 2``."""
+    draws = torch.stack([delay.sample(gen, (p, p)) for _ in range(steps)])
+    return torch.bincount((draws + 1).reshape(-1),
+                          minlength=delay.bound + 2)

@@ -28,6 +28,11 @@ A :class:`MeshPlacement` describes one rank's share of an engine:
 
 Index-heavy ring code (``_ring_dispatch``, ``_gather``) never runs as
 DTensor ops: ``aten.index`` refuses a DTensor beside a plain index tensor.
+
+A :class:`ServePlacement` is one rank's share of a serve (``serving/
+server.py``): the params are stored as the serve plan's shards and made
+whole once a load or refresh, every slot lives on every rank, and rank 0
+takes the host decisions every rank applies.
 """
 from __future__ import annotations
 
@@ -41,7 +46,6 @@ from repro_torch.sharding import rules as rules_lib
 Pytree = Any
 
 # ROADMAP items for what a mesh does not run yet.
-SERVE_ITEM = "A.16, serving on a mesh"
 FSDP_ITEM = "A.17, the FSDP archs on a mesh"
 MODEL_ITEM = "A.18, the model axis on more than one card"
 MULTINODE_ITEM = "A.19, multi-node"
@@ -49,6 +53,34 @@ MULTINODE_ITEM = "A.19, multi-node"
 
 def is_device_mesh(mesh) -> bool:
     return mesh is not None and hasattr(mesh, "mesh_dim_names")
+
+
+def map_specs(fn, tree: Pytree, specs: list, shapes: list) -> Pytree:
+    """``fn(leaf, spec, whole shape)`` over a params-shaped tree."""
+    leaves, treedef = tm.tree_flatten(tree)
+    if len(leaves) != len(specs):
+        raise ValueError(f"params of {len(leaves)} leaves, specs of "
+                         f"{len(specs)}")
+    return tm.tree_unflatten(treedef, [
+        fn(x, spec, shape) for x, spec, shape in zip(leaves, specs, shapes)])
+
+
+def all_gather_dim(dist, x: torch.Tensor, d: int, full: int, n: int,
+                   group) -> torch.Tensor:
+    """Whole dim ``d`` (``full`` long) from each of the ``n`` ranks of
+    ``group``'s ``torch.chunk`` part of it, by one ``all_gather`` in group
+    order. Parts are padded to the chunk size: the last may be short or
+    empty."""
+    c = -(-full // n)
+    if x.shape[d] < c:
+        pad = list(x.shape)
+        pad[d] = c - x.shape[d]
+        x = torch.cat([x, x.new_zeros(pad)], dim=d)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim=d)
+    return out if out.shape[d] == full else out.narrow(d, 0, full).contiguous()
 
 
 class MeshPlacement:
@@ -120,10 +152,8 @@ class MeshPlacement:
         ``all_gather`` over the data group, in rank = worker order)."""
         if self.wn == 1:
             return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.wn)]
-        self.dist.all_gather(parts, x, group=self.data_group)
-        return torch.cat(parts, dim=0)
+        return all_gather_dim(self.dist, x, 0, x.shape[0] * self.wn,
+                              self.wn, self.data_group)
 
     def gather_tree(self, tree: Pytree) -> Pytree:
         return tm.tree_map(self.gather, tree)
@@ -218,10 +248,79 @@ class MeshPlacement:
         self.full_shapes = [tuple(x.shape) for x in tm.tree_leaves(params)]
 
     def _map(self, fn, tree: Pytree) -> Pytree:
-        """``fn(leaf, spec, whole shape)`` over a params-shaped tree."""
-        leaves, treedef = tm.tree_flatten(tree)
-        shapes = self.full_shapes or [None] * len(leaves)
-        return tm.tree_unflatten(treedef, [
-            fn(x, spec, shape) for x, spec, shape in zip(
-                leaves, rules_lib.axes_leaves(self.model_specs), shapes)])
+        specs = rules_lib.axes_leaves(self.model_specs)
+        return map_specs(fn, tree, specs,
+                         self.full_shapes or [None] * len(specs))
 
+
+class ServePlacement:
+    """One rank's share of a serve on a ``DeviceMesh`` that spans the
+    process group, by the serve plan's params specs (``plan_serve_step``'s
+    ``in_shardings[0]``: the model axis on the param dims, FSDP archs'
+    ``embed`` on data).
+
+    * ``shard(params)``: this rank's shards (``NamedSharding.place``, the
+      form ``restore(shardings=)`` returns, reading only those blocks).
+    * ``whole(shards)``: whole params for the steps, by an ``all_gather``
+      over each mesh axis a spec names (c10d's, not ``DTensor.full_tensor``,
+      whose functional collective segfaults over gloo on CUDA tensors with
+      torch 2.11; PERF.md). The server calls it once a load or
+      refresh, so its decode and prefill steps call no collective; the cost
+      is memory, since every rank holds the whole served copy beside its
+      shards (tensor-parallel layers are A.18).
+    * ``decide(values)``: rank 0's host decisions (a list of numbers; None
+      goes as NaN and comes back as None), broadcast to every rank, and
+      ``all_ok(flag)``: whether every rank's flag holds. Any decision a
+      rank took alone could differ between ranks, and a refresh would then
+      call the gather on one rank and not on another."""
+
+    def __init__(self, mesh, params_specs: Pytree, params_shapes: Pytree):
+        import torch.distributed as dist
+        self.dist = dist
+        self.mesh = mesh
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"a serve mesh spans the process group: mesh of "
+                             f"{mesh.size()} ranks, group of "
+                             f"{dist.get_world_size()}")
+        self.specs = rules_lib.axes_leaves(params_specs)
+        self.shapes = [tuple(x.shape) for x in tm.tree_leaves(params_shapes)]
+        self.lead = int(mesh.mesh.flatten()[0])
+        self.is_lead = dist.get_rank() == self.lead
+        # Host decisions travel as CPU tensors over gloo, on the card's
+        # device over nccl.
+        self.host = torch.device("cpu" if dist.get_backend() == "gloo"
+                                 else mesh.device_type)
+
+    def shard(self, params: Pytree) -> Pytree:
+        return map_specs(lambda x, spec, _shape: rules_lib.NamedSharding(
+            self.mesh, spec).place(x), params, self.specs, self.shapes)
+
+    def whole(self, shards: Pytree) -> Pytree:
+        return map_specs(self._whole, shards, self.specs, self.shapes)
+
+    def _whole(self, x, spec, shape):
+        local = x.to_local() if hasattr(x, "to_local") else x
+        sizes = rules_lib.mesh_sizes(self.mesh)
+        for name in ("model", "data"):
+            dims = [d for d, part in enumerate(spec)
+                    if name in rules_lib._names(part)]
+            n = sizes.get(name, 1)
+            # ``place`` keeps a dim on data whole where the extent does not
+            # divide it.
+            if not dims or n == 1 or (name == "data" and shape[dims[0]] % n):
+                continue
+            local = all_gather_dim(self.dist, local, dims[0], shape[dims[0]],
+                                   n, self.mesh.get_group(name))
+        return local
+
+    def decide(self, values: list) -> list:
+        t = torch.tensor([float("nan") if v is None else float(v)
+                          for v in values], dtype=torch.float64,
+                         device=self.host)
+        self.dist.broadcast(t, src=self.lead)
+        return [None if v != v else v for v in t.tolist()]
+
+    def all_ok(self, flag: bool) -> bool:
+        t = torch.tensor([int(flag)], dtype=torch.int64, device=self.host)
+        self.dist.all_reduce(t, op=self.dist.ReduceOp.MIN)
+        return bool(t.item())

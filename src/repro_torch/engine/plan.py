@@ -18,7 +18,8 @@ specs say where each leaf lives on a mesh.
   config (the sliding window of ``qwen3-14b`` and ``zamba2-7b``).
 * ``resolve_serve_paged`` + ``plan_serve_step``: the serving plane's
   continuous-batching decode step, on the gather route (the reference) or
-  the paged route (the CUDA page-table attention kernel); one device only.
+  the paged route (the CUDA page-table attention kernel), with the JAX
+  planner's placement veto and, on a mesh, its specs.
 * ``build``: the dispatcher by kind.
 """
 from __future__ import annotations
@@ -428,17 +429,20 @@ def plan_decode(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
                 out_shardings=(None, cache_sh))
 
 
-def resolve_serve_paged(api: ModelAPI, layout, paged: str = "auto"):
+def resolve_serve_paged(api: ModelAPI, layout, arch=None, mesh=None,
+                        paged: str = "auto"):
     """Resolve the serve decode route -> ``(route, why)``: ``"paged"`` (the
     in-place page-table attention kernel), ``"gather"`` (the gather ->
     decode -> scatter reference) or ``"resident"`` (no token-major cache
     leaves at all).
 
-    ``"off"`` forces the gather reference; ``"auto"`` and ``"on"`` take the
-    paged route wherever the model family has ``decode_paged`` (``"on"``
-    raises where it has not). The JAX package also vetoes FSDP archs and
-    model-sharded meshes under ``"auto"``; the port runs on one GPU, where
-    the packed page view keeps its placement, so nothing vetoes it."""
+    ``"off"`` forces the gather reference; ``"auto"`` takes the paged route
+    only where ``engine.api.kernel_placement_ok`` would fuse a training
+    kernel (FSDP archs and a model axis > 1 veto it) and the model family
+    has ``decode_paged``; ``"on"`` overrides the model-axis veto and raises
+    where the paged route cannot run (no ``decode_paged``, an FSDP
+    placement). ``arch`` is an ``ArchDef`` or an arch id, ``mesh`` any mesh
+    ``sharding.rules`` reads."""
     if paged not in ("off", "auto", "on"):
         raise ValueError(f"paged={paged!r}: expected off/auto/on")
     if not layout.has_tokens:
@@ -450,6 +454,12 @@ def resolve_serve_paged(api: ModelAPI, layout, paged: str = "auto"):
             raise ValueError(
                 f"paged='on' but family {api.family!r} has no decode_paged")
         return "gather", f"family {api.family!r} has no decode_paged"
+    from repro_torch.engine.api import kernel_placement_ok
+    ok, why = kernel_placement_ok(paged, arch, mesh)
+    if not ok:
+        if paged == "on":
+            raise ValueError(f"paged='on' vetoed by placement: {why}")
+        return "gather", why
     return "paged", ""
 
 
@@ -485,17 +495,17 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
 
     Masked slots still occupy lanes but are inert: their token is kept and
     their cache write goes to the null page. ``temp <= 0`` is greedy.
-    ``mesh`` must be None (one device): serving on a mesh raises."""
-    from repro_torch.engine import placement as placement_lib
+
+    With a mesh the plan carries the JAX planner's specs: params by
+    ``rules_for_arch`` (the model axis on the param dims, FSDP archs'
+    ``embed`` on data), every other argument and output replicated, so
+    every rank holds every slot (``engine/placement.py::ServePlacement``
+    holds a rank's shards and makes them whole for the step)."""
     from repro_torch.kernels import dispatch
-    if mesh is not None:
-        raise NotImplementedError(
-            f"serving on a mesh does not run yet (ROADMAP "
-            f"{placement_lib.SERVE_ITEM})")
     arch, shape, api = _resolve(arch, shape, reduced, overrides)
     assert shape.kind == "decode", shape.name
     slots = shape.global_batch
-    route, route_why = resolve_serve_paged(api, layout, paged)
+    route, route_why = resolve_serve_paged(api, layout, arch, mesh, paged)
     dispatch.note("serve_decode", route, route_why)
 
     def serve_step(params, pages, resident, tables, tokens, pos, mask, gen,
@@ -523,14 +533,38 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
             pages, resident, new_cache, tables, pos, mask)
         return nxt, pages, resident
 
-    return Plan(
+    plan = Plan(
         fn=serve_step_paged if route == "paged" else serve_step,
+        donate_argnums=(1, 2),
         meta={"arch": arch.arch_id, "shape": shape.name, "kind": "serve",
               "slots": slots, "seq_len": shape.seq_len,
               "cache_tokens": layout.tokens,
               "page_tokens": layout.page_tokens,
               "pages": num_pages, "resident_width": layout.res_width,
               "paged": route, "paged_why": route_why})
+    if mesh is None:
+        return plan
+    rules = rules_lib.rules_for_arch(arch.arch_id, shape=shape, mesh=mesh)
+    params_shapes, params_axes = captured_axes(
+        lambda dev: api.init(0, device=dev))
+
+    def meta(shp, dtype=torch.float32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    vec = lambda dtype: meta((slots,), dtype)
+    rep = _replicated()
+    # The generator (a torch.Generator, not a tensor) and the temperature
+    # (a float) take no abstract value.
+    plan.args = (params_shapes,
+                 meta((num_pages + 1, layout.page_tokens, layout.width)),
+                 meta((slots, layout.res_width)),
+                 meta((slots, max(layout.pages_per_slot, 1)), torch.int32),
+                 vec(torch.int32), vec(torch.int32), vec(torch.bool), None,
+                 0.0)
+    plan.in_shardings = (rules_lib.tree_specs(params_axes, mesh, rules),
+                         rep, rep, rep, rep, rep, rep, rep, rep)
+    plan.out_shardings = (rep, rep, rep)
+    return plan
 
 
 def build(arch_id: str, shape_name: str, mesh=None, *,

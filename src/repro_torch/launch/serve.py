@@ -6,12 +6,16 @@ live parameter refresh from a training run's snapshot directory.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --reduced --batch 8 --prompt-len 64 --gen 32 [--greedy] \\
       [--params CKPT_DIR [--refresh-every N]] [--cpu]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --mesh 1x2 --arch deepseek-7b --reduced --greedy [--cpu]
 
-Runs on CUDA unless ``--cpu`` is given. ``--params CKPT_DIR`` serves from the
-latest committed snapshot (either package's format); ``--refresh-every N``
-keeps polling that directory every N decode steps and hot-swaps newer
+Runs on CUDA unless ``--cpu`` is given. ``--params CKPT_DIR`` serves from
+the latest committed snapshot (either package's format); ``--refresh-every
+N`` keeps polling that directory every N decode steps and hot-swaps newer
 snapshots mid-stream, reporting the realized parameter staleness of the
-served tokens.
+served tokens. ``--mesh DATAxMODEL`` other than ``1x1`` serves over the
+ranks of a ``torchrun`` launch (``serving/server.py``): every rank serves
+every request, and rank 0 alone prints.
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ def main(argv=None):
                     help="argmax decoding (same as --temperature 0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1x1",
-                    help="host mesh 'DATAxMODEL' (only 1x1 runs: serving "
-                         "on a mesh is ROADMAP A.16)")
+                    help="host mesh 'DATAxMODEL'; other than 1x1, run under "
+                         "torchrun with DATA x MODEL ranks")
     ap.add_argument("--params", default=None, metavar="CKPT_DIR",
                     help="serve from the latest committed snapshot instead "
                          "of fresh-init params")
@@ -68,11 +72,13 @@ def main(argv=None):
                        else args.prefill_batch))
     server = Server(cfg, device="cpu" if args.cpu else None)
     api = server.api
+    lead = server.mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     base_step = 0
     if args.params:
         base_step = server.restore_params(args.params)
-        print(f"serving snapshot step {base_step} from {args.params}")
+        say(f"serving snapshot step {base_step} from {args.params}")
         if args.refresh_every:
             server.make_refresher(args.params,
                                   every_steps=args.refresh_every,
@@ -97,18 +103,23 @@ def main(argv=None):
     report = server.run(reqs)
     rep = server.dispatch_report()
     why = f" ({rep['why']})" if rep["why"] else ""
-    print(f"serve dispatch: paged={rep['paged']}{why} on {server.device}")
+    mesh = "" if server.mesh is None else f" over mesh {args.mesh}"
+    say(f"serve dispatch: paged={rep['paged']}{why} on {server.device}"
+        f"{mesh}")
     for op, backend in rep["decisions"].items():
-        print(f"  {op:<16} -> {backend}")
+        say(f"  {op:<16} -> {backend}")
     summary = report.summary()
-    print(json.dumps(summary, indent=1))
-    print(f"decode: {summary['tokens_total']} tokens over "
-          f"{report.decode_steps} continuous-batch steps "
-          f"({summary['tokens_per_s']} tok/s)")
+    say(json.dumps(summary, indent=1))
+    say(f"decode: {summary['tokens_total']} tokens over "
+        f"{report.decode_steps} continuous-batch steps "
+        f"({summary['tokens_per_s']} tok/s)")
     first = min(report.completed, key=lambda r: r.rid)
-    print("sample row 0:", first.tokens[:24])
+    say("sample row 0:", first.tokens[:24])
+    return {"server": server, "report": report}
 
 
 if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -24,6 +24,19 @@ lazy: a request claims only the pages its prompt + budget will touch, so
 The server runs on CUDA unless constructed with ``device="cpu"``; sampling
 at ``temperature > 0`` draws from ``torch.Generator``s seeded from
 ``cfg.seed``.
+
+On a ``DeviceMesh`` (``cfg.mesh`` under ``torchrun``, or ``mesh=``) every
+rank runs the same loop over every slot, as the JAX plan replicates the
+pages, resident rows and tables. Params are restored as this rank's shards
+of the serve plan's placement and made whole once a load or refresh
+(``engine/placement.py::ServePlacement``), so the decode and prefill
+steps call no collective. The ranks stay in lockstep because rank 0 takes
+every host decision (the clock's ``now``, the snapshot step to load, the
+staleness stamps, the measured times) and every rank applies rank 0's:
+one host broadcast between decode steps, one a prefill call, an
+``all_reduce`` a refresh (did every rank load?) and one broadcast at the
+end of a run. The sampling generators are seeded alike. Every rank
+returns the same ``ServeReport``.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch import device as device_lib
+from repro_torch import treemath as tm
 from repro_torch.configs.base import InputShape
 from repro_torch.engine import plan as planlib
 from repro_torch.engine import placement as placement_lib
@@ -44,6 +58,7 @@ from repro_torch.serving.batcher import ContinuousBatcher, SlotState
 from repro_torch.serving.cache import PagedDecodeCache, build_layout
 from repro_torch.serving.queue import AdmissionQueue, Clock, Request
 from repro_torch.serving.snapshot import SnapshotRefresher
+from repro_torch.sharding import rules as rules_lib
 
 Pytree = Any
 
@@ -60,7 +75,7 @@ class ServingConfig:
     num_pages: Optional[int] = None   # default: slots * pages_per_slot
     temperature: float = 0.0          # <= 0 -> greedy argmax
     seed: int = 0
-    mesh: str = "1x1"                 # host mesh "DATAxMODEL" (1x1 only)
+    mesh: str = "1x1"                 # host mesh "DATAxMODEL" (torchrun)
     virtual_dt: Optional[float] = None  # fixed seconds/step clock for tests
     paged: str = "auto"               # serve decode route: off | auto | on
     prefill_batch: int = 1            # max requests prefilled per call
@@ -159,22 +174,31 @@ class Server:
     ``device`` (CUDA unless ``device="cpu"``)."""
 
     def __init__(self, cfg: ServingConfig, params: Optional[Pytree] = None,
-                 refresher: Optional[SnapshotRefresher] = None, device=None):
+                 refresher: Optional[SnapshotRefresher] = None, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.device = device_lib.resolve(device)
         self.arch = cfglib.get(cfg.arch)
         self.api = self.arch.api(reduced=cfg.reduced, overrides=cfg.overrides)
-        if meshlib.parse_spec(cfg.mesh) != (1, 1):
-            raise NotImplementedError(
-                f"mesh {cfg.mesh!r}: serving on a mesh does not run yet "
-                f"(ROADMAP {placement_lib.SERVE_ITEM})")
+        # ``mesh`` (a DeviceMesh over the process group) takes the place of
+        # cfg.mesh, as build_engine(mesh=) takes one.
+        self.mesh = (meshlib.parse_host_mesh(cfg.mesh, device=self.device)
+                     if mesh is None else mesh)
+        if self.mesh is not None:
+            if not placement_lib.is_device_mesh(self.mesh):
+                raise ValueError("an abstract mesh plans placements only; "
+                                 "serve on a DeviceMesh")
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh on {self.mesh.device_type!r} devices, server on "
+                    f"{self.device.type!r}: pass device= to match")
         self.layout = build_layout(self.api, cfg.max_seq, cfg.page_tokens,
                                    device=self.device)
 
         self._pshape = InputShape("serve_prefill", cfg.prompt_len, 1, "prefill")
         dshape = InputShape("serve_decode", cfg.max_seq, cfg.slots, "decode")
         self.paged_route, self._paged_why = planlib.resolve_serve_paged(
-            self.api, self.layout, cfg.paged)
+            self.api, self.layout, self.arch, self.mesh, cfg.paged)
         # The paged route masks null-page rows in the kernel, so requests
         # claim only the pages they will touch; the gather route reads whole
         # rings and needs every slot fully paged.
@@ -183,14 +207,21 @@ class Server:
                                       lazy=self._lazy_pages,
                                       device=self.device)
         self.splan = planlib.plan_serve_step(
-            self.arch, dshape, None, layout=self.layout,
+            self.arch, dshape, self.mesh, layout=self.layout,
             num_pages=self.cache.num_pages, overrides=cfg.overrides,
             reduced=cfg.reduced, paged=cfg.paged)
         self._prefill_plans = {}
+        self.placement = (None if self.mesh is None else
+                          placement_lib.ServePlacement(
+                              self.mesh, self.splan.in_shardings[0],
+                              self.splan.args[0]))
 
         if params is None:
             params, _ = self.api.init(cfg.seed, device=self.device)
         self.params = params
+        # What a restore reads the names and devices from: empty leaves, so
+        # a refresher does not keep the boot params alive.
+        self._like = tm.tree_map(lambda x: x.new_empty(0), params)
         self.refresher = refresher
         self.batcher = ContinuousBatcher(cfg.slots)
         self._gen = device_lib.generator(cfg.seed, self.device)
@@ -206,16 +237,42 @@ class Server:
 
     # -- params plumbing -----------------------------------------------------
 
+    @property
+    def params_shardings(self) -> Optional[Pytree]:
+        """The serve plan's params placement as ``NamedSharding`` s (None
+        without a mesh)."""
+        if self.mesh is None:
+            return None
+        return rules_lib.named(self.splan.in_shardings[0], self.mesh)
+
+    @property
+    def _lead(self) -> bool:
+        return self.placement is None or self.placement.is_lead
+
+    def _decide(self, values: list) -> list:
+        """Rank 0's host decisions on a mesh; the values as they are
+        without one."""
+        return values if self.placement is None else \
+            self.placement.decide(values)
+
+    def _whole(self, params: Pytree) -> Pytree:
+        return params if self.placement is None else \
+            self.placement.whole(params)
+
     def restore_params(self, ckpt_dir: str) -> int:
         """Serve from the latest committed snapshot in ``ckpt_dir`` (either
-        package's format; leaves land on the served params' device).
-        Returns the snapshot step."""
+        package's format; leaves land on the served params' device, on a
+        mesh as this rank's shards, which are then made whole). Returns the
+        snapshot step."""
         from repro_torch.checkpoint import checkpoint as ckpt
-        step = ckpt.latest_step(ckpt_dir)
+        step, = self._decide([ckpt.latest_step(ckpt_dir) if self._lead
+                              else None])
         if step is None:
             raise FileNotFoundError(f"no committed snapshot in {ckpt_dir}")
-        self.params, step, _ = ckpt.restore(ckpt.step_path(ckpt_dir, step),
-                                            like=self.params)
+        shards, step, _ = ckpt.restore(ckpt.step_path(ckpt_dir, int(step)),
+                                       like=self._like,
+                                       shardings=self.params_shardings)
+        self.params = self._whole(shards)
         if self.refresher is not None:
             self.refresher.current_step = step
         return step
@@ -223,9 +280,36 @@ class Server:
     def make_refresher(self, ckpt_dir: str, every_steps: int = 1,
                        base_step: int = 0) -> SnapshotRefresher:
         self.refresher = SnapshotRefresher(
-            ckpt_dir, like=self.params, every_steps=every_steps,
-            base_step=base_step)
+            ckpt_dir, like=self._like, shardings=self.params_shardings,
+            every_steps=every_steps, base_step=base_step)
         return self.refresher
+
+    def _refresh(self, step: int) -> None:
+        """Swap in snapshot ``step`` (rank 0's poll found it): every rank
+        loads it, and swaps only if every rank could."""
+        got = self.refresher.load(step)
+        ok = got is not None
+        if self.placement is not None:
+            ok = self.placement.all_ok(ok)
+        if not ok:
+            return                      # pruned under a rank; retry later
+        shards, extra = got
+        self.refresher.swap(step, extra)
+        self.params = self._whole(shards)
+
+    def _between_steps(self, clock: Clock):
+        """Rank 0's host decisions between decode steps, in one broadcast
+        on a mesh: the clock's ``now``, the staleness stamp of the tokens
+        just decoded ((steps behind, seconds since publish), (0, None)
+        without a refresher) and the snapshot step to swap in before the
+        next one (None off the refresh period or with nothing newer)."""
+        r, values = self.refresher, [clock.now(), 0, None, None]
+        if r is not None and self._lead:
+            values[1:3] = r.staleness()
+            values[3] = r.poll(self.decode_steps)
+        now, behind, age, step = self._decide(values)
+        return (now, (int(behind), age),
+                None if step is None else int(step))
 
     # -- admission -----------------------------------------------------------
 
@@ -245,7 +329,7 @@ class Server:
         if fn is None:
             fn = planlib.plan_prefill(
                 self.arch, InputShape(f"serve_prefill_{length}x{batch}",
-                                      length, batch, "prefill"), None,
+                                      length, batch, "prefill"), self.mesh,
                 overrides=self.cfg.overrides,
                 reduced=self.cfg.reduced)
             self._prefill_plans[(length, batch)] = fn
@@ -329,7 +413,7 @@ class Server:
         logits, pcache = self._get_prefill(length, len(reqs))(
             self.params, self._prefill_inputs(reqs, length))
         _sync(self.device)
-        elapsed = time.monotonic() - t0
+        elapsed, stale = self._with_staleness(time.monotonic() - t0)
         self.prefill_calls += 1
         self.phase_s["prefill"] += elapsed
         lay = self.layout
@@ -348,13 +432,17 @@ class Server:
             self.batcher.join(slot, SlotState(
                 request=r, next_token=first, pos=length,
                 remaining=r.max_new_tokens - 1, join_s=now,
-                ttft_s=elapsed, tokens=[first],
-                staleness=[self._staleness()]))
+                ttft_s=elapsed, tokens=[first], staleness=[stale]))
 
-    def _staleness(self) -> Tuple[int, Optional[float]]:
-        if self.refresher is None:
-            return (0, None)
-        return self.refresher.staleness()
+    def _with_staleness(self, value: float):
+        """``(value, staleness stamp)``: rank 0's on a mesh, in one
+        broadcast a prefill call. The stamp is (steps behind, seconds since
+        publish), (0, None) without a refresher."""
+        behind, age = (self.refresher.staleness()
+                       if self.refresher is not None and self._lead
+                       else (0, None))
+        value, behind, age = self._decide([value, behind, age])
+        return value, (int(behind), age)
 
     def step_inputs(self) -> tuple:
         """The serve step's arguments for the current batch:
@@ -378,13 +466,11 @@ class Server:
         self.prefill_calls = 0
         self.phase_s = {"admit": 0.0, "prefill": 0.0, "decode": 0.0}
         t0 = time.monotonic()
+        now, _, fresh = self._between_steps(clock)
 
         while q.pending or self.batcher.any_active:
-            now = clock.now()
-            if self.refresher is not None:
-                fresh = self.refresher.maybe_refresh(self.decode_steps)
-                if fresh is not None:
-                    self.params = fresh
+            if fresh is not None:
+                self._refresh(fresh)
 
             expired.extend(r.rid for r in q.expire(now))
 
@@ -401,6 +487,7 @@ class Server:
 
             if not self.batcher.any_active:
                 clock.idle()
+                now, _, fresh = self._between_steps(clock)
                 continue
 
             t_dec = time.monotonic()
@@ -410,8 +497,7 @@ class Server:
             self.phase_s["decode"] += time.monotonic() - t_dec
             self.decode_steps += 1
             clock.tick()
-            now = clock.now()
-            stale = self._staleness()
+            now, stale, fresh = self._between_steps(clock)
             for i in self.batcher.active():
                 s = self.batcher.slots[i]
                 s.next_token = int(next_np[i])
@@ -428,9 +514,12 @@ class Server:
             if self.decode_steps >= max_steps:
                 break
 
+        wall_s, *times = self._decide([time.monotonic() - t0,
+                                       *self.phase_s.values()])
+        self.phase_s = dict(zip(self.phase_s, times))
         return ServeReport(
             completed=completed, expired_rids=expired,
-            wall_s=time.monotonic() - t0, decode_steps=self.decode_steps,
+            wall_s=wall_s, decode_steps=self.decode_steps,
             joins=self.batcher.joins, evicts=self.batcher.evicts,
             refreshes=(self.refresher.refreshes if self.refresher else 0),
             prefill_calls=self.prefill_calls, phase_s=dict(self.phase_s))

@@ -6,10 +6,11 @@ publishes parameter snapshots through :class:`SnapshotPublisherHook`
 (atomic ``checkpoint`` writes in the JAX package's format — the meta side
 file commits the step, so a concurrent reader never sees a torn snapshot,
 and either package can read the other's). The server holds a
-:class:`SnapshotRefresher` and calls ``maybe_refresh`` between decode steps:
-on its refresh period it polls ``latest_step``, restores any newer snapshot
-onto the devices of the served params, and hot-swaps the params the next
-step uses.
+:class:`SnapshotRefresher` and, between decode steps, on its refresh
+period, polls ``latest_step`` (``poll``), restores any newer snapshot onto
+the devices of the served params (``load``; on a mesh, as this rank's
+shards of the serve plan's placement) and hot-swaps the params the next
+step uses (``swap``).
 
 Every served token is then stamped with its **realized parameter
 staleness** — how far behind the freshest published snapshot the serving
@@ -65,35 +66,52 @@ class SnapshotRefresher:
     ``every_steps`` is the refresh period in decode steps (0 = never refresh
     — the params stay at whatever the server booted with, and measured
     staleness grows as the publisher advances). Restored leaves land on the
-    devices of ``like``'s (the served params).
+    devices of ``like``'s (the served params); ``shardings`` (the serve
+    plan's params specs as ``sharding.rules.NamedSharding`` s) places each
+    as this rank's shard, as ``checkpoint.restore`` does.
+
+    The server calls ``poll`` between decode steps (on a mesh, rank 0
+    alone), then ``load`` and ``swap`` on every rank for the step polled.
+    A publish or a prune racing the read is tolerated.
     """
 
-    def __init__(self, ckpt_dir: str, like: Pytree, every_steps: int = 1,
-                 base_step: int = 0):
+    def __init__(self, ckpt_dir: str, like: Pytree,
+                 shardings: Optional[Pytree] = None,
+                 every_steps: int = 1, base_step: int = 0):
         self.ckpt_dir = ckpt_dir
         self.like = like
+        self.shardings = shardings
         self.every_steps = every_steps
         self.current_step = base_step     # publisher step of the served params
         self.published_at: Optional[float] = None
         self.refreshes = 0
 
-    def maybe_refresh(self, decode_step: int) -> Optional[Pytree]:
-        """Called between decode steps; returns new params on a swap, else
-        None. Tolerates publishes and prunes racing the read."""
+    def poll(self, decode_step: int) -> Optional[int]:
+        """The newer committed step to swap in at this decode step, or
+        None (off period, nothing newer)."""
         if not self.every_steps or decode_step % self.every_steps:
             return None
         latest = ckpt.latest_step(self.ckpt_dir)
         if latest is None or latest <= self.current_step:
             return None
+        return latest
+
+    def load(self, step: int) -> Optional[Tuple[Pytree, dict]]:
+        """``(params, extra)`` of snapshot ``step``, or None where it was
+        pruned between poll and read (the next period retries)."""
         try:
-            params, step, extra = ckpt.restore(
-                ckpt.step_path(self.ckpt_dir, latest), like=self.like)
+            params, _, extra = ckpt.restore(
+                ckpt.step_path(self.ckpt_dir, step), like=self.like,
+                shardings=self.shardings)
         except FileNotFoundError:
-            return None   # pruned between poll and read; next period retries
+            return None
+        return params, extra
+
+    def swap(self, step: int, extra: dict) -> None:
+        """Record that the server now serves snapshot ``step``."""
         self.current_step = step
         self.published_at = extra.get("published_at")
         self.refreshes += 1
-        return params
 
     def staleness(self) -> Tuple[int, Optional[float]]:
         """(steps behind the freshest committed snapshot, seconds since the

@@ -246,30 +246,57 @@ class NamedSharding:
     spec: tuple
 
     def place(self, x: torch.Tensor):
+        return self.wrap(x[self.index(x.shape)], tuple(x.shape))
+
+    def index(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's block of a whole tensor of ``shape``, a slice a
+        dim (what ``place`` keeps; ``checkpoint.restore`` reads only it)."""
+        return self._cut(shape)[0]
+
+    def wrap(self, block: torch.Tensor, shape: Sequence[int]):
+        """The placed tensor from this rank's ``block`` (``index(shape)``)
+        of a whole tensor of ``shape``."""
+        block = block.contiguous()
+        if model_extent(self.mesh) == 1 or not any(
+                "model" in _names(part) for part in self.spec):
+            return block
+        from torch.distributed.tensor import DTensor
+        model = self.mesh["model"]
+        held = self._cut(shape)[1]
+        return DTensor.from_local(
+            block, model, placements(self.spec, model), run_check=False,
+            shape=held, stride=torch.empty(held, device="meta").stride())
+
+    def _cut(self, shape: Sequence[int]):
+        """(this rank's slices, the shape its model sub-mesh holds): the
+        data axes' block of each dim they divide, then ``torch.chunk``'s
+        part of it on ``model``, as ``distribute_tensor`` cuts."""
         if not hasattr(self.mesh, "mesh_dim_names"):
             raise ValueError("an abstract mesh places nothing; use a "
                              "DeviceMesh")
         sizes = mesh_sizes(self.mesh)
+        index, held = [slice(None)] * len(shape), list(shape)
         for d, part in enumerate(self.spec):
             names = _names(part)
+            lo, n = 0, shape[d]
             data = [a for a in ("pod", "data") if a in names]
-            n = 1
+            k = 1
             for a in data:
-                n *= sizes[a]
-            if n > 1 and x.shape[d] % n == 0:
+                k *= sizes[a]
+            if k > 1 and n % k == 0:
                 rank = 0
                 for a in data:
                     rank = rank * sizes[a] + self.mesh.get_local_rank(a)
-                per = x.shape[d] // n
-                x = x.narrow(d, rank * per, per)
-        if sizes.get("model", 1) == 1 or not any(
-                "model" in _names(part) for part in self.spec):
-            return x.contiguous()
-        from torch.distributed.tensor import distribute_tensor
-        model = self.mesh["model"]
-        return distribute_tensor(x.contiguous(), model,
-                                 placements(self.spec, model),
-                                 src_data_rank=None)
+                n //= k
+                lo = rank * n
+            held[d] = n
+            m = sizes.get("model", 1)
+            if "model" in names and m > 1:
+                c = -(-n // m)
+                start = min(self.mesh.get_local_rank("model") * c, n)
+                lo, n = lo + start, min(c, n - start)
+            index[d] = slice(lo, lo + n)
+        return tuple(index), tuple(held)
 
 
 def named(spec_tree: Any, mesh) -> Any:

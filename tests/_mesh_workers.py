@@ -8,6 +8,7 @@ reference. Nothing here imports JAX.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -187,6 +188,116 @@ def constraint_case(mesh) -> dict:
                 torch.equal(v.full_tensor(), whole)) for k, v in outs.items()}
 
 
+# The serve cases: reduced archs, 2 slots, 3 requests (a join after an
+# evict), a virtual clock. name -> (arch, ServingConfig changes). The routes
+# are pinned ("on" overrides the model-axis veto, "off" forces the gather
+# route) so the mesh and the one process run the same one; deepseek-67b's
+# FSDP placement vetoes the paged route under "auto" everywhere.
+SERVE = dict(reduced=True, slots=2, prompt_len=8, max_seq=24, page_tokens=4,
+             seed=0, virtual_dt=0.01)
+SERVE_GENS = (5, 9, 4)
+SERVE_CASES = {
+    "deepseek-7b-paged-greedy": ("deepseek-7b", dict(paged="on")),
+    "deepseek-7b-gather-greedy": ("deepseek-7b", dict(paged="off")),
+    "deepseek-7b-paged-t0.7": ("deepseek-7b", dict(paged="on",
+                                                   temperature=0.7)),
+    "deepseek-7b-gather-t0.7": ("deepseek-7b", dict(paged="off",
+                                                    temperature=0.7)),
+    "deepseek-67b-auto": ("deepseek-67b", dict(paged="auto")),
+}
+# The refresh case boots from snapshot 1, serves a warm-up request (2 decode
+# steps), publishes snapshot 2 and polls every REFRESH_EVERY decode steps,
+# so the swap lands at decode step 4, two steps into the served stream.
+REFRESH_EVERY = 4
+
+
+def _served(server, report) -> dict:
+    """What every rank and the one process must agree on: each request's
+    tokens and staleness stamps, the route, and the report's counts."""
+    return {"route": (server.paged_route, server._paged_why),
+            "tokens": {r.rid: r.tokens for r in report.completed},
+            "stamps": {r.rid: r.staleness for r in report.completed},
+            "counts": (report.decode_steps, report.joins, report.evicts,
+                       report.refreshes, report.prefill_calls),
+            "report": report}
+
+
+def _serve_requests(server, gens=SERVE_GENS, seed=3):
+    from repro_torch.serving import synthetic_requests
+    reqs = synthetic_requests(len(gens), SERVE["prompt_len"], 1,
+                              server.api.vocab_real, seed=seed)
+    for r, g in zip(reqs, gens):
+        r.max_new_tokens = g
+    return reqs
+
+
+def serve_case(name: str, mesh=None) -> dict:
+    from repro_torch.serving import Server, ServingConfig
+    arch, kw = SERVE_CASES[name]
+    server = Server(ServingConfig(arch=arch, **SERVE, **kw), device="cpu",
+                    mesh=mesh)
+    return _served(server, server.run(_serve_requests(server)))
+
+
+def _publish(server, ckpt_dir: str, step: int) -> None:
+    """Snapshot ``step``: the arch's init from seed ``step``, written by
+    the lead rank (the one process's only rank)."""
+    if server._lead:
+        params, _ = server.api.init(step, device="cpu")
+        ckpt.save(ckpt.step_path(ckpt_dir, step), params, step=step,
+                  extra={"published_at": time.time()})
+
+
+def refresh_case(ckpt_dir: str, mesh=None) -> dict:
+    """Boot from snapshot 1, a warm-up request, then snapshot 2 swapped in
+    at decode step REFRESH_EVERY, mid-serve. Rank 0 alone writes and polls;
+    the other ranks load the step it broadcasts."""
+    from repro_torch.serving import Server, ServingConfig
+    server = Server(ServingConfig(arch="deepseek-7b", paged="on", **SERVE),
+                    device="cpu", mesh=mesh)
+    _publish(server, ckpt_dir, 1)
+    boot = server.restore_params(ckpt_dir)
+    server.run(_serve_requests(server, gens=(3,), seed=4))
+    _publish(server, ckpt_dir, 2)
+    server.make_refresher(ckpt_dir, every_steps=REFRESH_EVERY, base_step=boot)
+    out = _served(server, server.run(_serve_requests(server)))
+    out["boot"], out["step"] = boot, server.refresher.current_step
+    return out
+
+
+def serve_restore_case(mesh, ckpt_dir: str) -> dict:
+    """``restore(shardings=)`` with the serve plan's placement: each leaf's
+    type and whether a ``("model",)``-sharded leaf is a DTensor, and the
+    placement's whole params against the saved ones."""
+    from repro_torch.serving import Server, ServingConfig
+    server = Server(ServingConfig(arch="deepseek-7b", **SERVE), device="cpu",
+                    mesh=mesh)
+    _publish(server, ckpt_dir, 5)
+    import torch.distributed as dist
+    dist.barrier()
+    path = ckpt.step_path(ckpt_dir, 5)
+    shards, _, _ = ckpt.restore(path, like=server.params,
+                                shardings=server.params_shardings)
+    saved, _, _ = ckpt.restore(path, like=server.params)
+    specs = rules_lib.axes_leaves(server.splan.in_shardings[0])
+    kinds = [(type(x).__name__, "model" in str(spec))
+             for x, spec in zip(tm.tree_leaves(shards), specs)]
+    whole = server.placement.whole(shards)
+    # Leaves the model extent does not divide: torch.chunk parts, the last
+    # short (5 over 2) or empty (1 over 2).
+    from repro_torch.engine.placement import ServePlacement
+    odd = {"a": torch.arange(5.0), "b": torch.arange(6.0).reshape(3, 2),
+           "c": torch.tensor([7.0])}
+    uneven = ServePlacement(mesh, {"a": ("model",), "b": (None, "model"),
+                                   "c": ("model",)}, odd)
+    return {"kinds": kinds,
+            "whole": all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(whole), tm.tree_leaves(saved))),
+            "uneven": all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(uneven.whole(uneven.shard(odd))),
+                tm.tree_leaves(odd)))}
+
+
 def _raised(build) -> str:
     try:
         build()
@@ -228,6 +339,17 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
                     mesh=mesh22, device="cpu"))
             for name in LM_CASES:
                 out[name] = lm_case(name, mesh22)
+        serve_meshes = {"2x2": (2, 2)} if world == 4 else {"2x1": (2, 1),
+                                                            "1x2": (1, 2)}
+        out["serve"] = {}
+        for label, (data, model) in serve_meshes.items():
+            smesh = make_host_mesh(data, model, device="cpu")
+            got = {name: serve_case(name, smesh) for name in SERVE_CASES}
+            sub = os.path.join(out_dir, f"serve-{label}")
+            got["refresh"] = refresh_case(sub, smesh)
+            if model > 1:
+                got["restore"] = serve_restore_case(smesh, sub)
+            out["serve"][label] = got
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -223,3 +223,66 @@ def test_leaf_names_keep_no_leaf_alive(tmp_path):
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("name,tree", _trees())
+def test_restore_reads_stored_members_as_np_load(tmp_path, name, tree):
+    """``restore`` reads a stored member straight from the file (one
+    ``np.fromfile``, checked against the zip's CRC-32): bitwise
+    ``np.load``'s leaves, a Fortran-ordered member too; a flipped data
+    byte raises ``BadZipFile`` as ``np.load`` would, and so does a
+    compressed member, which no snapshot holds."""
+    import struct
+    import zipfile
+    path = ckpt.step_path(str(tmp_path), 2)
+    ckpt.save(path, _torch_tree(tree), step=2)
+    n = len(jax.tree.leaves(tree))
+    with np.load(path) as npz:
+        want = [npz[f"leaf_{i}"] for i in range(n)]
+    got = ckpt._read_leaves(path, [None] * n)
+    assert all(a.dtype == b.dtype and a.shape == b.shape == shape
+               and a.tobytes() == b.tobytes()
+               for (a, shape), b in zip(got, want))
+    odd = str(tmp_path / "odd.npz")
+    fort = np.asfortranarray(np.arange(12.0).reshape(3, 4))
+    np.savez(odd, leaf_0=fort)
+    (a, _), = ckpt._read_leaves(odd, [None])
+    assert np.array_equal(a, fort)
+    with zipfile.ZipFile(odd, "a", zipfile.ZIP_DEFLATED) as zf:
+        with zf.open("leaf_1.npy", "w") as fp:
+            np.lib.format.write_array(fp, np.arange(5, dtype=np.int32))
+    with pytest.raises(zipfile.BadZipFile, match="compressed"):
+        ckpt._read_leaves(odd, [None, None])
+    raw = bytearray(open(path, "rb").read())
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(f"leaf_{n - 1}.npy")
+    at = info.header_offset
+    name_len, extra_len = struct.unpack("<HH", raw[at + 26:at + 30])
+    raw[at + 30 + name_len + extra_len + info.file_size - 1] ^= 1  # last byte
+    bad = str(tmp_path / "bad.npz")
+    open(bad, "wb").write(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        ckpt._read_leaves(bad, [None] * n)
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        with np.load(bad) as npz:
+            npz[f"leaf_{n - 1}"]
+
+
+@pytest.mark.parametrize("order", ["C", "F"])
+def test_restore_reads_a_block_of_a_member(tmp_path, order):
+    """A placed leaf reads only its block (``NamedSharding.index``):
+    bitwise that block of the whole array, for every dim sliced, empty
+    blocks and C- and Fortran-ordered members."""
+    x = np.arange(4 * 6 * 5, dtype=np.float32).reshape(4, 6, 5, order=order)
+    blocks = [(slice(0, 4), slice(0, 6), slice(0, 5)),
+              (slice(1, 3), slice(0, 6), slice(0, 5)),
+              (slice(0, 4), slice(3, 6), slice(0, 5)),
+              (slice(0, 4), slice(0, 6), slice(2, 4)),
+              (slice(2, 4), slice(1, 2), slice(4, 5)),
+              (slice(0, 4), slice(6, 6), slice(0, 5))]
+    path = str(tmp_path / "blk.npz")
+    np.savez(path, **{f"leaf_{i}": x for i in range(len(blocks))})
+    got = ckpt._read_leaves(path, [lambda shape, b=b: b for b in blocks])
+    for (a, shape), b in zip(got, blocks):
+        assert shape == x.shape and a.dtype == x.dtype
+        assert a.shape == x[b].shape and np.array_equal(a, x[b])

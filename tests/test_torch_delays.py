@@ -96,3 +96,53 @@ def test_matched_geometric_matches_jax():
     for s, p in ((8, 4), (16, 8), (2, 2)):
         assert tdel.matched_geometric(s, p) == tdel.GeometricDelay(
             **vars(jdel.matched_geometric(s, p)))
+
+
+def test_core_exports_match_jax():
+    """ROADMAP A.14: ``repro_torch.core`` exports every name ``repro.core``
+    exports (the delay samplers and ``draw_delay_matrix`` included), and no
+    other."""
+    import inspect
+    import repro.core as jcore
+    import repro_torch.core as tcore
+
+    def names(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))}
+
+    assert names(tcore) == names(jcore)
+    assert tcore.UniformDelay is tdel.UniformDelay
+    assert tcore.matched_geometric is tdel.matched_geometric
+
+
+SAMPLERS = {"uniform": tdel.UniformDelay(5), "constant": tdel.ConstantDelay(3),
+            "zero": tdel.Zero(),
+            "geometric": tdel.matched_geometric(8, 4, trunc=12)}
+
+
+@pytest.mark.parametrize("name", list(SAMPLERS))
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_draw_delay_matrix_and_histogram(name, p):
+    """``draw_delay_matrix`` is the sampler's ``[p, p]`` draw (bitwise, and
+    within ``[0, bound]``); ``effective_staleness_histogram`` counts
+    ``1 + r`` over ``steps`` such draws: length ``bound + 2``, total
+    ``steps * p^2``, nothing at 0; the constant and zero delays land all
+    their mass on ``1 + value``."""
+    from repro_torch.core import draw_delay_matrix
+    from repro_torch.core.staleness import effective_staleness_histogram
+    spec, steps = SAMPLERS[name], 7
+    r = draw_delay_matrix(_gen(p), spec, p)
+    assert r.shape == (p, p) and r.dtype == torch.int64
+    assert torch.equal(r, spec.sample(_gen(p), (p, p)))
+    assert int(r.min()) >= 0 and int(r.max()) <= spec.bound
+    hist = effective_staleness_histogram(spec, _gen(p + 1), p, steps)
+    assert hist.shape == (spec.bound + 2,)
+    assert int(hist.sum()) == steps * p * p and int(hist[0]) == 0
+    gen = _gen(p + 1)
+    draws = torch.stack([spec.sample(gen, (p, p)) for _ in range(steps)])
+    assert torch.equal(hist, torch.bincount(draws.reshape(-1) + 1,
+                                            minlength=spec.bound + 2))
+    if name in ("constant", "zero"):
+        want = torch.zeros(spec.bound + 2, dtype=torch.int64)
+        want[spec.bound + 1] = steps * p * p
+        assert torch.equal(hist, want)

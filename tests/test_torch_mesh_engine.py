@@ -206,3 +206,109 @@ def test_train_cli_under_torchrun_prints_the_one_process_rows():
         got.pop("wall_s"), want.pop("wall_s")
         assert got == want
     assert out.stdout.count("done:") == 1          # rank 0 alone prints
+
+
+# -- serving on a mesh -----------------------------------------------------------
+
+SERVE_MESHES = {"2x1": 2, "1x2": 2, "2x2": 4}
+
+
+@pytest.fixture(scope="module")
+def serve_one_process(tmp_path_factory):
+    out = {name: W.serve_case(name) for name in W.SERVE_CASES}
+    out["refresh"] = W.refresh_case(str(tmp_path_factory.mktemp("refresh")))
+    return out
+
+
+def _serve_ranks(worlds, label):
+    return [out["serve"][label] for out in worlds[SERVE_MESHES[label]]]
+
+
+@pytest.mark.parametrize("label", list(SERVE_MESHES))
+@pytest.mark.parametrize("case", list(W.SERVE_CASES) + ["refresh"])
+def test_mesh_serve_equals_one_process(worlds, serve_one_process, label,
+                                       case):
+    """Reduced deepseek-7b on the paged and gather routes, greedy and at
+    temperature 0.7, and reduced deepseek-67b (FSDP: ``embed`` on data,
+    the gather route), served over a 2x1, 1x2 and 2x2 mesh: each rank's
+    tokens and staleness stamps are bitwise the one process's, with the
+    same counts, and every rank returns the same report (rank 0's
+    decisions, its clock and stamps included). ``refresh``: a snapshot
+    swapped in at decode step 4 of the served stream; the ranks load the
+    step rank 0 polled."""
+    ref = serve_one_process[case]
+    ranks = _serve_ranks(worlds, label)
+    for got in ranks:
+        assert got[case]["route"] == ref["route"]
+        assert got[case]["tokens"] == ref["tokens"]
+        assert got[case]["counts"] == ref["counts"]
+        steps = {rid: [b for b, _ in st] for rid, st in
+                 got[case]["stamps"].items()}
+        assert steps == {rid: [b for b, _ in st] for rid, st in
+                         ref["stamps"].items()}
+        assert {rid: [a is None for _, a in st] for rid, st in
+                got[case]["stamps"].items()} == \
+            {rid: [a is None for _, a in st] for rid, st in
+             ref["stamps"].items()}
+        assert got[case]["report"] == ranks[0][case]["report"]
+    if case == "refresh":
+        assert ref["boot"] == 1 and ref["step"] == 2
+        assert ref["counts"][3] == 1                 # one swap
+        assert all(got[case]["step"] == 2 for got in ranks)
+        # Stamps run 1 step behind until the swap, then 0.
+        stamps = [b for st in ref["stamps"].values() for b, _ in st]
+        assert 0 in stamps and 1 in stamps
+
+
+def test_mesh_serve_routes_follow_the_veto(worlds):
+    """Under "auto" a model axis > 1 takes the gather route, as JAX does;
+    "on" overrides it (the cases above run the kernel's route)."""
+    for label in ("1x2", "2x2"):
+        for got in _serve_ranks(worlds, label):
+            assert got["deepseek-7b-paged-greedy"]["route"] == ("paged", "")
+            assert got["deepseek-67b-auto"]["route"] == ("gather",
+                                                         "FSDP placement")
+
+
+@pytest.mark.parametrize("label", ["1x2", "2x2"])
+def test_serve_restore_gives_model_shards(worlds, label):
+    """``restore(shardings=)`` with the serve plan's placement returns a
+    DTensor for every leaf with a ``"model"`` part (this rank's shard) and
+    a plain tensor for every other; the placement's ``whole`` gives the
+    saved params back bit for bit, and leaves the model extent does not
+    divide too."""
+    for got in _serve_ranks(worlds, label):
+        kinds = got["restore"]["kinds"]
+        assert any(sharded for _, sharded in kinds)
+        assert all((kind == "DTensor") == sharded for kind, sharded in kinds)
+        assert got["restore"]["whole"] and got["restore"]["uneven"]
+
+
+def test_serve_cli_under_torchrun_prints_the_one_process_rows():
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2
+    --cpu``: "auto" resolves to the gather route (model axis extent 2), and
+    rank 0 alone prints the report and sample row of the in-process CLI on
+    the gather route."""
+    import json
+    from repro_torch.launch import serve
+    args = ["--arch", "deepseek-7b", "--reduced", "--cpu", "--greedy",
+            "--batch", "2", "--prompt-len", "8", "--gen", "6"]
+    env = _env()
+    env["PYTHONPATH"] = str(REPO / "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(_free_port()), "-m",
+         "repro_torch.launch.serve", "--mesh", "1x2"] + args,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    ref = serve.main(args + ["--paged", "off"])["report"]
+    assert out.stdout.count("serve dispatch:") == 1   # rank 0 alone prints
+    assert "paged=gather (model axis extent 2)" in out.stdout
+    start = out.stdout.index("{")
+    summary = json.loads(out.stdout[start:out.stdout.index("\n}", start) + 2])
+    want = ref.summary()
+    for key in ("requests_completed", "tokens_total", "decode_steps", "joins",
+                "evicts", "refreshes", "prefill_calls", "staleness"):
+        assert summary[key] == want[key], key
+    first = min(ref.completed, key=lambda r: r.rid)
+    assert f"sample row 0: {first.tokens[:24]}" in out.stdout

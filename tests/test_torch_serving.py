@@ -29,6 +29,7 @@ from repro import configs as jcfg
 from repro import serving as js
 from repro.checkpoint import checkpoint as jckpt
 from repro_torch import configs as tcfg
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch import serving as ts
 from repro_torch import treemath as tm
 from repro_torch.convert import params_from_jax
@@ -315,6 +316,59 @@ def test_snapshot_refresh_from_jax_checkpoints(params, tmp_path):
     want, _, _ = jckpt.restore(jckpt.step_path(d, 4), like=jp)
     for a, b in zip(tm.tree_leaves(srv.params), jax.tree.leaves(want)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+class _CountedLead:
+    """A one-rank stand-in for ``engine/placement.py::ServePlacement`` that
+    counts the host broadcasts (``decide``); values come back as floats,
+    as a broadcast returns them."""
+    is_lead = True
+
+    def __init__(self):
+        self.decides = 0
+
+    def decide(self, values):
+        self.decides += 1
+        return [None if v is None else float(v) for v in values]
+
+    def whole(self, shards):
+        return shards
+
+    def all_ok(self, flag):
+        return flag
+
+
+def test_one_host_broadcast_between_decode_steps(params, tmp_path):
+    """A serve on a mesh broadcasts rank 0's host decisions once between
+    decode steps (the clock, the stamp and the snapshot step to swap in,
+    together), once a prefill call and once at each end of a run, a swap
+    landing mid-serve; its tokens and stamps are the mesh-less
+    server's."""
+    _, tp = params
+    d = str(tmp_path)
+    for step in (1, 2):
+        ckpt.save(ckpt.step_path(d, step),
+                  tm.tree_map(lambda x: x * (1 + 0.05 * step), tp),
+                  step=step, extra={"published_at": 0.0})
+
+    def serve(lead):
+        srv = ts.Server(_cfg(ts), params=tp, device="cpu")
+        srv.placement = lead
+        srv.run(_requests(ts, n=1, seed=4))     # 4 decode steps
+        srv.make_refresher(d, every_steps=8, base_step=1)
+        if lead is not None:
+            lead.decides = 0
+        return srv.run(_requests(ts)), srv.decode_steps - 4
+
+    ref, _ = serve(None)
+    lead = _CountedLead()
+    rep, steps = serve(lead)
+    assert rep.refreshes == ref.refreshes == 1
+    assert _tokens(rep) == _tokens(ref)
+    assert {r.rid: [b for b, _ in r.staleness] for r in rep.completed} == \
+        {r.rid: [b for b, _ in r.staleness] for r in ref.completed}
+    assert {0, 1} <= {b for r in rep.completed for b, _ in r.staleness}
+    assert lead.decides == 2 + steps + rep.prefill_calls
 
 
 def test_server_needs_cuda_unless_cpu(monkeypatch):

@@ -57,8 +57,9 @@ def test_route_resolution_tri_state():
 
 def test_route_resolution_without_decode_paged():
     """A family without decode_paged takes the gather route under auto and
-    refuses "on"; on one GPU nothing vetoes the placement, so the JAX
-    package's FSDP arch resolves to the paged route too."""
+    refuses "on"; the FSDP placement vetoes the paged route as the JAX
+    package's ``kernel_placement_ok`` does, even with no mesh: "auto"
+    takes the gather route, "on" raises (``tests/test_serving_paged.py``)."""
     api = tcfg.get(ARCH).api(reduced=True)
     layout = build_layout(api, MAX_SEQ, PAGE_TOKENS, device="cpu")
     import dataclasses
@@ -70,8 +71,11 @@ def test_route_resolution_without_decode_paged():
     fsdp = tcfg.get("deepseek-67b")
     lay = build_layout(fsdp.api(reduced=True), MAX_SEQ, PAGE_TOKENS,
                        device="cpu")
-    assert resolve_serve_paged(fsdp.api(reduced=True), lay,
-                               "auto") == ("paged", "")
+    assert resolve_serve_paged(fsdp.api(reduced=True), lay, fsdp, None,
+                               "auto") == ("gather", "FSDP placement")
+    with pytest.raises(ValueError, match="vetoed by placement"):
+        resolve_serve_paged(fsdp.api(reduced=True), lay, fsdp, None, "on")
+    assert make_server("deepseek-67b").paged_route == "gather"
 
 
 # -- paged vs gather equivalence ---------------------------------------------

@@ -166,8 +166,9 @@ def test_parse_host_mesh_without_a_process_group(monkeypatch):
 
 
 def test_the_mesh_defaults_to_the_card(monkeypatch):
-    """Under torchrun, ``--mesh`` without ``--cpu`` asks for the card: on a
-    host without CUDA it raises up front instead of building a CPU mesh."""
+    """Under torchrun, ``--mesh`` without ``--cpu`` asks for the card (the
+    train and serve CLIs alike): on a host without CUDA it raises up front
+    instead of building a CPU mesh."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
@@ -175,6 +176,9 @@ def test_the_mesh_defaults_to_the_card(monkeypatch):
         tmesh.parse_host_mesh("2x1")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tmesh.init_process_group()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "deepseek-7b", "--reduced", "--mesh", "2x1"])
     assert tmesh.backend_for("cpu") == "gloo"
     assert tmesh.backend_for("cuda") == "nccl"
 
@@ -302,9 +306,119 @@ def test_inference_plans_take_the_mesh_third():
                           mesh, reduced=True)
     assert d.in_shardings[1] == ("data", None) and d.in_shardings[3] == ()
     assert all(x.device.type == "meta" for x in tm_leaves(d.args[0]))
-    with pytest.raises(NotImplementedError, match="A.16"):
-        tplan.plan_serve_step("deepseek-7b", InputShape("s", 32, 2, "decode"),
-                              mesh, layout=None, num_pages=1, reduced=True)
+    # The serve step plans on a mesh too (A.16; its specs against JAX's in
+    # test_serve_plan_specs_match_jax).
+    layout = tlay(tcfg.get("deepseek-7b").api(reduced=True))
+    s = tplan.plan_serve_step("deepseek-7b", InputShape("s", 32, 2, "decode"),
+                              mesh, layout=layout, num_pages=1, reduced=True)
+    assert s.in_shardings[1:] == ((),) * 8 and s.donate_argnums == (1, 2)
+    assert all(x.device.type == "meta" for x in tm_leaves(s.args[0]))
+
+
+SERVE_SHAPE = InputShape("serve_decode", 24, 2, "decode")
+
+
+def tlay(api):
+    from repro_torch.serving import build_layout
+    return build_layout(api, SERVE_SHAPE.seq_len, 4, device="cpu")
+
+
+@pytest.mark.parametrize("arch_id", ["deepseek-7b", "deepseek-67b",
+                                     "qwen2-moe-a2.7b", "h2o-danube-1.8b"])
+def test_serve_plan_specs_match_jax(arch_id):
+    """The serve plan's spec trees (A.16): at 1x1 equal to JAX
+    ``plan_serve_step``'s ``in_shardings`` / ``out_shardings`` and
+    ``donate_argnums``; at 2x2 and 16x16 its params specs equal JAX's
+    ``rules.spec_for`` under ``rules_for_arch`` (the model axis on the
+    param dims, FSDP ``embed`` on data) and every other argument is
+    replicated, as JAX's planner puts them."""
+    from repro import serving as js
+    japi = jcfg.get(arch_id).api(reduced=True)
+    tapi = tcfg.get(arch_id).api(reduced=True)
+    jlay = js.build_layout(japi, SERVE_SHAPE.seq_len, 4)
+    tlayout = tlay(tapi)
+    jp = jplan.plan_serve_step(arch_id, SERVE_SHAPE,
+                               jmesh.make_host_mesh(1, 1), layout=jlay,
+                               num_pages=12, reduced=True, paged="auto")
+    tp = tplan.plan_serve_step(arch_id, SERVE_SHAPE,
+                               trules.AbstractMesh(("data", "model"), (1, 1)),
+                               layout=tlayout, num_pages=12, reduced=True,
+                               paged="auto")
+    assert trules.axes_leaves(tp.in_shardings[0]) == [
+        jspec(x) for x in jleaves(jp.in_shardings[0])]
+    assert list(tp.in_shardings[1:]) == [jspec(x) for x in
+                                         jp.in_shardings[1:]]
+    assert list(tp.out_shardings) == [jspec(x) for x in jp.out_shardings]
+    assert tp.donate_argnums == jp.donate_argnums
+    assert [tuple(x.shape) for x in tm_leaves(tp.args[1:7])] == \
+        [tuple(x.shape) for x in jp.args[1:7]]
+    assert tp.meta == jp.meta
+    jaxes = jax.tree.leaves(jparam_axes(japi), is_leaf=jplan._is_axes_leaf)
+    for name in ("2x2", "16x16"):
+        duck, abstract = meshes(name)
+        plan = tplan.plan_serve_step(arch_id, SERVE_SHAPE, abstract,
+                                     layout=tlayout, num_pages=12,
+                                     reduced=True, paged="auto")
+        rules = jrules.rules_for_arch(arch_id, shape=SERVE_SHAPE, mesh=duck)
+        assert trules.axes_leaves(plan.in_shardings[0]) == [
+            jspec(jrules.spec_for(a, duck, rules)) for a in jaxes], name
+        assert plan.in_shardings[1:] == ((),) * 8
+        assert plan.out_shardings == ((),) * 3
+        if arch_id in trules.FSDP_ARCHS:
+            assert any("data" in str(x) for x in
+                       trules.axes_leaves(plan.in_shardings[0]))
+
+
+SERVE_MESHES = {"none": None, "1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2),
+                "2x2": (2, 2)}
+
+
+@pytest.fixture(scope="module")
+def serve_layouts():
+    from repro import serving as js
+    out = {}
+    for arch in ARCHS:
+        japi = jcfg.get(arch).api(reduced=True)
+        tapi = tcfg.get(arch).api(reduced=True)
+        out[arch] = (japi, js.build_layout(japi, SERVE_SHAPE.seq_len, 4),
+                     tapi, tlay(tapi))
+    return out
+
+
+def _route(fn, *args):
+    try:
+        return fn(*args)
+    except ValueError as e:
+        return ("raised", str(e))
+
+
+@pytest.mark.parametrize("mesh_name", list(SERVE_MESHES))
+def test_serve_route_matches_jax(serve_layouts, mesh_name):
+    """ROADMAP C.7: the port's ``resolve_serve_paged`` returns JAX's
+    ``(route, why)`` or raises JAX's message for every arch id x paged
+    off/auto/on on this mesh: FSDP archs take the gather route under
+    "auto" and raise under "on"; a model axis > 1 takes the gather route
+    under "auto", which "on" overrides; families without ``decode_paged``
+    and the SSM's resident rows as in JAX."""
+    shape = SERVE_MESHES[mesh_name]
+    duck = None if shape is None else Duck(("data", "model"), shape)
+    abstract = None if shape is None else trules.AbstractMesh(
+        ("data", "model"), shape)
+    seen = set()
+    for arch in ARCHS:
+        japi, jlay, tapi, tlayout = serve_layouts[arch]
+        for paged in ("off", "auto", "on"):
+            want = _route(jplan.resolve_serve_paged, japi, jlay,
+                          jcfg.get(arch), duck, paged)
+            got = _route(tplan.resolve_serve_paged, tapi, tlayout,
+                         tcfg.get(arch), abstract, paged)
+            assert got == want, (arch, paged)
+            assert _route(tplan.resolve_serve_paged, tapi, tlayout, arch,
+                          abstract, paged) == want, (arch, paged)
+            seen.add(want[1] if want[0] != "raised" else "raised")
+    assert "FSDP placement" in seen and "raised" in seen
+    if shape is not None and shape[1] > 1:
+        assert "model axis extent 2" in seen
 
 
 @pytest.mark.parametrize("arch_id", ARCHS)
