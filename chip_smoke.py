@@ -82,8 +82,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 2048, a 4096 window over 5120 keys, right-aligned Sq of 1, 17 and
    128 over 2085 keys, bidirectional; fp32 and bf16; two calls bitwise),
    timed beside its bound, its plain version and
-   ``F.scaled_dot_product_attention``; the full-width, full-depth
-   h2o-danube-1.8b (~1.83 B params, remat on) trained through the train
+   ``F.scaled_dot_product_attention``; the full-width h2o-danube-1.8b at
+   12 of its 24 layers (remat on) trained through the train
    CLI (``repro_torch.launch.train.main``) in sync mode with
    ``--kernels on`` (``fused_adam``), profiled, then ``--kernels off``;
    on its trained params, every layer's attention sent through
@@ -95,15 +95,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    against off; qwen2-moe-a2.7b at full width with 1 layer, stale-psum
    over the aggregate ring through ``make_train_engine``, on against off;
    and kernels 1-5 timed at the LM width;
-10. the state-space families (``ssm_path``): the full-width, full-depth
-   mamba2-1.3b (~1.45 B params, remat on) through the train CLI in sync
-   mode, kernels on (profiled) and off, with the one-ulp witness and, as
+10. the state-space families (``ssm_path``): the full-width
+   mamba2-1.3b at 6 of its 48 layers (remat on) through the train CLI in
+   sync mode, kernels on (profiled) and off, with the one-ulp witness and, as
    its witness parts past LM_CEILING, its step 1 from the shared init held
    elementwise (``first_step_check``); five ring legs of it at 4 layers
    (stale-psum, ssp, simulate, SGD top-k with inverse scaling, and
-   ``--coherence`` with a checkpoint and a trace); zamba2-7b cut to 7
-   layers through the CLI in stale-psum; both served at full width and
-   depth (mamba on the resident route, zamba on the gather route, bf16,
+   ``--coherence`` with a checkpoint and a trace); zamba2-7b cut to 6
+   layers through the CLI in stale-psum; both served at full width with
+   their depths cut (mamba 6 of 48 layers on the resident route, zamba
+   12 of 81 on the gather route, bf16,
    no kernel launched), each holding request 0's greedy tokens against a
    plain token-by-token loop and fp32 prefill + decode logits against one
    full forward over 300 tokens; kernels 1-5 held and timed at the mamba
@@ -115,12 +116,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and SDPA; with every cross gate opened at CROSS_GATE: the full-width,
    full-depth whisper-base (~128.6 M params, remat on) through the train
    CLI in sync over 1,500-frame inputs, kernels on (profiled) and off with
-   the one-ulp witness, and its six ring legs (danube's legs at 3 + 3 of
-   its 6 + 6 layers); llama-3.2-vision-11b at full width with 5 of 40 layers (one
-   whole group, ~2.35 B params) in sync, on and off with the witness; both
-   served at full width and depth on the paged route (bf16, each request
-   with its own features, ``paged_attention`` once a self layer a decode
-   step), each holding request 0's greedy tokens against a plain loop,
+   the one-ulp witness, and its six ring legs (danube's legs at 1 + 1 of
+   its 6 + 6 layers); llama-3.2-vision-11b at full width with 5 of 40
+   layers (one whole group, ~2.35 B params) in sync, on and off with the
+   witness; both served at full width on the paged route (whisper at full
+   depth, llama at 20 of 40 layers; bf16, each request with its own
+   features, ``paged_attention`` once a self layer a decode step), each holding request 0's greedy tokens against a plain loop,
    fp32 prefill + decode against one forward over 300 tokens, and the fp32
    paged and gather routes' tokens against each other (llama at 10 of 40
    layers);
@@ -133,8 +134,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    per-worker legs bit for bit as the one-process run, sync within the
    ring legs' limits, and the collectives' share of a step from the
    profiler on rank 0;
-13. serving on a mesh (``serve_mesh_path``): the full-width, full-depth
-   h2o-danube-1.8b (bf16 compute over fp32 params, 8 requests over 8
+13. serving on a mesh (``serve_mesh_path``): the full-width
+   h2o-danube-1.8b at 6 of its 24 layers (bf16 compute over fp32
+   params, 8 requests over 8
    slots, paged route) booted from a snapshot through ``restore_params``
    and refreshed to a second snapshot mid-serve, mesh-less (the
    reference: tokens, staleness stamps, ``paged_attention`` launches), on
@@ -145,7 +147,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the placement gathers them once a load; each rank bitwise as the
    mesh-less run), then the same ranks with the gather planted (each
    rank's other half zeros), which must part; ms a decode step, the
-   gathers' host wall time and each leg's peak memory.
+   gathers' host wall time and each leg's peak memory;
+14. the FSDP archs on a mesh (``fsdp_mesh_path``): deepseek-67b at full
+   width cut to 1 layer (2.37 B bf16 params, momentum) in two processes on
+   the one card over ``gloo`` (``--fsdp-mesh-rank``): rank 0 first trains
+   it as one process in ``sync`` and ``stale-psum`` over the aggregate
+   ring (3 steps, B 4 x 256) and from one-ulp-nudged params (the
+   witness); then both ranks train it at 2x1 (params, momentum and ring
+   as data-axis shards, each layer gathered as it runs, its gradient
+   reduce-scattered), held within 2x the witness (capped at LM_CEILING),
+   the step-1 gradient within 2x its witness's, sync's step-1 params
+   elementwise and stale-psum's grad_norm at every step within
+   FSDP_NORM_REL; one step with each rank's own half-batch gradient in
+   place of the reduce-scatter (planted), which must part; 2 sync steps
+   at 1x2 through the model axis's c10d gather, bit for bit the
+   one-process run; one sync step at 2x1 with 2 layers, where a layer's
+   gathered leaves must be gone before the next layer's gather and the
+   peak may grow by the added layer's shard only; ms a step, the
+   collectives' share, a step's gathers and reduce-scatters, and each
+   rank's peak memory (the stale-psum leg's below the one process's).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -2492,7 +2512,8 @@ FLASH_CASES = (("2048 causal", 1, 2048, 2048, True, 0),
 # seq 1024 fits; batch 16 would double the activations only. Measured on
 # the H100: a peak of 66.0 GB (PERF.md, PR 15).
 TRAIN_ARCH = "h2o-danube-1.8b"
-TRAIN_FULL = dict(batch=8, seq=1024, steps=4, timed=3, profile=2)
+TRAIN_FULL = dict(layers=12, batch=8, seq=1024, steps=4, timed=3,
+                  profile=2)
 # Ring legs: the same width with the depth cut to 4 of 24 layers (~0.44 B
 # params, 1.77 GB a copy), P = 2 workers, s = 3: a [3, 2, D] ring of
 # 10.6 GB, [2, D] per-worker gradients, packed copies and (compressed)
@@ -3119,14 +3140,15 @@ def full_config_leg(dev, failures: list) -> dict:
     from repro_torch import configs as cfglib
 
     f = TRAIN_FULL
-    cfg = cfglib.get(TRAIN_ARCH).api().cfg
+    arch = cut_arch(TRAIN_ARCH, f["layers"])
+    cfg = cfglib.get(arch).api().cfg
 
     def route(params):
-        tokens = next(train_batches(cli_argv(TRAIN_ARCH), 2, f["seq"], 0))
+        tokens = next(train_batches(cli_argv(arch), 2, f["seq"], 0))
         tokens = torch.as_tensor(tokens["tokens"][:, :-1], device=dev)
         return {"route": flash_route(dev, params, cfg, tokens, failures)}
 
-    return full_leg(dev, TRAIN_ARCH, f, "full danube", failures,
+    return full_leg(dev, arch, f, f"danube {f['layers']} layers", failures,
                     after_on=route)
 
 
@@ -3511,7 +3533,8 @@ def train_path(dev, tmp: str) -> dict:
 # train CLI in sync mode with remat and Adam. At full depth (48 layers,
 # 1,446,538,240 params) it took ~117 s of the run; since the serving-mesh
 # phase joined, its depth is cut to SSM_FULL["layers"] to fit the run's
-# limit. At full depth (the figures below; 24 layers take about half):
+# limit (24 layers, then 6 since the FSDP mesh phase joined). At full
+# depth (the figures below; 6 layers take about an eighth):
 # fp32 params, Adam's two moments and the gradients take 4 x 5.79 =
 # 23.1 GB; the sync fused tail packs a [D] copy of each of
 # params and gradients (~11.6 GB more). With remat a step keeps each
@@ -3522,7 +3545,7 @@ def train_path(dev, tmp: str) -> dict:
 # 1.6 GB fp32, a few fp32 copies in the loss and its backward, ~6 GB).
 # Predicted peak ~45-50 GB of the card's 80.
 SSM_ARCH = "mamba2-1.3b"
-SSM_FULL = dict(layers=24, batch=8, seq=1024, steps=4, timed=3, profile=2)
+SSM_FULL = dict(layers=6, batch=8, seq=1024, steps=4, timed=3, profile=2)
 SSM_FULL_LABEL = f"mamba {SSM_FULL['layers']} layers"
 # Ring legs: every width kept, 4 of 48 layers (~0.31 B params, 1.24 GB a
 # copy), P = 2, s = 3 (a [3, 2, D] ring of 7.4 GB): the danube legs' flags.
@@ -3533,11 +3556,11 @@ SSM_LEGS = tuple(leg for leg in TRAIN_LEGS
 # state 64) and one shared attention+MLP block (32 heads of 112, d_ff
 # 14,336) after every 6; 6,750,539,856 params (27.0 GB fp32). Training at
 # full depth needs params, two moments and gradients, 4 x 27 = 108 GB, which
-# no H100 holds: the training leg keeps every width and cuts the depth to 7
-# layers (one group of 6, the one shared-block invocation, one tail layer;
-# ~0.98 B params, 3.9 GB a copy; the [3, 2, D] ring 23.4 GB).
+# no H100 holds: the training leg keeps every width and cuts the depth to 6
+# layers (one group of 6 and its shared-block invocation; 7 until the FSDP
+# mesh phase joined, with one tail layer, ~0.98 B params).
 HYBRID_ARCH = "zamba2-7b"
-HYBRID_RING = dict(TRAIN_RING, layers=7)
+HYBRID_RING = dict(TRAIN_RING, layers=6)
 HYBRID_LEGS = TRAIN_LEGS[:1]                     # stale-psum Adam
 # The serves, bf16 compute over fp32 params: mamba on the resident route
 # (its cache has no token axis: 48 x 0.54 M fp32 state floats, ~100 MB a
@@ -3548,11 +3571,11 @@ HYBRID_LEGS = TRAIN_LEGS[:1]                     # stale-psum Adam
 # the new tokens are cut to fit the run's time: mamba 4-12 (of up to 96),
 # zamba 8 (of 32), half what they were before phase 11 joined the run.
 # Since the serving-mesh phase joined, the depths are cut too: mamba to 24
-# of 48 layers, zamba to 42 of 81 (seven groups of six, seven
-# shared-block invocations).
-SSM_SERVE = dict(arch=SSM_ARCH, layers=24, n=16, new_tokens=(4, 12),
+# of 48 layers, zamba to 42 of 81; since the FSDP mesh phase joined, to 6
+# and 12 (two groups of six, two shared-block invocations).
+SSM_SERVE = dict(arch=SSM_ARCH, layers=6, n=16, new_tokens=(4, 12),
                  serve_kw=dict(max_seq=224))
-HYBRID_SERVE = dict(arch=HYBRID_ARCH, layers=42, n=8, new_tokens=(8, 8),
+HYBRID_SERVE = dict(arch=HYBRID_ARCH, layers=12, n=8, new_tokens=(8, 8),
                     serve_kw=dict(slots=4, max_seq=160, prefill_batch=4))
 # Prefill + decode against one full forward, fp32, over 300 tokens (not a
 # multiple of the 256-token chunk): the prefill's 290 logits, then 10 decode
@@ -3773,10 +3796,10 @@ def ssm_serve(dev, spec: dict) -> dict:
 
 
 def ssm_path(dev, tmp: str) -> dict:
-    """Phase 10: mamba2-1.3b at full width and depth trained through the
-    CLI (sync, kernels on, off, witness), its 4-layer ring legs, the
-    7-layer zamba2-7b stale-psum leg, both served at full width and depth
-    (resident and gather routes), and kernels 1-5 held and timed at the
+    """Phase 10: mamba2-1.3b at full width, SSM_FULL["layers"] deep,
+    trained through the CLI (sync, kernels on, off, witness), its 4-layer
+    ring legs, the 7-layer zamba2-7b stale-psum leg, both served at full
+    width at cut depths (resident and gather routes), and kernels 1-5 held and timed at the
     mamba ring legs' width, fused_adam at the full leg's D."""
     import gc
     import torch
@@ -3851,7 +3874,8 @@ def flash_entry(train: dict) -> dict:
 def add_lm_rows(kernels: list, train: dict) -> None:
     """Beside each of kernels 1-5, its times at the LM width and its
     launches on every train-phase leg."""
-    legs = {"full danube": train["full"]["launches"],
+    legs = {f"danube {TRAIN_FULL['layers']} layers":
+            train["full"]["launches"],
             f"moe {train['moe']['arch']}": train["moe"]["launches"]}
     legs.update({name: row["launches"] for name, row in train["ring"].items()
                  if isinstance(row, dict) and "launches" in row})
@@ -3950,10 +3974,11 @@ CROSS_TIMING = {
 # whisper at full width and depth through the train CLI: sync, remat, B 8 x
 # 448 tokens (Whisper's decoder horizon) over 8 x 1,500 x 512 frames. Its
 # ring legs are danube's (TRAIN_LEGS, P = 2, s = 3, B 4) at seq 448 with
-# the depth cut to 3 + 3 of 6 + 6 layers: host-bound (~0.45 s a step at 6),
-# they took 95 s at full depth.
+# the depth cut to 1 + 1 of 6 + 6 layers: host-bound (~0.45 s a step at 6),
+# they took 95 s at full depth, 59.7 s at 3 + 3 (cut to 1 + 1 when the
+# FSDP mesh phase joined).
 WHISPER_FULL = dict(batch=8, seq=448, steps=4, timed=3, profile=2)
-WHISPER_RING = dict(TRAIN_RING, layers=3, seq=448)
+WHISPER_RING = dict(TRAIN_RING, layers=1, seq=448)
 # llama-3.2-vision-11b at full width with 5 of 40 layers: one whole group
 # (5 self layers, then the cross layer), 2,353,582,081 params (9.4 GB a
 # copy).
@@ -3963,12 +3988,13 @@ VISION_TRAIN = dict(layers=5, batch=4, seq=512, steps=4, timed=3, profile=2)
 # The serves, bf16 compute over fp32 params, on the paged route (every self
 # layer through paged_attention; the cross K/V ride in each slot's resident
 # row): whisper 16 requests over 8 slots, prompts of 64, up to 64 new
-# tokens in a 448-row ring; llama 8 requests over 4 slots, prompts of 128,
-# 16-32 new tokens (its resident row per slot: 8 cross layers x 1,601 x 8 x
-# 128 x 2 fp32 floats, 105 MB, rewritten each step).
+# tokens in a 448-row ring; llama at 20 of its 40 layers (cut when the
+# FSDP mesh phase joined), 8 requests over 4 slots, prompts of 128, 16-32
+# new tokens (its resident row per slot: 4 cross layers x 1,601 x 8 x 128
+# x 2 fp32 floats, 52 MB, rewritten each step).
 WHISPER_SERVE = dict(arch=WHISPER_ARCH, n=16, new_tokens=(16, 64),
                      serve_kw=dict(prompt_len=64, max_seq=448))
-VISION_SERVE = dict(arch=VISION_ARCH, n=8, new_tokens=(16, 32),
+VISION_SERVE = dict(arch=VISION_ARCH, layers=20, n=8, new_tokens=(16, 32),
                     serve_kw=dict(slots=4, prompt_len=128, max_seq=160,
                                   prefill_batch=4))
 # The fp32 paged and gather routes on one prefill batch of each serve;
@@ -4043,7 +4069,8 @@ def cross_serve(dev, spec: dict) -> dict:
     from repro_torch import configs as cfglib
     from repro_torch import treemath as tm
 
-    arch = spec["arch"]
+    arch = (cut_arch(spec["arch"], spec["layers"]) if "layers" in spec
+            else spec["arch"])
     api = cfglib.get(arch).api()
     t0 = time.perf_counter()
     params, _ = api.init(0, device=dev)
@@ -4136,11 +4163,11 @@ def cross_path(dev, tmp: str) -> dict:
     """Phase 11: paged_attention held and timed at the two families' head
     shapes; whisper-base at full width and depth trained through the CLI
     (sync, kernels on, off, witness) and its ring legs; llama-3.2-vision-11b
-    at 5 of 40 layers trained in sync; both served at full width and depth
-    on the paged route. Every cross gate opens at CROSS_GATE."""
+    at 5 of 40 layers trained in sync; both served at full width on the
+    paged route (llama at VISION_SERVE["layers"]). Every cross gate opens
+    at CROSS_GATE."""
     import gc
     import torch
-    from repro_torch import configs as cfglib
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4168,14 +4195,7 @@ def cross_path(dev, tmp: str) -> dict:
                                         arch_id=WHISPER_ARCH, r=WHISPER_RING,
                                         legs=TRAIN_LEGS)
         lap("the whisper ring legs")
-        vision = cut_arch(VISION_ARCH, VISION_TRAIN["layers"])
-        n = cfglib.count_params(cfglib.get(vision).api())
-        print(f"vision leg: {n} params at {VISION_TRAIN['layers']} layers "
-              f"({n * 4 / 1e9:.1f} GB a fp32 copy)")
-        with expandable_segments():
-            out["vision"] = full_leg(
-                dev, vision, VISION_TRAIN,
-                f"vision {VISION_TRAIN['layers']} layers", failures)
+        out["vision"] = vision_leg(dev, failures)
         lap("the vision leg")
         for name, spec in (("whisper", WHISPER_SERVE),
                            ("vision", VISION_SERVE)):
@@ -4187,6 +4207,19 @@ def cross_path(dev, tmp: str) -> dict:
     if failures:
         raise AssertionError("cross phase: " + "; ".join(failures))
     return out
+
+
+def vision_leg(dev, failures: list) -> dict:
+    """llama-3.2-vision-11b at full width, VISION_TRAIN["layers"] deep,
+    through the train CLI in sync (``full_leg``)."""
+    from repro_torch import configs as cfglib
+    vision = cut_arch(VISION_ARCH, VISION_TRAIN["layers"])
+    n = cfglib.count_params(cfglib.get(vision).api())
+    print(f"vision leg: {n} params at {VISION_TRAIN['layers']} layers "
+          f"({n * 4 / 1e9:.1f} GB a fp32 copy)")
+    with expandable_segments():
+        return full_leg(dev, vision, VISION_TRAIN,
+                        f"vision {VISION_TRAIN['layers']} layers", failures)
 
 
 def add_cross_rows(kernels: list, cross: dict) -> None:
@@ -4246,7 +4279,7 @@ MESH_SYNC_TOL = dict(loss=1e-6, param=1e-4, rel=2e-6)
 MESH_SYNC_LEG = MESH_LEGS[3]
 PLANTED = "sync adam, all_reduce dropped"
 COLLECTIVES = ("all_gather", "allgather", "all_reduce", "allreduce",
-               "broadcast")
+               "broadcast", "reduce_scatter")
 
 
 def mesh_run(dev, leg, params0, data, table, mesh=None, *, steps=STEPS,
@@ -4312,7 +4345,8 @@ def mesh_run(dev, leg, params0, data, table, mesh=None, *, steps=STEPS,
     return out
 
 
-def profile_collectives(engine, state, batches, k: int, sync) -> dict:
+def profile_collectives(engine, state, batches, k: int, sync, warm=True,
+                        keep=None) -> dict:
     """``k`` steps under the profiler, each collective the placement calls
     inside a ``record_function`` range (``mesh.all_gather`` and so on: the
     call and its wait, which c10d's own ops leave out), after one step that
@@ -4323,7 +4357,9 @@ def profile_collectives(engine, state, batches, k: int, sync) -> dict:
     share of the step's wall time, the synchronizes included. The profiler
     traces the host only: gloo blocks the calling thread until a
     collective of CUDA tensors is done, and with CUDA activity traced too
-    these ranges read no host time on the H100 (PERF.md)."""
+    these ranges read no host time on the H100 (PERF.md). ``warm=False``
+    skips the warm-up step (a step of seconds does not feel the profiler's
+    start); ``keep`` (a list) gets the last step's state and metrics."""
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
 
@@ -4336,7 +4372,8 @@ def profile_collectives(engine, state, batches, k: int, sync) -> dict:
 
         def __getattr__(self, name):
             fn = getattr(self.dist, name)
-            if name not in ("all_gather", "all_reduce", "broadcast"):
+            if name not in ("all_gather", "all_reduce", "broadcast",
+                            "reduce_scatter_tensor"):
                 return fn
 
             def timed(*a, **kw):
@@ -4345,18 +4382,29 @@ def profile_collectives(engine, state, batches, k: int, sync) -> dict:
                     return fn(*a, **kw)
             return timed
 
-    engine.placement.dist = Timed(engine.placement.dist)
+    place = engine.placement
+    place.dist = Timed(place.dist)
+    for axis in (getattr(place, "data_axis", None),
+                 getattr(place, "model_axis", None)):
+        if axis is not None:
+            # The gathers of the FSDP and model axes (and the backward's
+            # reduce-scatters) call the axis's torch.distributed.
+            axis.dist = Timed(axis.dist)
     acts = [ProfilerActivity.CPU]
-    with torch_profile(activities=acts):
-        state, _ = engine.step(state, next(batches))
-        sync()
+    if warm:
+        with torch_profile(activities=acts):
+            state, _ = engine.step(state, next(batches))
+            sync()
     sync()
     t0 = time.perf_counter()
     with torch_profile(activities=acts) as prof:
         for _ in range(k):
-            state, _ = engine.step(state, next(batches))
+            state, m = engine.step(state, next(batches))
         sync()
     wall = (time.perf_counter() - t0) * 1e3 / k
+    if keep is not None:
+        keep.append((state, m))
+    del state
     rows = {}
     for e in prof.key_averages():
         if e.key.startswith("mesh.") or any(c in e.key.lower()
@@ -4587,10 +4635,11 @@ def add_mesh_rows(kernels: list, mesh: dict) -> None:
 
 # -- phase 13: serving on a mesh --------------------------------------------------
 
-# The full-width, full-depth danube serve (SERVE: 8 slots, prompts of 128,
-# bf16 compute over fp32 params, paged route "on") at snapshot 1, one
-# warm-up request of MESH_SERVE["warm_tokens"] tokens (its decode steps put
-# the server's step count past 0), then MESH_SERVE["n"] requests with a
+# The full-width danube serve at MESH_SERVE_LAYERS layers (SERVE: 8 slots,
+# prompts of 128, bf16 compute over fp32 params, paged route "on") at
+# snapshot 1, one warm-up request of MESH_SERVE["warm_tokens"] tokens (its
+# decode steps put the server's step count past 0), then MESH_SERVE["n"]
+# requests with a
 # refresher polling every MESH_SERVE["every"] decode steps of a directory
 # that also holds snapshot 2: the swap lands mid-serve, at decode step
 # ``every``. Snapshot k is the arch's init from seed k. Legs: mesh-less
@@ -4606,17 +4655,26 @@ def add_mesh_rows(kernels: list, mesh: dict) -> None:
 # tokens must part from the reference's.
 MESH_SERVE = dict(n=8, new_tokens=(16, 32), warm_tokens=3, every=8)
 MESH_SERVE_RANKS = 2
+# The danube's depth in this phase: 24 (full) until the FSDP mesh phase
+# joined, then 6 of 24 to fit the run (every width kept).
+MESH_SERVE_LAYERS = 6
+
+
+def mesh_serve_arch() -> str:
+    """The served arch of phase 13: the danube cut to MESH_SERVE_LAYERS
+    (registered in this process, as each rank process registers it)."""
+    return cut_arch(SERVE_ARCH, MESH_SERVE_LAYERS)
 
 
 def publish_snapshots(dev, tmp: str):
-    """Snapshots 2 and 1 of the full danube in ``tmp/live``, snapshot 1
+    """Snapshots 2 and 1 of the cut danube in ``tmp/live``, snapshot 1
     also in ``tmp/boot`` (a hard link): a boot restores the latest of
     ``boot``, the refresher polls ``live``. Returns the directories and
     snapshot 1's params."""
     import torch
     from repro_torch import configs as cfglib
     from repro_torch.checkpoint import checkpoint as ckpt
-    api = cfglib.get(SERVE_ARCH).api(reduced=False)
+    api = cfglib.get(mesh_serve_arch()).api(reduced=False)
     dirs = {"boot": os.path.join(tmp, "boot"),
             "live": os.path.join(tmp, "live")}
     os.makedirs(dirs["boot"], exist_ok=True)
@@ -4631,8 +4689,8 @@ def publish_snapshots(dev, tmp: str):
     for suffix in (".npz", ".meta.json"):
         os.link(os.path.join(dirs["live"], "step_1" + suffix),
                 os.path.join(dirs["boot"], "step_1" + suffix))
-    print(f"serve mesh phase: two snapshots of {SERVE_ARCH} written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"serve mesh phase: two snapshots of {mesh_serve_arch()} written "
+          f"in {time.perf_counter() - t0:.1f} s")
     return dirs, params
 
 
@@ -4653,9 +4711,9 @@ class NoGather:
 
 def mesh_server(dev, mesh=None, params=None):
     from repro_torch.serving import Server, ServingConfig
-    return Server(ServingConfig(arch=SERVE_ARCH, reduced=False, paged="on",
-                                **SERVE), params=params, device=dev,
-                  mesh=mesh)
+    return Server(ServingConfig(arch=mesh_serve_arch(), reduced=False,
+                                paged="on", **SERVE), params=params,
+                  device=dev, mesh=mesh)
 
 
 def mesh_serve_stream(server, dev, refresh_dir=None, boot=1,
@@ -4787,11 +4845,11 @@ def serve_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     path = os.path.join(out_dir, f"rank{rank}.pt")
     try:
         mesh = make_host_mesh(1, world, device=dev.type)
-        api = cfglib.get(SERVE_ARCH).api(reduced=False)
+        api = cfglib.get(mesh_serve_arch()).api(reduced=False)
         layout = build_layout(api, SERVE["max_seq"], SERVE["page_tokens"],
                               device=dev)
-        out["auto"] = planlib.resolve_serve_paged(api, layout, SERVE_ARCH,
-                                                  mesh, "auto")
+        out["auto"] = planlib.resolve_serve_paged(
+            api, layout, mesh_serve_arch(), mesh, "auto")
         boot = []
         for leg in ("leg", "planted"):
             try:
@@ -4829,9 +4887,10 @@ def snapshot1_tokens(ref: dict) -> dict:
 
 
 def serve_mesh_path(dev) -> dict:
-    """Phase 13: the full-width danube served mesh-less, on a 1x1 nccl mesh
-    and on two gloo ranks at 1x2 (with the planted gather), each booted
-    from snapshot 1 and refreshed to snapshot 2 mid-serve (MESH_SERVE)."""
+    """Phase 13: the full-width danube (MESH_SERVE_LAYERS deep) served
+    mesh-less, on a 1x1 nccl mesh and on two gloo ranks at 1x2 (with the
+    planted gather), each booted from snapshot 1 and refreshed to
+    snapshot 2 mid-serve (MESH_SERVE)."""
     import gc
     import socket
     import torch
@@ -4858,7 +4917,7 @@ def serve_mesh_path(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         dirs, params1 = publish_snapshots(dev, tmp)
         ref = mesh_serve_leg(dev, dirs, params=params1)
-        want = cfglib.get(SERVE_ARCH).api(
+        want = cfglib.get(mesh_serve_arch()).api(
             reduced=False).cfg.num_layers * ref["decode_steps"]
         others = {k: n for k, n in ref["launches"].items()
                   if k != "paged_attention" and n}
@@ -4905,7 +4964,8 @@ def serve_mesh_path(dev) -> dict:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank",
-             str(r), str(MESH_SERVE_RANKS), str(port), tmp, dev.type],
+             str(r), str(MESH_SERVE_RANKS), str(port), tmp, dev.type,
+             str(MESH_SERVE_LAYERS)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True) for r in range(MESH_SERVE_RANKS)]
         try:
@@ -4978,6 +5038,696 @@ def add_serve_mesh_rows(kernels: list, serve_mesh: dict) -> None:
             entry["launches_serve_mesh"] = {
                 leg: row["launches"] for leg, row in serve_mesh.items()
                 if "launches" in row}
+
+
+# -- phase 14: the FSDP archs trained on a mesh ------------------------------------
+
+# deepseek-67b at full width (d_model 8192, 64 heads, kv 8, d_ff 22,016,
+# vocab 102,400; bf16 params, momentum) cut to FSDP_LEG["layers"] layer:
+# 2.37 B params, 4.74 GB. Legs of FSDP_LEG["steps"] steps on B 4 x 256:
+# ``sync``, and ``stale-psum`` over the aggregate ring (two slots) with
+# the deterministic delays FSDP_DELAYS, which deliver the aggregate one
+# step late at steps 2-3. Two gloo ranks on the one card run them at 2x1
+# (params, momentum and the ring as data-axis shards; each layer gathered
+# as it runs, its gradient reduce-scattered), after rank 0 has run them as
+# one process (the reference) and from one-ulp-nudged params (the witness).
+# Then one sync step with each rank's own half-batch gradient in place of
+# the reduce-scatter (the planted fault), and the sync leg's first
+# FSDP_REPAIR_STEPS steps at 1x2 (the model axis through
+# ``placement.full``'s c10d gather), which must equal the reference bit for
+# bit: every model rank computes the whole batch. The phase runs under
+# deterministic algorithms (the embedding's backward accumulates bf16 rows
+# in a fixed order), so two runs of one computation agree bit for bit.
+FSDP_ARCH = "deepseek-67b"
+FSDP_LEG = dict(layers=1, batch=4, seq=256, steps=3, workers=2, stale=2)
+FSDP_DELAYS = (0, 1, 1)
+FSDP_RANKS, FSDP_REPAIR_STEPS = 2, 2
+# The stale-psum leg's grad_norm at each step, two ranks against one
+# process: ~6e-6 relative on the H100 (PERF.md), where the aggregate of a
+# neighbouring step parts by ~4.5e-3 (the one process's norms 9.9208,
+# 9.9208, 9.8762).
+FSDP_NORM_REL = 1e-4
+# One more sync step at 2x1 with this many layers: each layer's gathered
+# leaves must be gone before the next layer's are gathered, and the peak
+# grows by the added layer's shard at the update, not by a gathered layer.
+FSDP_MEM_LAYERS = 2
+# The bytes an element of a rank's shard holds at step 1's optimizer
+# update, where a sync step peaks: the bf16 params and momentum, the new
+# bf16 momentum, the fp32 delta and the fp32 new params (C.8). On the
+# H100 a rank's step-1 peak is 14 B times its shard's elements at 1 and 2
+# layers (16.59 and 21.43 GB, PERF.md).
+FSDP_UPDATE_BYTES = 14
+# Step 1 from the shared init, two ranks against one process, held as
+# ``first_step_check`` holds a step: all but this share of the elements
+# within TOL_FIRST, and every element within TOL_FIRST or one ulp of the
+# reference's value (a bf16 param moves by far less than its ulp in a
+# step, so a gradient that differs in roundoff can only flip a rounding).
+FSDP_FLIP_SHARE = 1e-3
+
+
+def tree_stats(dev, got, ref, p0=None) -> dict:
+    """``piece_stats`` of two whole trees (and ``p0``), leaf by leaf."""
+    from repro_torch import treemath as tm
+    bases = tm.tree_leaves(p0) if p0 is not None else None
+    return piece_stats(dev, [
+        (a, b, None if bases is None else bases[i]) for i, (a, b) in
+        enumerate(zip(tm.tree_leaves(got), tm.tree_leaves(ref)))])
+
+
+def piece_stats(dev, pieces, chunk: int = 1 << 26) -> dict:
+    """Pieces ``(got, ref, base or None)`` (tensors on the host or the
+    card) held against each other in chunks on the card: ``rel`` =
+    |got - ref| / |ref - base| (|ref| without bases), the share of
+    elements outside TOL_FIRST, whether every element lies within
+    TOL_FIRST or one ulp of ``ref``'s value (a bf16 param moves by far
+    less than its ulp in a step, so a gradient that differs in roundoff
+    can only flip a rounding), and whether they are equal bit for bit."""
+    import torch
+    d2 = n2 = 0.0
+    outside = total = 0
+    within = bitwise = True
+    for a, b, c in pieces:
+        a, b = a.reshape(-1), b.reshape(-1)
+        c = None if c is None else c.reshape(-1)
+        for lo in range(0, b.numel(), chunk):
+            x = a[lo:lo + chunk].to(dev)
+            y = b[lo:lo + chunk].to(dev)
+            bitwise = bitwise and torch.equal(x, y)
+            err = (x.float() - y.float()).abs()
+            d2 += float(err.double().square().sum())
+            base = y.float() if c is None else (
+                y.float() - c[lo:lo + chunk].to(dev).float())
+            n2 += float(base.double().square().sum())
+            tol = err <= TOL_FIRST["atol"] + TOL_FIRST["rtol"] * y.float().abs()
+            ulp = (torch.nextafter(y.abs(), torch.full_like(y, float("inf")))
+                   .float() - y.abs().float())
+            outside += int((~tol).sum())
+            within = within and bool((tol | (err <= ulp)).all())
+            total += y.numel()
+            del x, y, err, base, tol, ulp
+    torch.cuda.empty_cache()
+    return {"rel": (d2 ** 0.5) / max(n2 ** 0.5, 1e-30),
+            "outside_tol": outside, "elements": total,
+            "share": outside / max(total, 1), "within_tol_or_ulp": within,
+            "bitwise": bitwise}
+
+
+def block_of(place, rank: int, x, dims, shape):
+    """Rank ``rank``'s block of a whole leaf ``x`` (a view): its data
+    block and its ``torch.chunk`` part of the model dim, as
+    ``MeshPlacement.shard_params`` cuts."""
+    from repro_torch.engine.placement import chunk_span
+    coords = (place.mesh.mesh == rank).nonzero()[0].tolist()
+    at = dict(zip(place.mesh.mesh_dim_names, coords))
+    dd, md = dims
+    if dd is not None:
+        c = shape[dd] // place.n
+        x = x.narrow(dd, at["data"] * c, c)
+    if md is not None:
+        x = x.narrow(md, *chunk_span(shape[md], place.m, at["model"]))
+    return x
+
+
+def fsdp_engine(dev, arch: str, mode: str, mesh=None):
+    """The leg's engine through ``make_train_engine`` (kernels auto, which
+    the FSDP placement vetoes)."""
+    import numpy as np
+    from repro_torch import delays
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine.plan import make_train_engine
+    f = FSDP_LEG
+    shape = InputShape("train_fsdp", f["seq"], f["batch"], "train")
+    kw = {} if mode == "sync" else dict(
+        stale_s=f["stale"], per_worker_delays=False,
+        delay=delays.Schedule(np.asarray(FSDP_DELAYS)))
+    return make_train_engine(arch, shape, mesh, mode=mode,
+                             num_workers=f["workers"], device=dev, **kw)
+
+
+def fsdp_run(dev, arch: str, mode: str, mesh=None, *, start=None,
+             steps=None, after=None, profile=False, record_step=None,
+             say=print) -> dict:
+    """One leg: ``steps`` steps on the CLI's batches (seed 0; every rank
+    draws the same global batch), each step's wall time between device
+    syncs, the launch counters zeroed just before and read just after, and
+    the peak memory above what was allocated at the start. After each
+    step ``after(t, params, momentum, placement)`` (every rank calls it).
+    With ``profile`` the last step runs under ``profile_collectives``.
+    ``record_step``: the data axis's gathers and reduce-scatters of that
+    step."""
+    import gc
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch.launch import train
+
+    steps = steps or FSDP_LEG["steps"]
+    engine = fsdp_engine(dev, arch, mode, mesh)
+    api = cfglib.get(arch).api()
+    nb = train.make_batch_fn(api, FSDP_LEG["batch"], FSDP_LEG["seq"], 0)
+    batches = iter(nb, None)
+    place = engine.placement
+    axis = getattr(place, "data_axis", None)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    box = [engine.init(0, params=start)]
+    del start
+    out = {"losses": [], "grad_norms": [], "wall_s": [], "peak_by_step": [],
+           "meta": engine.meta["kernels"]}
+    reset_counters()
+    for t in range(1, steps + 1):
+        if t == record_step and axis is not None:
+            axis.record = MemoryRecord()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if profile and t == steps:
+            last = []
+            out["collectives"] = profile_collectives(
+                engine, box.pop(), batches, 1,
+                lambda: torch.cuda.synchronize(dev), warm=False, keep=last)
+            state, m = last.pop()
+        else:
+            state, m = engine.step(box.pop(), next(batches))
+        torch.cuda.synchronize(dev)
+        out["wall_s"].append(time.perf_counter() - t0)
+        if t == record_step and axis is not None:
+            out["traffic"], axis.record = list(axis.record), None
+        out["peak_by_step"].append(
+            (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+        out["losses"].append(float(m["loss"]))
+        if "grad_norm" in m:
+            out["grad_norms"].append(float(m["grad_norm"]))
+        say(f"{mode} step {t}: loss {out['losses'][-1]!r}, "
+            f"{out['wall_s'][-1]:.2f} s")
+        del m
+        if after is not None:
+            after(t, state.inner.params, state.inner.opt_state["m"], place)
+        box.append(state)
+        del state
+        if place is not None:
+            out["host_pinned_gb"] = max(out.get("host_pinned_gb", 0.0),
+                                        host_pinned_gb())
+            if t == 1:
+                # gloo's pinned staging of a bf16 and an fp32 step's sizes
+                # (the params turn fp32 in step 1's update), in two ranks,
+                # beside rank 0's reference copies, does not fit the host.
+                release_memory()
+    out["launches"] = counters()
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    box.clear()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class MemoryRecord(list):
+    """An ``Axis.record`` that also notes the bytes allocated on the card
+    as each entry is made (a gather's just after its output exists)."""
+
+    def append(self, entry):
+        import torch
+        super().append(tuple(entry) + (torch.cuda.memory_allocated(),))
+
+
+def fsdp_reference(dev, arch: str, mode: str, p0, say=print) -> dict:
+    """Rank 0's one-process run of one leg from the seeded init ``p0``,
+    its params after the steps the mesh legs are held at (and the momentum
+    after step 1, which holds that step's gradient, the aggregate the ring
+    delivers at delay 0 in stale-psum) kept on the host, and, as its
+    witness, from the init nudged one ulp up, held against them as it
+    runs; the witness's distances set the two-rank legs' limits."""
+    import gc
+    from repro_torch import treemath as tm
+    steps = FSDP_LEG["steps"]
+    kept = {}
+    keep = (1, FSDP_REPAIR_STEPS, steps) if mode == "sync" else (steps,)
+
+    def store(t, params, m, _place):
+        if t in keep:
+            kept[t] = to_host(params)
+        if t == 1:
+            kept["m1"] = to_host(m)
+
+    run = fsdp_run(dev, arch, mode, after=store, say=say)
+    run["kept"] = kept
+    wit = {}
+
+    def against(t, params, m, _place):
+        if t == steps:
+            wit["params"] = tree_stats(dev, params, kept[steps], p0)
+        if t == 1:
+            wit["grad"] = tree_stats(dev, m, kept["m1"])
+
+    wrun = fsdp_run(dev, arch, mode, start=nudged(
+        tm.tree_map(lambda x: x.to(dev), p0)), after=against, say=say)
+    run["witness"] = {
+        "loss": max(abs(a - b) for a, b in zip(wrun["losses"],
+                                               run["losses"])),
+        "rel": wit["params"]["rel"], "grad_rel": wit["grad"]["rel"],
+        "losses": wrun["losses"]}
+    del wrun
+    gc.collect()
+    return run
+
+
+def release_memory() -> None:
+    """Free the card's cached blocks and the pinned host blocks gloo
+    staged its CUDA collectives through (the host allocator keeps them
+    for reuse: a bf16 and an fp32 step's sizes together, in two ranks,
+    beside rank 0's reference copies, ran the host's 96 GiB out)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+
+
+def host_pinned_gb() -> float:
+    """The pinned host bytes the allocator holds (cached and in use)."""
+    import torch
+    stats = torch.cuda.memory.host_memory_stats()
+    return stats.get("allocated_bytes.current", 0) / 1e9
+
+
+def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
+                   device: str = "cuda") -> int:
+    """``--fsdp-mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of phase
+    14 on the one card over ``gloo``. For each leg rank 0 runs the
+    one-process reference while rank 1 waits, then both run it at 2x1
+    (after sync, the planted step and the 1x2 leg); last the
+    FSDP_MEM_LAYERS-deep sync step. Rank 0 holds each against the
+    reference (rank 1's shards read through CUDA IPC); each rank saves
+    its readings as ``DIR/rank<R>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import placement as placement_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    arch = cut_arch(FSDP_ARCH, FSDP_LEG["layers"])
+    out = {}
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    steps = FSDP_LEG["steps"]
+    t_start = time.perf_counter()
+
+    def say(msg):
+        print(f"fsdp rank {rank} +{time.perf_counter() - t_start:.1f} s: "
+              f"{msg}", flush=True)
+
+    def save():
+        torch.save(out, path)
+
+    def reading(run):
+        return {k: run[k] for k in (
+            "losses", "grad_norms", "wall_s", "peak_mem_gb", "peak_by_step",
+            "host_pinned_gb", "launches", "meta", "traffic", "collectives",
+            "witness")
+            if k in run}
+
+    def holder(at: tuple, m1: bool, want=None, p0=None):
+        """An ``after`` that holds this step's shards of the params (after
+        the steps in ``at``) and, with ``m1``, of the momentum after step 1
+        against the reference's ``want``, on rank 0: rank 1 shares its
+        shards through CUDA IPC (the two ranks share the card), rank 0
+        reads them in place and compares each rank's block. Every rank
+        makes the same calls."""
+        from torch.multiprocessing.reductions import reduce_tensor
+        from repro_torch import treemath as tm
+        got = {}
+
+        def after(t, params, m, place):
+            trees = {"params": params} if t in at else {}
+            if m1 and t == 1:
+                trees["m1"] = m
+            for name, tree in trees.items():
+                mine = tm.tree_leaves(tree)
+                box = [[reduce_tensor(x) for x in mine] if rank else None]
+                dist.broadcast_object_list(box, src=1)
+                if rank == 0:
+                    other = [fn(*args) for fn, args in box[0]]
+                    ref_leaves = tm.tree_leaves(
+                        want["m1" if name == "m1" else t])
+                    bases = (tm.tree_leaves(p0) if name == "params"
+                             and p0 is not None else None)
+                    pieces = []
+                    for i, (dims, shape) in enumerate(zip(
+                            place._dims, place.full_shapes)):
+                        for r, x in ((0, mine[i]), (1, other[i])):
+                            pieces.append((x, block_of(
+                                place, r, ref_leaves[i], dims, shape),
+                                None if bases is None else block_of(
+                                    place, r, bases[i], dims, shape)))
+                    got[f"{name}@{t}"] = piece_stats(dev, pieces)
+                    del other, pieces
+                dist.barrier()
+        return after, got
+
+    def sync_followers(ref_sync, mesh21, p0) -> float:
+        """After the 2x1 sync leg: the planted step and the 1x2 leg, held
+        against the sync reference (rank 0); returns their seconds."""
+        t1 = time.perf_counter()
+        kept = ref_sync["kept"] if rank == 0 else None
+        # The planted fault: each rank's own half-batch gradient (its
+        # chunk of the local gradient, times N so the step's / N leaves it
+        # whole) in place of the reduce-scatter.
+        real = placement_lib.reduce_scatter_dim
+
+        def own(dist_, g, d, n, group):
+            c = g.shape[d] // n
+            r = dist_.get_rank(group)
+            return g.narrow(d, r * c, c).contiguous() * n
+        placement_lib.reduce_scatter_dim = own
+        after, got = holder((), True, kept)
+        try:
+            run = fsdp_run(dev, arch, "sync", mesh21, steps=1, after=after,
+                           say=say)
+        finally:
+            placement_lib.reduce_scatter_dim = real
+        out["2x1 planted"] = reading(run) | {"stats": got}
+        del run
+        release_memory()
+        save()
+        mesh12 = make_host_mesh(1, world, device=dev.type)
+        after, got = holder((FSDP_REPAIR_STEPS,), False, kept, p0)
+        run = fsdp_run(dev, arch, "sync", mesh12, steps=FSDP_REPAIR_STEPS,
+                       after=after, say=say)
+        leg = reading(run)
+        if rank == 0:
+            leg["bitwise"] = (
+                run["losses"] == ref_sync["losses"][:FSDP_REPAIR_STEPS]
+                and got[f"params@{FSDP_REPAIR_STEPS}"]["bitwise"])
+            leg["stats"] = got
+        out["1x2 sync"] = leg
+        del run
+        save()
+        return time.perf_counter() - t1
+
+    try:
+        p0 = init_params(dev, arch) if rank == 0 else None
+        out["reference"], out["reference_s"] = {}, 0.0
+        mesh21 = make_host_mesh(world, 1, device=dev.type)
+        mesh_s = 0.0
+        ref = {}
+        for mode in ("sync", "stale-psum"):
+            # Rank 0 runs the leg's reference while rank 1 waits, then both
+            # run it at 2x1; only one leg's reference copies are on the
+            # host at a time.
+            if rank == 0:
+                t0 = time.perf_counter()
+                ref[mode] = fsdp_reference(dev, arch, mode, p0, say=say)
+                out["reference"][mode] = reading(ref[mode])
+                out["reference_s"] += time.perf_counter() - t0
+                release_memory()
+                save()
+            dist.barrier()
+            t1 = time.perf_counter()
+            sync_leg = mode == "sync"
+            after, got = holder((1, steps) if sync_leg else (steps,),
+                                True, ref[mode]["kept"] if rank == 0
+                                else None, p0)
+            run = fsdp_run(dev, arch, mode, mesh21, after=after,
+                           profile=sync_leg, record_step=2,
+                           say=say)
+            leg = reading(run)
+            if rank == 0:
+                leg["loss"] = max(abs(a - b) for a, b in zip(
+                    run["losses"], ref[mode]["losses"]))
+                leg["stats"] = got
+            out[f"2x1 {mode}"] = leg
+            del run, after, got
+            if rank == 0:
+                # What the later legs still read: sync's step-1 momentum
+                # (the planted step) and its params after the 1x2 steps.
+                ref[mode]["kept"] = {k: v for k, v in ref[mode]["kept"].items()
+                                     if sync_leg and k in ("m1",
+                                                           FSDP_REPAIR_STEPS)}
+            release_memory()
+            save()
+            mesh_s += time.perf_counter() - t1
+            if sync_leg:
+                mesh_s += sync_followers(ref.get("sync"), mesh21, p0)
+                if rank == 0:
+                    ref["sync"]["kept"] = {}
+                release_memory()
+        del ref, p0
+        release_memory()
+        t1 = time.perf_counter()
+        # One sync step FSDP_MEM_LAYERS deep: the bytes allocated as each
+        # layer's gathers end, and the step's peak.
+        run = fsdp_run(dev, cut_arch(FSDP_ARCH, FSDP_MEM_LAYERS), "sync",
+                       mesh21, steps=1, record_step=1, say=say)
+        out[f"2x1 sync {FSDP_MEM_LAYERS} layers"] = reading(run)
+        out["mesh_s"] = mesh_s + time.perf_counter() - t1
+        del run
+        save()
+    except Exception as e:      # noqa: BLE001 (reported, then raised)
+        out["error"] = f"{type(e).__name__}: {e}"
+        save()
+        raise
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def fsdp_mesh_path(dev) -> dict:
+    """Phase 14: deepseek-67b at full width, 1 layer, FSDP over two gloo
+    ranks on the one card (FSDP_LEG): rank 0's one-process reference and
+    witness, the 2x1 sync and aggregate-ring legs within 2x the witness
+    (capped at LM_CEILING) with the step-1 gradient held to 2x its
+    witness, sync's step-1 params elementwise and stale-psum's grad_norms
+    to FSDP_NORM_REL, the planted step parting past the step-1 gradient's
+    limit, the 1x2 leg bit for bit, the 2-layer step's memory
+    (``memory_check``), and each rank's stale-psum peak below the
+    one-process peak. The ranks print their progress as they go."""
+    import gc
+    import socket
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    failures, out = [], {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        sys.stdout.flush()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fsdp-mesh-rank",
+             str(r), str(FSDP_RANKS), str(port), tmp, dev.type], env=env)
+            for r in range(FSDP_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            ranks.append(torch.load(path, weights_only=False)
+                         if os.path.exists(path) else {})
+            if p.returncode != 0 or "error" in ranks[-1]:
+                failures.append(f"fsdp mesh rank {r} exited {p.returncode}: "
+                                f"{ranks[-1].get('error')}")
+    zero = expect(1)
+    ref = ranks[0].get("reference", {})
+    limits = {}
+    for mode, run in ref.items():
+        wit = run["witness"]
+        limits[mode] = {k: min(max(WITNESS_FACTOR * wit[k], LM_FLOOR[k]),
+                               LM_CEILING[k]) for k in ("loss", "rel")}
+        print(f"fsdp one process {mode}: losses {run['losses']} grad_norms "
+              f"{run['grad_norms']}; ms a step {ms_after_first(run)!r}; "
+              f"peak {run['peak_mem_gb']:.2f} GB; witness "
+              f"{json.dumps(wit)}; limit {json.dumps(limits[mode])}")
+        out[f"one process {mode}"] = dict(
+            reading_row(run), ms_per_step=ms_after_first(run), witness=wit,
+            limit=limits[mode])
+        if run["launches"] != zero:
+            failures.append(f"one process {mode}: launches {run['launches']}")
+    # The step-1 gradient (the momentum after step 1) of each leg: 2x its
+    # witness's distance, within LM_FLOOR and LM_CEILING.
+    grad_limit = {mode: min(max(WITNESS_FACTOR * run["witness"]["grad_rel"],
+                                LM_FLOOR["rel"]), LM_CEILING["rel"])
+                  for mode, run in ref.items()}
+    steps = FSDP_LEG["steps"]
+    mem_label = f"2x1 sync {FSDP_MEM_LAYERS} layers"
+    for r, got in enumerate(ranks):
+        for label in ("2x1 sync", "2x1 stale-psum", "2x1 planted",
+                      "1x2 sync", mem_label):
+            leg = got.get(label)
+            if leg is None:
+                failures.append(f"{label} rank {r}: no result")
+                continue
+            moved = traffic_summary(leg.get("traffic", []))
+            row = dict(reading_row(leg), ms_per_step=ms_after_first(leg),
+                       traffic=moved)
+            print(f"fsdp {label} rank {r}: losses {leg['losses']} grad_norms "
+                  f"{leg['grad_norms']}; ms a step {row['ms_per_step']!r}; "
+                  f"peak {leg['peak_mem_gb']:.2f} GB; pinned host "
+                  f"{leg.get('host_pinned_gb', 0.0):.2f} GB"
+                  + (f"; a step's data-axis traffic {json.dumps(moved)}"
+                     if moved else ""))
+            if leg["launches"] != zero:
+                failures.append(f"{label} rank {r}: launches "
+                                f"{leg['launches']}")
+            if "collectives" in leg:
+                print(f"fsdp {label} rank {r} profile: "
+                      f"{json.dumps(leg['collectives'])}")
+            if label == "2x1 stale-psum" and "stale-psum" in ref and not (
+                    leg["peak_mem_gb"] < ref["stale-psum"]["peak_mem_gb"]):
+                failures.append(f"{label} rank {r}: peak "
+                                f"{leg['peak_mem_gb']:.2f} GB not below the "
+                                "one process's "
+                                f"{ref['stale-psum']['peak_mem_gb']:.2f}")
+            stats = leg.get("stats", {})
+            if r == 0 and label in ("2x1 sync", "2x1 stale-psum"):
+                mode = label.split()[1]
+                dist_ = {"loss": leg["loss"],
+                         "rel": stats[f"params@{steps}"]["rel"]}
+                over = [k for k in dist_ if dist_[k] > limits[mode][k]]
+                print(f"fsdp {label}: vs one process {json.dumps(dist_)} "
+                      f"(limit {json.dumps(limits[mode])})")
+                row["distance"] = dist_
+                if over:
+                    failures.append(f"{label}: {dist_} over {limits[mode]} "
+                                    f"on {over}")
+            if r == 0 and label in ("2x1 sync", "2x1 stale-psum"):
+                mode = label.split()[1]
+                gr = stats["m1@1"]["rel"]
+                print(f"fsdp {label} step-1 gradient rel {gr!r} (limit "
+                      f"{grad_limit[mode]!r})")
+                row["grad_rel"] = gr
+                if gr > grad_limit[mode]:
+                    failures.append(f"{label} step-1 gradient rel {gr} over "
+                                    f"{grad_limit[mode]}")
+            if r == 0 and label == "2x1 sync":
+                s1 = stats["params@1"]
+                print(f"fsdp 2x1 sync step 1: params {json.dumps(s1)} "
+                      f"(share limit {FSDP_FLIP_SHARE})")
+                row["step1"] = s1
+                if not (s1["within_tol_or_ulp"]
+                        and s1["share"] <= FSDP_FLIP_SHARE):
+                    failures.append(f"2x1 sync step 1: {s1}")
+            if label == "2x1 stale-psum" and "stale-psum" in ref:
+                want = ref["stale-psum"]["grad_norms"]
+                rels = [abs(a - b) / abs(b)
+                        for a, b in zip(leg["grad_norms"], want)]
+                print(f"fsdp {label} rank {r}: grad_norm rel a step {rels} "
+                      f"(limit {FSDP_NORM_REL})")
+                row["grad_norm_rel"] = rels
+                if len(rels) != steps or max(rels) > FSDP_NORM_REL:
+                    failures.append(f"{label} rank {r}: grad_norms "
+                                    f"{leg['grad_norms']} against {want}")
+            if r == 0 and label == "2x1 planted":
+                gr = stats["m1@1"]["rel"]
+                print(f"fsdp 2x1 planted (each rank's own half-batch "
+                      f"gradient for the reduce-scatter): step-1 gradient "
+                      f"rel {gr!r} (limit {grad_limit['sync']!r})")
+                row["grad_rel"] = gr
+                if not gr > grad_limit["sync"]:
+                    failures.append(f"planted: gradient rel {gr} within "
+                                    f"{grad_limit['sync']}")
+            if label == mem_label and "2x1 sync" in got:
+                row["memory"] = memory_check(
+                    leg, got["2x1 sync"], f"{label} rank {r}", failures)
+            if r == 0 and label == "1x2 sync":
+                print(f"fsdp 1x2 sync (placement.full over gloo): bitwise "
+                      f"{leg.get('bitwise')}")
+                row["bitwise"] = leg.get("bitwise")
+                if not leg.get("bitwise"):
+                    failures.append("1x2 sync: not bitwise the one-process "
+                                    "run")
+            out[f"{label} rank {r}"] = row
+    for r, got in enumerate(ranks):
+        print(f"fsdp mesh rank {r}: reference "
+              f"{got.get('reference_s', 0.0):.1f} s, mesh legs "
+              f"{got.get('mesh_s', 0.0):.1f} s")
+    print(f"fsdp mesh phase: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("fsdp mesh phase: " + "; ".join(failures))
+    return out
+
+
+def memory_check(leg: dict, one_layer: dict, label: str,
+                 failures: list) -> dict:
+    """Phase 14's memory leg against the one-layer sync leg of the same
+    rank: the bytes allocated as each layer's forward gathers end may not
+    grow by half a gathered layer from the first layer's (a layer's
+    gathered leaves are gone before the next layer's gather), and the
+    step-1 peak may grow by at most the added layer's shard at the
+    update (FSDP_UPDATE_BYTES an element) plus half a gathered layer."""
+    from repro_torch import configs as cfglib
+    gathers = [e for e in leg.get("traffic", [])
+               if e[0] == "data.gather" and e[1] == "layers"]
+    n = FSDP_MEM_LAYERS
+    # Under remat the backward pass gathers each layer again.
+    passes = 2 if cfglib.get(FSDP_ARCH).api().cfg.remat else 1
+    if not gathers or len(gathers) % (passes * n):
+        failures.append(f"{label}: {len(gathers)} layer gathers, not "
+                        f"{passes} passes over {n} layers")
+        return {}
+    k = len(gathers) // (passes * n)     # leaves a layer, each gathered
+    ends = [gathers[(i + 1) * k - 1][4] / 1e9 for i in range(passes * n)]
+    layer = sum(e[3] for e in gathers[:k]) / 1e9
+    forward = max(ends[:n]) - ends[0]
+    # The gathered layer is bf16 at step 1: its shard's elements (G).
+    state = FSDP_UPDATE_BYTES * layer / 2 / FSDP_RANKS
+    growth = leg["peak_by_step"][0] - one_layer["peak_by_step"][0]
+    out = {"layer_gb": layer, "forward_ends_gb": ends[:n],
+           "backward_ends_gb": ends[n:], "forward_growth_gb": forward,
+           "peak_gb": leg["peak_by_step"][0],
+           "one_layer_peak_gb": one_layer["peak_by_step"][0],
+           "peak_growth_gb": growth, "added_update_gb": state}
+    print(f"fsdp {label}: a gathered layer {layer:.3f} GB; allocated as "
+          f"each layer's forward gathers end {ends[:n]} GB (growth "
+          f"{forward:.3f}, limit {layer / 2:.3f}), in the backward pass "
+          f"{ends[n:]}; step-1 peak {leg['peak_by_step'][0]:.3f} GB against "
+          f"{one_layer['peak_by_step'][0]:.3f} at one layer: growth "
+          f"{growth:.3f} GB (the added layer's shard at the update "
+          f"{state:.3f}, limit "
+          f"{state + layer / 2:.3f})")
+    if not forward < layer / 2:
+        failures.append(f"{label}: the forward gathers grow {forward} GB, a "
+                        f"gathered layer is {layer} GB")
+    if not growth <= state + layer / 2:
+        failures.append(f"{label}: the peak grows {growth} GB over one "
+                        f"layer's, the added shard at the update is {state} "
+                        "GB")
+    return out
+
+
+def reading_row(run: dict) -> dict:
+    return {k: run.get(k) for k in ("losses", "grad_norms", "wall_s",
+                                    "peak_mem_gb", "collectives")}
+
+
+def ms_after_first(run: dict) -> float:
+    """Host ms a step after the first (which warms the allocator up)."""
+    rest = run["wall_s"][1:] or run["wall_s"]
+    return 1e3 * sum(rest) / len(rest)
+
+
+def traffic_summary(traffic: list) -> dict:
+    """{kind: [count, GB]} of one step's data-axis collectives."""
+    out = {}
+    for kind, _name, _shape, nbytes, *_ in traffic:
+        row = out.setdefault(kind, [0, 0.0])
+        row[0] += 1
+        row[1] += nbytes / 1e9
+    return out
 
 
 def blocks_per_sm(regs: int, threads: int = 256) -> int:
@@ -5127,6 +5877,108 @@ def coherence_times(src: str) -> int:
     return 0
 
 
+def card_setup():
+    """The card with TF32 off, as every phase runs (None without CUDA)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(card_line())
+    return dev
+
+
+def fsdp_only() -> int:
+    """``--fsdp-only``: phase 14 alone (it launches no kernel, so nothing
+    is built)."""
+    dev = card_setup()
+    if dev is None:
+        return 2
+    t0 = time.perf_counter()
+    fsdp_mesh_path(dev)
+    print(f"phase fsdp mesh path alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+# Each depth cut made to fit the run (PERF.md section 4), and one not
+# taken (the vision leg at 3 layers holds no cross layer: one comes after
+# every 5th): the setting it changes, its key (None: the setting is the
+# depth), the depth it cuts to, the depth before the cut, whether the leg
+# runs with the cross gates open (phase 11), and the leg.
+CUTS = (
+    ("phase 9: the danube training leg", "TRAIN_FULL", "layers", 12, 24,
+     False, lambda dev, tmp, f: full_config_leg(dev, f)),
+    ("phase 10: the mamba sync leg", "SSM_FULL", "layers", 6, 24, False,
+     lambda dev, tmp, f: full_leg(dev, cut_arch(
+         SSM_ARCH, SSM_FULL["layers"]), SSM_FULL, "mamba", f)),
+    ("phase 10: the mamba serve", "SSM_SERVE", "layers", 6, 24, False,
+     lambda dev, tmp, f: ssm_serve(dev, SSM_SERVE)),
+    ("phase 10: the zamba ring leg", "HYBRID_RING", "layers", 6, 7, False,
+     lambda dev, tmp, f: ring_legs(dev, tmp, f, arch_id=HYBRID_ARCH,
+                                   r=HYBRID_RING, legs=HYBRID_LEGS)),
+    ("phase 10: the zamba serve", "HYBRID_SERVE", "layers", 12, 42, False,
+     lambda dev, tmp, f: ssm_serve(dev, HYBRID_SERVE)),
+    ("phase 11: the whisper ring legs", "WHISPER_RING", "layers", 1, 3,
+     True, lambda dev, tmp, f: ring_legs(dev, tmp, f, arch_id=WHISPER_ARCH,
+                                         r=WHISPER_RING, legs=TRAIN_LEGS)),
+    ("phase 11: the vision leg", "VISION_TRAIN", "layers", 3, 5, True,
+     lambda dev, tmp, f: vision_leg(dev, f)),
+    ("phase 11: the llama serve", "VISION_SERVE", "layers", 20, 40, True,
+     lambda dev, tmp, f: cross_serve(dev, VISION_SERVE)),
+    ("phase 13: the served danube", "MESH_SERVE_LAYERS", None, 6, 24,
+     False, lambda dev, tmp, f: serve_mesh_path(dev)),
+)
+
+
+def time_cuts() -> int:
+    """``--time-cuts``: each leg of ``CUTS`` at its cut depth and then at
+    the depth before the cut, on one host, with its wall seconds (the
+    first run of a leg also pays its one-time costs, so the saving printed
+    is if anything low). A leg's failures are printed, not raised: the
+    depths are timed here, not held."""
+    import contextlib
+    import gc
+    import torch
+    dev = card_setup()
+    if dev is None:
+        return 2
+    from repro_torch.kernels import build
+    build.build()
+    build.library()
+    g = globals()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, name, key, cut, before, gates, leg in CUTS:
+            kept = g[name]
+            secs = {}
+            for depth in (cut, before):
+                g[name] = depth if key is None else dict(kept, **{key: depth})
+                failures = []
+                t0 = time.perf_counter()
+                try:
+                    with (open_gates() if gates
+                          else contextlib.nullcontext()):
+                        leg(dev, tmp, failures)
+                except Exception as e:      # noqa: BLE001 (printed)
+                    failures.append(f"{type(e).__name__}: {e}")
+                secs[depth] = time.perf_counter() - t0
+                g[name] = kept
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"cut {label} at {depth} layers: {secs[depth]:.1f} s"
+                      + (f"; failures {failures}" if failures else ""),
+                      flush=True)
+            rows[label] = {"cut": cut, "before": before, "seconds": secs,
+                           "saved_s": secs[before] - secs[cut]}
+            print(f"cut {label}: {cut} layers for {before} saves "
+                  f"{rows[label]['saved_s']:.1f} s", flush=True)
+    print(json.dumps({"cuts": rows}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5227,7 +6079,7 @@ def main() -> int:
     # Cross-attention: paged_attention at whisper's and llama-vision's head
     # shapes, whisper-base trained at full width and depth (sync and the
     # ring legs) and llama-3.2-vision-11b at 5 of 40 layers, both served at
-    # full width and depth on the paged route.
+    # full width on the paged route (llama at 20 of 40 layers).
     with tempfile.TemporaryDirectory() as tmp:
         cross = cross_path(dev, tmp)
     lap("cross path")
@@ -5237,10 +6089,15 @@ def main() -> int:
     mesh = mesh_path(dev)
     lap("mesh path")
 
-    # Serving on a mesh: the full danube served mesh-less, on a 1x1 nccl
+    # Serving on a mesh: the danube served mesh-less, on a 1x1 nccl
     # mesh and on two gloo ranks at 1x2, refreshed mid-serve.
     serve_mesh = serve_mesh_path(dev)
     lap("serve mesh path")
+
+    # The FSDP archs on a mesh: deepseek-67b at full width, one layer,
+    # params as data-axis shards over two gloo ranks on the one card.
+    fsdp_mesh = fsdp_mesh_path(dev)
+    lap("fsdp mesh path")
 
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
@@ -5283,6 +6140,7 @@ def main() -> int:
     print(json.dumps({"cross": without_profiles(cross)}, default=str))
     print(json.dumps({"mesh": mesh}, default=str))
     print(json.dumps({"serve_mesh": serve_mesh}, default=str))
+    print(json.dumps({"fsdp_mesh": fsdp_mesh}, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -5300,5 +6158,13 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
     if sys.argv[1:2] == ["--serve-mesh-rank"]:
+        if sys.argv[7:8]:
+            MESH_SERVE_LAYERS = int(sys.argv[7])     # the parent's depth
         sys.exit(serve_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
+    if sys.argv[1:2] == ["--fsdp-mesh-rank"]:
+        sys.exit(fsdp_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
+    if sys.argv[1:2] == ["--fsdp-only"]:
+        sys.exit(fsdp_only())
+    if sys.argv[1:2] == ["--time-cuts"]:
+        sys.exit(time_cuts())
     sys.exit(main())

@@ -191,7 +191,8 @@ class ArchDef:
     stale_s_default: int = 4
     # Params sharded over the data axis (the JAX package's FSDP placement,
     # ``sharding/rules.py``): the engine keeps their tree layout and gives
-    # stale-psum the aggregate ring.
+    # stale-psum the aggregate ring. Their init draws a stacked leaf a
+    # layer at a time, so a rank keeps its blocks as they are drawn.
     fsdp: bool = False
 
     def api(self, reduced: bool = False, long_ctx: bool = False,
@@ -199,7 +200,16 @@ class ArchDef:
         cfg = self.make_config(reduced=reduced, long_ctx=long_ctx)
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        return _API_BUILDERS[self.family](cfg)
+        api = _API_BUILDERS[self.family](cfg)
+        if not self.fsdp:
+            return api
+        from repro_torch.models import layers
+        init = api.init
+
+        def init_by_layer(seed, device=None):
+            with layers.draw_by_layer():
+                return init(seed, device=device)
+        return dataclasses.replace(api, init=init_by_layer)
 
 
 def count_params(api: ModelAPI) -> int:

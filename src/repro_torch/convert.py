@@ -30,6 +30,12 @@ def params_from_jax(tree: Any, device=None) -> Any:
         if isinstance(node, (list, tuple)):
             kids = [conv(v) for v in node]
             return kids if isinstance(node, list) else tuple(kids)
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":
+            # numpy has no bf16 of its own (JAX's is ml_dtypes'): carry the
+            # bits.
+            return torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(arr).to(dev)
 
     return conv(tree)

@@ -110,11 +110,14 @@ def _require_adam(optimizer: Optimizer, what: str) -> None:
 
 
 def init_state(params: Pytree, optimizer: Optimizer, cfg: StaleSyncConfig,
-               key, rows: Optional[int] = None) -> StaleTrainState:
+               key, rows: Optional[int] = None,
+               buf_like: Pytree = None) -> StaleTrainState:
     """Zero ring and optimizer state. ``key`` is an int seed or a
     ``torch.Generator`` on the params' device. ``rows`` (default: all P)
     is the number of workers whose ring rows this process holds on a
-    mesh."""
+    mesh; ``buf_like`` (default: ``params``) gives the tree ring's rows
+    their shapes (an FSDP arch's per-worker ring holds whole rows beside
+    data-sharded params)."""
     dev = tm.tree_leaves(params)[0].device
     gen = key if isinstance(key, torch.Generator) else device_lib.generator(key, dev)
     lead = ((cfg.slots, cfg.num_workers if rows is None else rows)
@@ -125,7 +128,8 @@ def init_state(params: Pytree, optimizer: Optimizer, cfg: StaleSyncConfig,
     else:
         gbuf = tm.tree_map(
             lambda x: torch.zeros(lead + tuple(x.shape),
-                                  dtype=cfg.buffer_dtype, device=dev), params)
+                                  dtype=cfg.buffer_dtype, device=dev),
+            params if buf_like is None else buf_like)
     opt_state = (_packed_adam_state(params) if cfg.fused_update
                  else optimizer.init(params))
     return StaleTrainState(params=params, opt_state=opt_state, gbuf=gbuf,
@@ -168,11 +172,13 @@ def _adam_delta(dneg, spec, params, factor, eta, wd) -> Pytree:
 
 
 def _mesh_helpers(shard, p: int):
-    """``(lo, hi, gather, mean, norm)`` of a process on a mesh
+    """``(lo, hi, gather, mean, mean_grads, norm)`` of a process on a mesh
     (``engine.placement.MeshPlacement``), or the one-process identities."""
     if shard is None:
-        return 0, p, (lambda x: x), (lambda x, split=True: x), tm.tree_norm
-    return shard.lo, shard.hi, shard.gather, shard.mean, shard.norm
+        return (0, p, (lambda x: x), (lambda x, split=True: x),
+                (lambda t, split=True: t), tm.tree_norm)
+    return (shard.lo, shard.hi, shard.gather, shard.mean, shard.mean_grads,
+            shard.norm)
 
 
 def _rows_mean(metrics: dict, per: bool, mean) -> dict:
@@ -207,9 +213,17 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
     rows each step reads are gathered from every process and reduced in the
     one-process order. The aggregate form splits the batch over the data
     ranks and averages the gradient with an all-reduce; its ring is the
-    same on every process."""
+    same on every process. An FSDP arch's params and optimizer state are
+    data-axis shards (``MeshPlacement.fsdp``): the aggregate form reads
+    them a layer at a time in its loss and reduce-scatters the gradient
+    (so its ring holds shards too); the per-worker form gathers them whole
+    once a step, outside autograd, so each worker's gradient and ring row
+    is its own, and applies this rank's block of the aggregate."""
     p = cfg.num_workers
-    lo, hi, gather, mean, norm = _mesh_helpers(shard, p)
+    lo, hi, gather, mean, mean_grads, norm = _mesh_helpers(shard, p)
+    # An FSDP arch's per-worker step: whole params for the gradients, whole
+    # ring rows, this rank's data block of the delivered aggregate.
+    fsdp_rows = shard is not None and shard.fsdp and cfg.per_worker_delays
     if cfg.fused_update:
         _require_adam(optimizer, "fused_update=True")
     # Schedules whose bound exceeds the ring would wrap onto fresher slots,
@@ -327,14 +341,16 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
         if shard is not None:
             batch = tm.tree_map(lambda x: shard.batch_rows(x, per), batch)
         if per:
-            losses, grads = per_worker_grads(state.params, batch)
+            params = (shard.data_whole(state.params) if fsdp_rows
+                      else state.params)
+            losses, grads = per_worker_grads(params, batch)
+            del params
             losses = gather(losses)
         else:
             # The aggregate form needs only the global mean gradient: one
             # backward pass (on a mesh, one a data rank, then averaged).
             loss, gmean = mean_grad(loss_fn, state.params, batch)
-            loss, gmean = mean(loss, split), tm.tree_map(
-                lambda g: mean(g, split), gmean)
+            loss, gmean = mean(loss, split), mean_grads(gmean, split)
             losses, grads = loss.reshape(1), None
         if cfg.fused_update:
             # Pack, then drop the gradient tree before the fused pass: at
@@ -376,6 +392,10 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             for buf, g in zip(tm.tree_leaves(gbuf),
                               tm.tree_leaves(to_buffer)):
                 buf[write] = g
+            if cfg.s:
+                # From here on only the ring's rows are read: drop the
+                # gradient tree (at full width a copy of the params).
+                to_buffer = grads = gmean = None
 
         dev = tm.tree_leaves(gbuf)[0].device
         if cfg.s == 0:
@@ -416,8 +436,16 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             staleness = d.expand(p)
 
         mean_stale = staleness.float().mean()
+        if fsdp_rows:
+            # The whole aggregate's norm, in the one-process order; then
+            # this rank's block of it.
+            grad_norm = norm(agg, data=False)
+            agg = shard.data_part(agg)
+        else:
+            grad_norm = norm(agg)
         delta, opt_state = optimizer.update(agg, state.opt_state,
                                             state.params)
+        agg = None          # the delivered copy: not needed past the update
         if compensator is not None and compensator.scales:
             factor = compensator.lr_factor(comp, mean_stale, state.step)
             delta = compensator.scale_tree(delta, factor)
@@ -425,7 +453,7 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
         new_state = StaleTrainState(
             params=tm.tree_add(state.params, delta), opt_state=opt_state,
             gbuf=gbuf, step=state.step + 1, key=state.key)
-        metrics = {"loss": losses.mean(), "grad_norm": norm(agg),
+        metrics = {"loss": losses.mean(), "grad_norm": grad_norm,
                    "mean_staleness": mean_stale, **cmetrics}
         if compensator is not None:
             return new_state, comp, metrics
@@ -485,10 +513,12 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
     ``shard`` (``engine.placement.MeshPlacement``) splits the batch over
     the data ranks of a mesh and averages the gradient with an all-reduce
     (of the packed vector when ``fused``), so every process applies the
-    same update."""
+    same update; an FSDP arch's data-sharded leaves arrive reduce-scattered
+    by their per-layer gathers instead, and each process updates its
+    shards."""
     if fused:
         _require_adam(optimizer, "fused=True")
-    mean = _mesh_helpers(shard, 1)[3]
+    mean, mean_grads = _mesh_helpers(shard, 1)[3:5]
 
     def fused_tail(state, loss, box, comp):
         # The packed gradient arrives in a one-element list, so that no
@@ -556,7 +586,7 @@ def make_sync_train_step_lean(loss_fn: Callable, optimizer: Optimizer,
                         split)]
             del grads
             return fused_tail(state, loss, box, comp)
-        grads = tm.tree_map(lambda g: mean(g, split), grads)
+        grads = mean_grads(grads, split)
         cmetrics = {}
         if compensator is not None:
             grads, comp, cmetrics = compensator.sparsify_tree(comp, grads)

@@ -43,10 +43,11 @@ lognormal speed model).
 
 Placement: ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_host_mesh``)
 spreads the P workers over the mesh's data axis, one process a rank, and
-holds params on the model axis by the sharding rules
-(``engine/placement.py`` says which collective runs where). With ``shape``
-and a ``ModelAPI`` the engine also carries the placement plan
-(``engine.plan()``, ``engine/plan.py::attach_train_plan``); an
+holds params on the model axis by the sharding rules, and an FSDP arch's
+params on the data axis too (``engine/placement.py`` says which collective
+runs where). With ``shape`` and a ``ModelAPI`` the engine also carries
+the placement plan (``engine.plan()``,
+``engine/plan.py::attach_train_plan``); an
 ``AbstractMesh`` builds that plan and runs nothing. ``arch`` feeds the
 placement verdict and the FSDP rule.
 
@@ -57,8 +58,9 @@ placement verdict and the FSDP rule.
 the flag and ignore it, as in the JAX package.
 
 Not run yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: an FSDP arch over a data axis > 1 (A.17), the packed kernels or
-compression over a model axis > 1 (A.18), a ``pod`` axis (A.19).
+item: the packed kernels or compression over a model axis > 1 (A.18),
+compression over an FSDP arch's data shards (A.20), a ``pod`` axis
+(A.19).
 """
 from __future__ import annotations
 
@@ -226,19 +228,42 @@ class Engine:
                 raise ValueError(
                     "engine built from a bare loss function: pass params= "
                     "(or build from a ModelAPI, which knows how to init)")
-            params = self._init_params(seed, self.device)
-        params = tm.tree_map(
-            lambda x: torch.as_tensor(_whole(x)).to(self.device), params)
+            params = self._fresh_params(seed)
+        else:
+            params = tm.tree_map(
+                lambda x: torch.as_tensor(placement_lib.whole_dtensor(x)).to(
+                    self.device), params)
+            if self.placement is not None:
+                self.placement.set_full_shapes(params)
+        ring = {}
         if self.placement is not None:
-            # Every rank made (or was given) the same whole params; each
-            # keeps its model-axis shards.
-            self.placement.set_full_shapes(params)
+            # Every rank was given (or drew) the same whole params; each
+            # keeps its shards.
             params = self.placement.shard_params(params)
+            if self.placement.fsdp:
+                # A per-worker ring keeps whole rows on the data axis.
+                ring["whole"] = self.placement.whole_like(params)
         gen = (seed if isinstance(seed, torch.Generator)
                else device_lib.generator(seed, self.device))
-        inner = self._init_inner(params, update_state, gen)
+        inner = self._init_inner(params, update_state, gen, **ring)
         comp = self._init_comp(params) if self._init_comp is not None else ()
         return EngineState(inner=inner, bound=self._max_bound, comp=comp)
+
+    def _fresh_params(self, seed) -> Pytree:
+        """The model's own init. On a sharded placement each rank keeps its
+        blocks as the initialiser draws them (``placement.keep``): an FSDP
+        arch draws a stacked leaf a layer at a time, so its ranks never
+        hold one whole. The values are the one-process init's."""
+        place = self.placement
+        if place is None or not place.sharded:
+            params = self._init_params(seed, self.device)
+            if place is not None:
+                place.set_full_shapes(params)
+            return params
+        from repro_torch.models import layers
+        place.set_full_shapes(self._init_params(seed, torch.device("meta")))
+        with layers.use_keep(place.keep):
+            return self._init_params(seed, self.device)
 
     def step(self, state: EngineState, batch) -> Tuple[EngineState, dict]:
         """One engine step: ``(state, batch) -> (state, metrics)``. Numpy
@@ -304,11 +329,6 @@ class Engine:
         return dataclasses.replace(state, comp=comp)
 
 
-def _whole(x):
-    """A DTensor's whole value (a collective); anything else as it is."""
-    return x.full_tensor() if hasattr(x, "full_tensor") else x
-
-
 def _not_run(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} does not run yet (ROADMAP {item})")
 
@@ -323,8 +343,7 @@ def kernel_placement_ok(kernels: str, arch=None,
     ``mesh`` is a DeviceMesh, an AbstractMesh or a duck-typed mesh."""
     if kernels == "off":
         return False, "config off"
-    arch_id = getattr(arch, "arch_id", arch)
-    if arch_id in rules_lib.FSDP_ARCHS or getattr(arch, "fsdp", False):
+    if rules_lib.is_fsdp(arch):
         return False, "FSDP placement"
     if kernels == "auto" and mesh is not None:
         extent = rules_lib.model_extent(mesh)
@@ -346,15 +365,18 @@ def _stacked_loss(api_loss):
 
 
 def _mesh_loss(loss_fn, placement, mesh, per_worker: bool):
-    """The loss on one rank of a mesh: whole params gathered from the model
-    axis shards (``placement.full``), under the ambient mesh the MoE layer
-    groups its tokens by. Per-worker modes see the mesh, as each JAX worker
-    does; a rank of a batch-split mode holds one data shard, which is its
-    one group."""
+    """The loss on one rank of a mesh: the model axis's shards made whole
+    (``placement.full``), under the ambient mesh the MoE layer groups its
+    tokens by. Per-worker modes see the mesh, as each JAX worker does; a
+    rank of a batch-split mode holds one data shard, which is its one
+    group. A batch-split mode of an FSDP arch reads its data-sharded params
+    a layer at a time (``placement.fetch``); the per-worker modes hand the
+    loss params gathered whole."""
     ambient = mesh if per_worker or placement.n == 1 else None
+    fetch = placement.fetch if placement.fsdp and not per_worker else None
 
     def loss(params, batch, *rest):
-        with rules_lib.use_mesh(ambient):
+        with rules_lib.use_mesh(ambient), rules_lib.use_fetch(fetch):
             return loss_fn(placement.full(params, lead=1), batch, *rest)
     return loss
 
@@ -408,15 +430,17 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             raise ValueError(f"mesh on {mesh.device_type!r} devices, engine "
                              f"on {dev.type!r}: pass device= to match")
         n = rules_lib.data_extent(mesh)
-        if n > 1 and kernel_placement_ok("on", arch)[1] == "FSDP placement":
-            raise _not_run(f"the FSDP arch {arch_id!r} over a data axis of "
-                           f"{n}", placement_lib.FSDP_ITEM)
-        model_specs = None
-        if rules_lib.model_extent(mesh) > 1 and api is not None:
+        # An FSDP arch shards params over data (outside simulate, whose
+        # caches spend the data axis on the worker dim).
+        fsdp = (n > 1 and mode != "simulate"
+                and kernel_placement_ok("on", arch)[1] == "FSDP placement")
+        specs = None
+        rules = rules_lib.rules_for_arch(arch, shape, mesh)
+        if api is not None and (fsdp or rules_lib.model_extent(mesh) > 1):
             from repro_torch.engine import plan as plan_lib
-            model_specs = plan_lib.model_specs(api, mesh, arch_id, shape)
-        placement = placement_lib.MeshPlacement(mesh, cfg.num_workers,
-                                                model_specs)
+            specs = plan_lib.params_specs(api, mesh, arch, shape)
+        placement = placement_lib.MeshPlacement(
+            mesh, cfg.num_workers, specs, fsdp=fsdp, rules=rules)
         per_worker = mode in ("simulate", "ssp") or (
             mode == "stale-psum" and cfg.per_worker_delays)
         if loss_fn is not None:
@@ -424,6 +448,10 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         if placement.m > 1 and cfg.compress != "none":
             raise _not_run(f"compression over a model axis of {placement.m}",
                            placement_lib.MODEL_ITEM)
+        if placement.fsdp and cfg.compress != "none":
+            # A top-k over a rank's shard is not the top-k over the row.
+            raise _not_run(f"compression over the FSDP shards of {arch_id!r} "
+                           f"(data axis {n})", placement_lib.FSDP_COMPRESS_ITEM)
     # The ring (stale-psum, ssp) and the simulate pending ring go packed
     # unless kernels="off" or the arch's placement vetoes it. simulate's
     # server_side transform consumes per-leaf arrivals, so it stays on tree
@@ -604,8 +632,8 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             return sync_raw(inner, batch, comp=comp)
 
         return engine(
-            lambda params, _ust, _gen, rows=None: stale_sync.init_sync_state(
-                params, optimizer, fused=mega),
+            lambda params, _ust, _gen, rows=None, whole=None:
+                stale_sync.init_sync_state(params, optimizer, fused=mega),
             sync_step_inner, lambda inner: inner.params, 0)
 
     # Gradient ring modes: stale-psum and ssp.
@@ -682,7 +710,9 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             return inner, comp, m
         return raw(inner, batch, bound=bound, comp=comp)
 
+    per_worker_ring = mode == "ssp" or cfg.per_worker_delays
     return engine(
-        lambda params, _ust, gen, rows=rows: stale_sync.init_state(
-            params, optimizer, scfg, gen, rows=rows),
+        lambda params, _ust, gen, rows=rows, whole=None: stale_sync.init_state(
+            params, optimizer, scfg, gen, rows=rows,
+            buf_like=whole if per_worker_ring else None),
         ring_step_inner, lambda inner: inner.params, max_bound)

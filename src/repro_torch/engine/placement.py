@@ -19,12 +19,28 @@ A :class:`MeshPlacement` describes one rank's share of an engine:
   whole batch, so it agrees to fp32 roundoff only.
 * **The model axis.** Every param-shaped tensor is held as this rank's
   shard along the dims its spec puts on ``"model"`` (``torch.chunk``
-  semantics, as DTensor's ``Shard``). The loss sees whole params: ``full``
-  wraps each shard as a DTensor on the model sub-mesh and gathers it with
-  ``full_tensor()``, whose backward hands each rank the gradient of its own
-  shard. The optimizer's tree math is elementwise, so it runs on the shards
-  as DTensor propagation would; norms add their squares over the model
-  group. ``public`` returns params as DTensors on the model sub-mesh.
+  semantics, as DTensor's ``Shard``). The loss sees those dims whole:
+  ``full`` gathers them with ``GatherShards`` (c10d's ``all_gather``; its
+  backward hands each rank its chunk of the gradient, since every model
+  rank computed it from the same batch). The optimizer's tree math is
+  elementwise, so it runs on the shards; norms add their squares over the
+  groups that shard a leaf. ``public`` returns params as DTensors over the
+  whole mesh.
+* **The data axis of the FSDP archs** (``deepseek-67b``, ``kimi-k2``: the
+  rules put ``embed`` on data). Params, optimizer state and the aggregate
+  ring hold this rank's block of each leaf's ``embed`` dim. In the
+  batch-split modes the model reads its params through ``fetch`` (an
+  ambient hook, ``rules.use_fetch``), which gathers one layer (or
+  ``embed``, ``head``, ``final_ln``) at a time and reduce-scatters its
+  gradient in the backward pass; under remat a layer is gathered again
+  there. The per-worker modes gather the params whole once a step outside
+  autograd (``data_whole``), keep whole rows in their ring, and apply this
+  rank's block of the delivered aggregate (``data_part``). simulate keeps
+  no data shards: its caches spend the data axis on the worker dim.
+
+No path calls ``DTensor.full_tensor()``: its functional collective
+segfaults over gloo on CUDA tensors (torch 2.11), where c10d's
+collectives run.
 
 Index-heavy ring code (``_ring_dispatch``, ``_gather``) never runs as
 DTensor ops: ``aten.index`` refuses a DTensor beside a plain index tensor.
@@ -46,8 +62,8 @@ from repro_torch.sharding import rules as rules_lib
 Pytree = Any
 
 # ROADMAP items for what a mesh does not run yet.
-FSDP_ITEM = "A.17, the FSDP archs on a mesh"
 MODEL_ITEM = "A.18, the model axis on more than one card"
+FSDP_COMPRESS_ITEM = "A.20, compression over FSDP shards"
 MULTINODE_ITEM = "A.19, multi-node"
 
 
@@ -83,15 +99,105 @@ def all_gather_dim(dist, x: torch.Tensor, d: int, full: int, n: int,
     return out if out.shape[d] == full else out.narrow(d, 0, full).contiguous()
 
 
+def chunk_span(full: int, n: int, rank: int) -> tuple:
+    """``(start, length)`` of part ``rank`` of ``n`` ``torch.chunk`` parts
+    of a dim ``full`` long (the last may be short or empty)."""
+    c = -(-full // n)
+    start = min(rank * c, full)
+    return start, min(c, full - start)
+
+
+def reduce_scatter_dim(dist, g: torch.Tensor, d: int, n: int,
+                       group) -> torch.Tensor:
+    """This rank's chunk of dim ``d`` of ``g`` summed over the ``n`` ranks
+    of ``group`` (c10d's ``reduce_scatter_tensor``, which gloo runs on CUDA
+    tensors too, fp32 and bf16, with torch 2.11). ``n`` divides the dim.
+    The sum stays in ``g``'s dtype: over two ranks it is one addition, so
+    it rounds once, as a sum in fp32 cast back would."""
+    moved = g.movedim(d, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return out.movedim(0, d).contiguous()
+
+
+class Axis:
+    """One mesh axis as the collectives see it: its c10d group, extent and
+    this rank's place on it. ``record`` (a list, or None) collects
+    ``(kind, name, shape, bytes)`` of every gather and reduce-scatter the
+    axis runs."""
+
+    def __init__(self, dist, name: str, group, n: int, rank: int):
+        self.dist, self.name, self.group = dist, name, group
+        self.n, self.rank = n, rank
+        self.record = None
+
+    def note(self, kind: str, label: str, x: torch.Tensor) -> None:
+        if self.record is not None:
+            self.record.append((f"{self.name}.{kind}", label, tuple(x.shape),
+                                x.numel() * x.element_size()))
+
+
+class GatherShards(torch.autograd.Function):
+    """Whole dim ``d`` (``full`` long) from each rank's ``torch.chunk``
+    part over a mesh axis (``all_gather_dim``: c10d, not a DTensor
+    collective). The backward returns this rank's part of the whole
+    gradient: ``"slice"`` takes its chunk (every rank computed the same
+    gradient: the model axis, whose ranks see one batch), ``"sum"``
+    reduce-scatters it (each rank's gradient is of its own batch rows: the
+    data axis of FSDP, where the step then divides by the extent)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, d, full, backward, label):
+        ctx.axis, ctx.d, ctx.full = axis, d, full
+        ctx.backward, ctx.label = backward, label
+        out = all_gather_dim(axis.dist, x, d, full, axis.n, axis.group)
+        axis.note("gather", label, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, d = ctx.axis, ctx.d
+        if ctx.backward == "slice":
+            start, length = chunk_span(ctx.full, axis.n, axis.rank)
+            return (g.narrow(d, start, length).contiguous(),
+                    None, None, None, None, None)
+        axis.note("reduce_scatter", ctx.label, g)
+        return (reduce_scatter_dim(axis.dist, g, d, axis.n, axis.group),
+                None, None, None, None, None)
+
+
+def whole_dtensor(x):
+    """A DTensor's whole value by c10d's ``all_gather`` over each mesh dim
+    that shards it (``DTensor.full_tensor()``'s functional collective
+    segfaults over gloo on CUDA tensors with torch 2.11); anything else as
+    it is."""
+    if not hasattr(x, "to_local"):
+        return x
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    mesh, out = x.device_mesh, x.to_local()
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            out = all_gather_dim(dist, out, pl.dim, x.shape[pl.dim],
+                                 mesh.size(i), mesh.get_group(i))
+    return out
+
+
 class MeshPlacement:
     """One rank's share of a P-worker engine on a real ``DeviceMesh``.
 
-    ``model_specs`` is the params tree of model-axis spec tuples that
-    ``engine/plan.py::model_specs`` gives (the plan's param dims of a
-    worker-stacked state), or None when the model extent is 1. The worker
-    axis shards as the plan's (``rules.worker_split``)."""
+    ``specs`` is the params' spec tree (``engine/plan.py::params_specs``:
+    the rules' data and model parts), or None for a bare loss. The model
+    parts shard every param-shaped tensor when the model extent is above 1;
+    with ``fsdp`` (an FSDP arch over data > 1, outside simulate) the data
+    parts shard params, optimizer state and the aggregate ring too, a leaf
+    whose dim the data extent does not divide staying whole. ``rules``
+    (those ``specs`` came from) place a leaf the initialiser draws by its
+    logical axes (``keep``). The worker axis shards as the plan's
+    (``rules.worker_split``)."""
 
-    def __init__(self, mesh, num_workers: int, model_specs: Pytree = None):
+    def __init__(self, mesh, num_workers: int, specs: Pytree = None,
+                 fsdp: bool = False, rules: dict = None):
         import torch.distributed as dist
         names = tuple(mesh.mesh_dim_names)
         if "pod" in names:
@@ -104,6 +210,11 @@ class MeshPlacement:
         self.data_rank = mesh.get_local_rank("data") if "data" in names else 0
         self.data_group = mesh.get_group("data") if "data" in names else None
         self.model_mesh = mesh["model"] if "model" in names else None
+        self.data_axis = (Axis(dist, "data", self.data_group, self.n,
+                               self.data_rank) if self.n > 1 else None)
+        self.model_axis = (Axis(dist, "model", self.model_mesh.get_group(),
+                                self.m, mesh.get_local_rank("model"))
+                           if self.m > 1 else None)
         self.p = num_workers
         # The worker axis shards only where N divides P; else every rank
         # holds (and computes) every worker, as the JAX planner replicates.
@@ -112,8 +223,12 @@ class MeshPlacement:
         per = num_workers // self.wn
         self.lo = self.data_rank * per if self.wn > 1 else 0
         self.hi = self.lo + per
-        self.model_specs = model_specs if self.m > 1 else None
+        self.fsdp = bool(fsdp and specs is not None and self.n > 1)
+        self.specs = specs
+        self.rules = rules
+        self.sharded = specs is not None and (self.fsdp or self.m > 1)
         self.full_shapes = None
+        self._dims = None
 
     # -- rows -----------------------------------------------------------------
     @property
@@ -168,6 +283,18 @@ class MeshPlacement:
         self.dist.all_reduce(out, group=self.data_group)
         return out / self.n
 
+    def mean_grads(self, grads: Pytree, split: bool = True) -> Pytree:
+        """The batch-split modes' mean gradient from this rank's: a
+        data-sharded leaf arrives summed over the data ranks by its
+        gather's reduce-scatter (whether or not the batch was split: each
+        rank's gradient of the whole batch sums to N of it) and is divided
+        by N; every other leaf is ``mean``-ed."""
+        if not self.fsdp:
+            return tm.tree_map(lambda g: self.mean(g, split), grads)
+        return self._map(lambda g, dims, _shape: g / self.n
+                         if dims[0] is not None else self.mean(g, split),
+                         grads)
+
     def broadcast_rows0(self, tree: Pytree) -> Pytree:
         """Worker 0's row of every ``[rows, ...]`` leaf, sent from the data
         rank that holds it (a collective: every rank calls it)."""
@@ -180,77 +307,219 @@ class MeshPlacement:
             return row
         return tm.tree_map(one, tree)
 
-    # -- the model axis -------------------------------------------------------
-    def _placements(self, spec, lead: int):
-        return rules_lib.placements((None,) * lead + tuple(spec),
-                                    self.model_mesh)
+    # -- params shards --------------------------------------------------------
+    def set_full_shapes(self, params: Pytree) -> None:
+        """Record the whole params' shapes and, per leaf, the dim each axis
+        shards: ``(data dim or None, model dim or None)``."""
+        self.full_shapes = [tuple(x.shape) for x in tm.tree_leaves(params)]
+        if not self.sharded:
+            return
+        self._first, at = {}, 0
+        if isinstance(params, dict):
+            for key in sorted(params):
+                self._first[key] = at
+                at += len(tm.tree_leaves(params[key]))
+        specs = rules_lib.axes_leaves(self.specs)
+        if len(specs) != len(self.full_shapes):
+            raise ValueError(f"params of {len(self.full_shapes)} leaves, "
+                             f"specs of {len(specs)}")
+        self._dims = [self._leaf_dims(spec, shape)
+                      for spec, shape in zip(specs, self.full_shapes)]
+
+    def _leaf_dims(self, spec: tuple, shape: tuple) -> tuple:
+        """``(data dim or None, model dim or None)`` of a leaf of ``shape``
+        placed by ``spec``: data only with ``fsdp`` and where the extent
+        divides the dim (the even-division fallback keeps it whole)."""
+        def dim_on(name):
+            dims = [d for d, part in enumerate(spec)
+                    if name in rules_lib._names(part)]
+            return dims[0] if dims else None
+        dd = dim_on("data") if self.fsdp else None
+        if dd is not None and shape[dd] % self.n:
+            dd = None
+        return dd, dim_on("model") if self.m > 1 else None
+
+    def _map(self, fn, tree: Pytree, lead: int = 0) -> Pytree:
+        """``fn(leaf, (data dim, model dim), whole shape)`` over a
+        params-shaped tree whose leaves carry ``lead`` leading dims (the
+        dims count from the first param dim)."""
+        leaves, treedef = tm.tree_flatten(tree)
+        if len(leaves) != len(self._dims):
+            raise ValueError(f"params of {len(leaves)} leaves, placement of "
+                             f"{len(self._dims)}")
+        return tm.tree_unflatten(treedef, [
+            fn(x, tuple(None if d is None else d + lead for d in dims),
+               shape) for x, dims, shape in zip(leaves, self._dims,
+                                                self.full_shapes)])
+
+    def _cut(self, x, dims, shape):
+        """This rank's block of a whole leaf ``x`` of ``shape``: its block
+        of the data dim and its ``torch.chunk`` part of the model dim (a
+        view)."""
+        dd, md = dims
+        if dd is not None:
+            c = shape[dd] // self.n
+            x = x.narrow(dd, self.data_rank * c, c)
+        if md is not None:
+            x = x.narrow(md, *chunk_span(shape[md], self.m,
+                                         self.model_axis.rank))
+        return x
 
     def shard_params(self, params: Pytree) -> Pytree:
-        """This rank's model-axis shards of whole params (the identity at
-        model extent 1)."""
-        if self.model_specs is None:
+        """This rank's shards of whole params (no collective: every rank
+        holds the same whole params). Leaves the initialiser already cut
+        (``keep``) pass as they are."""
+        if not self.sharded:
             return params
-        from torch.distributed.tensor import distribute_tensor
-        return self._map(lambda x, spec, _shape: distribute_tensor(
-            x, self.model_mesh, self._placements(spec, 0),
-            src_data_rank=None).to_local(), params)
 
-    def _dtensor(self, x, spec, lead: int, shape):
-        from torch.distributed.tensor import DTensor
-        full_shape = tuple(x.shape[:lead]) + tuple(shape)
-        stride = torch.empty(full_shape, device="meta").stride()
-        return DTensor.from_local(x, self.model_mesh,
-                                  self._placements(spec, lead),
-                                  run_check=False, shape=full_shape,
-                                  stride=stride)
+        def one(x, dims, shape):
+            if tuple(x.shape) != tuple(shape):
+                return x
+            return self._cut(x, dims, shape).contiguous()
+        return self._map(one, params)
+
+    def keep(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
+        """The initialiser's hook (``models.layers.use_keep``): this rank's
+        block of a value just drawn whole, a leaf or one slice of a stacked
+        leaf, whose trailing dims ``axes`` name; placed by ``rules`` as
+        ``specs`` place the leaf. The block owns its storage, so the whole
+        value can go."""
+        lead = x.dim() - len(axes)
+        dims = tuple(None if d is None else d + lead for d in self._leaf_dims(
+            rules_lib.spec_for(axes, self.mesh, self.rules),
+            tuple(x.shape[lead:])))
+        out = self._cut(x, dims, tuple(x.shape))
+        return out.clone() if out.numel() < x.numel() else out
+
+    def whole_like(self, params: Pytree) -> Pytree:
+        """Meta tensors shaped as ``params``' shards with their data dims
+        whole (the per-worker ring's rows: whole params on the data axis,
+        which its worker rows occupy)."""
+        def one(x, dims, shape):
+            size = list(x.shape)
+            if dims[0] is not None:
+                size[dims[0]] = shape[dims[0]]
+            return torch.empty(size, dtype=x.dtype, device="meta")
+        return self._map(one, params)
+
+    def data_whole(self, params: Pytree) -> Pytree:
+        """Data-sharded leaves gathered whole on the data axis, outside
+        autograd (the per-worker modes' params, once a step)."""
+        if not self.fsdp:
+            return params
+
+        def one(x, dims, shape):
+            if dims[0] is None:
+                return x
+            with torch.no_grad():
+                out = all_gather_dim(self.dist, x.detach(), dims[0],
+                                     shape[dims[0]], self.n,
+                                     self.data_group)
+            self.data_axis.note("gather", "whole", out)
+            return out
+        return self._map(one, params)
+
+    def data_part(self, tree: Pytree) -> Pytree:
+        """This rank's block of each data-sharded leaf of a tree that
+        holds them whole (the per-worker modes' delivered aggregate)."""
+        if not self.fsdp:
+            return tree
+
+        def one(x, dims, shape):
+            if dims[0] is None:
+                return x
+            c = shape[dims[0]] // self.n
+            return x.narrow(dims[0], self.data_rank * c, c).contiguous()
+        return self._map(one, tree)
 
     def full(self, tree: Pytree, lead: int = 1) -> Pytree:
-        """Whole tensors from shards with ``lead`` leading (worker) dims, by
-        an all-gather over the model group whose backward returns each
-        rank its shard's gradient."""
-        if self.model_specs is None:
+        """Model-sharded dims made whole, on leaves with ``lead`` leading
+        (worker) dims, by a gather over the model group whose backward
+        hands each rank its chunk of the gradient (``GatherShards``,
+        "slice"). Data-sharded dims stay as they are: the batch-split modes
+        gather them a layer at a time (``fetch``)."""
+        if self.model_axis is None or not self.sharded:
             return tree
-        return self._map(lambda x, spec, shape: self._dtensor(
-            x, spec, lead, shape).full_tensor(), tree)
+
+        def one(x, dims, shape):
+            md = dims[1]
+            if md is None:
+                return x
+            return GatherShards.apply(x, self.model_axis, md,
+                                      shape[md - lead], "slice", "full")
+        return self._map(one, tree, lead)
+
+    def fetch(self, tree: Pytree, name: str) -> Pytree:
+        """The model's read of ``params[name]`` (one layer's slice of a
+        stacked ``[L, ...]`` subtree, or a whole top-level leaf) in a
+        batch-split step: data-sharded leaves gathered whole on the data
+        axis, their backward reduce-scattering the gradient
+        (``GatherShards``, "sum"). Installed by the engine's loss
+        (``rules.use_fetch``)."""
+        first = self._first[name]
+        leaves, treedef = tm.tree_flatten(tree)
+        out = []
+        for i, x in enumerate(leaves):
+            dd = self._dims[first + i][0]
+            shape = self.full_shapes[first + i]
+            if dd is not None:
+                cut = len(shape) - x.dim()       # 1 for a layer's slice
+                if cut:
+                    dd -= cut
+                    shape = shape[cut:]
+                x = GatherShards.apply(x, self.data_axis, dd, shape[dd],
+                                       "sum", name)
+            out.append(x)
+        return tm.tree_unflatten(treedef, out)
 
     def public(self, params: Pytree) -> Pytree:
-        """Params as the caller sees them: DTensors on the model sub-mesh
-        (model extent > 1), else this rank's plain tensors."""
-        if self.model_specs is None:
+        """Params as the caller sees them: DTensors over the whole
+        ``(data, model)`` mesh (each rank's shards of the global array, as
+        JAX returns one) when anything is sharded, else this rank's plain
+        tensors."""
+        if not self.sharded:
             return params
-        return self._map(lambda x, spec, shape: self._dtensor(
-            x, spec, 0, shape), params)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        names = tuple(self.mesh.mesh_dim_names)
 
-    def sq_norm(self, tree: Pytree) -> torch.Tensor:
-        """Squared L2 norm of a params-shaped tree of shards: sharded leaves
-        add their squares over the model group, replicated ones count
-        once."""
-        if self.model_specs is None:
+        def one(x, dims, shape):
+            on = dict(zip(("data", "model"), dims))
+            placements = [Shard(on[a]) if on.get(a) is not None
+                          else Replicate() for a in names]
+            stride = torch.empty(shape, device="meta").stride()
+            return DTensor.from_local(x, self.mesh, placements,
+                                      run_check=False, shape=shape,
+                                      stride=stride)
+        return self._map(one, params)
+
+    def sq_norm(self, tree: Pytree, data: bool = True) -> torch.Tensor:
+        """Squared L2 norm of a params-shaped tree of shards: each leaf's
+        squares add over the groups of the axes that shard it, replicated
+        leaves count once. ``data=False``: the tree holds its data dims
+        whole (the per-worker modes' aggregate)."""
+        if not self.sharded:
             return tm.tree_sq_norm(tree)
         leaves = tm.tree_leaves(tree)
-        sharded = torch.zeros((), device=leaves[0].device)
-        whole = torch.zeros_like(sharded)
-        for x, spec in zip(leaves, rules_lib.axes_leaves(self.model_specs)):
-            sq = torch.sum(x.float() * x.float())
-            if any("model" in rules_lib._names(p) for p in spec):
-                sharded = sharded + sq
-            else:
-                whole = whole + sq
-        self.dist.all_reduce(sharded, group=self.model_mesh.get_group())
-        return sharded + whole
+        # [model-only, model and data] over the model group, then
+        # [data-only + the reduced both] over the data group.
+        acc = torch.zeros((4,), device=leaves[0].device)
+        for x, (dd, md) in zip(leaves, self._dims):
+            on_data = dd is not None and data
+            acc[2 * (md is None) + (not on_data)] += torch.sum(
+                x.float() * x.float())
+        # acc: [model+data, model, data, none]
+        if self.model_axis is not None:
+            both = acc[:2].clone()
+            self.dist.all_reduce(both, group=self.model_axis.group)
+            acc = torch.cat([both, acc[2:]])
+        if self.data_axis is not None and self.fsdp and data:
+            on_data = (acc[0] + acc[2]).reshape(1)
+            self.dist.all_reduce(on_data, group=self.data_group)
+            return on_data[0] + acc[1] + acc[3]
+        return acc.sum()
 
-    def norm(self, tree: Pytree) -> torch.Tensor:
-        return torch.sqrt(self.sq_norm(tree))
-
-    def set_full_shapes(self, params: Pytree) -> None:
-        """Record the whole params' shapes (``full`` and ``public`` rebuild
-        DTensors from shards)."""
-        self.full_shapes = [tuple(x.shape) for x in tm.tree_leaves(params)]
-
-    def _map(self, fn, tree: Pytree) -> Pytree:
-        specs = rules_lib.axes_leaves(self.model_specs)
-        return map_specs(fn, tree, specs,
-                         self.full_shapes or [None] * len(specs))
+    def norm(self, tree: Pytree, data: bool = True) -> torch.Tensor:
+        return torch.sqrt(self.sq_norm(tree, data))
 
 
 class ServePlacement:

@@ -135,14 +135,14 @@ def _model_specs(params_axes, mesh, rules: dict):
     return rules_lib.tree_specs(params_axes, mesh, rules_lib.strip_data(rules))
 
 
-def model_specs(api: ModelAPI, mesh, arch_id: Optional[str] = None,
-                shape: Optional[InputShape] = None):
-    """``_model_specs`` for an arch's params under ``rules_for_arch``: what
-    the train plan puts on the worker caches' param dims, and what
-    ``engine/placement.py`` holds each rank's model shards by."""
+def params_specs(api: ModelAPI, mesh, arch=None,
+                 shape: Optional[InputShape] = None):
+    """The train plan's ``params`` spec tree of an arch (a registry entry
+    or its id) under ``rules_for_arch``, FSDP's ``embed -> data``
+    included. ``engine/placement.py`` holds each rank's shards by it."""
     _, params_axes = captured_axes(lambda dev: api.init(0, device=dev))
-    return _model_specs(params_axes, mesh,
-                        rules_lib.rules_for_arch(arch_id, shape, mesh))
+    return rules_lib.tree_specs(params_axes, mesh,
+                                rules_lib.rules_for_arch(arch, shape, mesh))
 
 
 def attach_train_plan(engine, api: ModelAPI, shape: ShapeLike, *,
@@ -164,7 +164,7 @@ def attach_train_plan(engine, api: ModelAPI, shape: ShapeLike, *,
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = engine.cfg
     p = cfg.num_workers
-    fsdp = arch_id in rules_lib.FSDP_ARCHS
+    fsdp = rules_lib.is_fsdp(arch_id)
     rules = rules_lib.rules_for_arch(arch_id, shape=shape, mesh=mesh)
     wax = rules_lib.worker_split(mesh, p)
 
@@ -338,8 +338,7 @@ def make_train_engine(arch: Union[str, ArchDef], shape: ShapeLike,
         if mode == "stale-psum":
             # FSDP archs shard params over 'data' already, so the
             # per-worker buffer axis cannot also use it.
-            kw.setdefault("per_worker_delays",
-                          arch.arch_id not in rules_lib.FSDP_ARCHS)
+            kw.setdefault("per_worker_delays", not rules_lib.is_fsdp(arch))
         ecfg = EngineConfig(
             mode=mode, s=s,
             num_workers=num_workers or rules_lib.data_extent(mesh),

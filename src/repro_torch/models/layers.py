@@ -7,10 +7,15 @@ plain tuples; ``sharding/rules.py`` maps them to mesh placements.
 The initialisers draw from a ``torch.Generator``, so the weights differ from
 ``jax.random``'s; tests carry JAX's weights across with
 ``convert.params_from_jax``. On the ``meta`` device they only allocate
-shapes.
+shapes. Under ``use_keep`` each value is cut to the block this process
+keeps as soon as it is drawn (``engine/placement.py::MeshPlacement.keep``);
+under ``draw_by_layer`` (the FSDP archs' init, ``configs.base.ArchDef``)
+a stacked leaf is drawn a slice at a time, so such a rank never holds a
+whole stacked leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -44,29 +49,101 @@ def _fill(t: torch.Tensor, fn) -> torch.Tensor:
     return t
 
 
+_KEEP: list = []
+
+
+class use_keep:
+    """``with use_keep(fn):`` the initialisers hand every value they make
+    (a whole leaf, or one slice of a stacked leaf) to ``fn(value, axes)``,
+    ``axes`` the logical axes of its trailing dims, and keep what it
+    returns. ``use_keep(None)`` keeps values whole."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        _KEEP.append(self.fn)
+        return self.fn
+
+    def __exit__(self, *exc):
+        _KEEP.pop()
+        return False
+
+
+_BY_LAYER: list = []
+
+
+@contextlib.contextmanager
+def draw_by_layer():
+    """``with draw_by_layer():`` the initialisers draw a stacked leaf one
+    slice at a time, each its own draw in order, where they would draw it
+    at once. The values differ from one draw's, so an arch draws one way
+    wherever it inits (``configs.base.ArchDef.api``)."""
+    _BY_LAYER.append(True)
+    try:
+        yield
+    finally:
+        _BY_LAYER.pop()
+
+
+def _kept(w: torch.Tensor, axes, dtype) -> torch.Tensor:
+    fn = _KEEP[-1] if _KEEP else None
+    return (w if fn is None else fn(w, tuple(axes))).to(dtype)
+
+
+def _stacked(lead, shape, device, fill, axes, dtype) -> torch.Tensor:
+    """A ``lead + shape`` leaf (fp32, filled by ``fill``) kept as drawn:
+    in one draw, or under ``draw_by_layer`` a ``shape`` slice at a time
+    in order."""
+    if not _BY_LAYER:
+        return _kept(_fill(torch.empty(tuple(lead) + tuple(shape),
+                                       dtype=torch.float32, device=device),
+                           fill), axes, dtype)
+    out = None
+    for i in range(math.prod(lead)):
+        w = _fill(torch.empty(tuple(shape), dtype=torch.float32,
+                              device=device), fill)
+        block = _kept(w, axes, dtype)
+        del w
+        if out is None:
+            out = block.new_empty((math.prod(lead),) + tuple(block.shape))
+        out[i] = block
+        del block
+    if out is None:             # a lead dim of 0: nothing to draw
+        kept = _kept(torch.empty(tuple(shape), device="meta"), axes, dtype)
+        return torch.empty(tuple(lead) + tuple(kept.shape), dtype=dtype,
+                           device=device)
+    return out.reshape(tuple(lead) + tuple(out.shape[1:]))
+
+
 def dense_init(gen: torch.Generator, shape, axes, in_axis: int = 0,
                scale: float = 1.0, dtype=torch.float32, device=None,
                lead: Tuple[int, ...] = ()) -> Param:
     """Truncated-normal fan-in init; ``in_axis`` marks the contraction dim
     used for the fan-in (negative counts from the end). ``lead`` prepends
-    stacked axes (e.g. ``[L]`` layers), each slice drawn independently."""
+    stacked axes (e.g. ``[L]`` layers)."""
     std = scale / math.sqrt(max(shape[in_axis], 1))
-    w = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
-                    device=device)
-    _fill(w, lambda t: torch.nn.init.trunc_normal_(
-        t, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std))
-    return Param(w.to(dtype), axes)
+    return Param(_stacked(lead, shape, device, lambda t: (
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=gen).mul_(std)), axes, dtype),
+                 axes)
 
 
 def embed_init(gen: torch.Generator, shape, axes, dtype=torch.float32,
                device=None) -> Param:
     w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     _fill(w, lambda t: t.normal_(0.0, 0.02, generator=gen))
-    return Param(w.to(dtype), axes)
+    return Param(_kept(w, axes, dtype), axes)
 
 
 def scale_init(shape, axes, value: float = 1.0, dtype=torch.float32,
                device=None) -> Param:
+    """A constant leaf; ``axes`` name the trailing dims of ``shape`` (a
+    stacked leaf's lead dims come first). Under ``use_keep`` only the
+    kept block is made (its shape from a meta value)."""
+    fn = _KEEP[-1] if _KEEP else None
+    if fn is not None:
+        shape = fn(torch.empty(tuple(shape), device="meta"), tuple(axes)).shape
     return Param(torch.full(tuple(shape), value, dtype=dtype, device=device),
                  axes)
 

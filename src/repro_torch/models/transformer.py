@@ -28,7 +28,11 @@ JAX package checkpoints its ``run_cross``. The MoE FFN (``models/moe.py``)
 groups its tokens by the ambient mesh. ``cfg.tp`` and the attention
 sharding modes steer the JAX package's tensor-parallel layout; the port's
 model axis gathers whole params for the forward pass
-(``engine/placement.py``), so they change nothing here.
+(``engine/placement.py``), so they change nothing here. ``forward`` reads
+each layer's params (and ``embed``, ``head``, ``final_ln``) through the
+ambient fetch (``sharding.rules.use_fetch``): the identity, or on a mesh
+an FSDP arch's gather of that layer from its data-axis shards, inside the
+remat body so the backward pass gathers it again.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch import device as device_lib
 from repro_torch import treemath as tm
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding import rules as rules_lib
 
 NEG_INF = -1e9
 
@@ -439,9 +444,11 @@ def _cross_after(cfg: TransformerConfig, i: int) -> Optional[int]:
     return None
 
 
-def _logits(params, h, cfg: TransformerConfig):
-    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", h, params["head"].to(cfg.dtype))
+def _logits(params, h, cfg: TransformerConfig, fetch=None):
+    fetch = fetch or rules_lib.ambient_fetch()
+    h = L.rms_norm(h, fetch(params["final_ln"], "final_ln"), cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", h,
+                          fetch(params["head"], "head").to(cfg.dtype))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     vmask = torch.where(
@@ -466,30 +473,42 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
     plus a prefill cache with ``return_cache=True``. ``cross_feats``
     ``[B, cross_tokens, cross_dim]`` feeds the cross layers."""
     b, s = tokens.shape
-    h = params["embed"].to(cfg.dtype)[tokens.long()]
+    # Params are read through the ambient fetch (on a mesh, an FSDP arch's
+    # gather of one layer at a time), taken once: a layer recomputed in the
+    # backward pass reads through the same one, under the same ambient
+    # mesh (the MoE layer's groups).
+    fetch, mesh = rules_lib.ambient_fetch(), rules_lib.ambient_mesh()
+    h = fetch(params["embed"], "embed").to(cfg.dtype)[tokens.long()]
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     # With remat each layer keeps only its input for the backward pass and
-    # runs again there (only while autograd records).
+    # runs again there (only while autograd records), its params read again.
     remat = cfg.remat and torch.is_grad_enabled()
     run = lambda body, h: (torch.utils.checkpoint.checkpoint(
         body, h, use_reentrant=False) if remat else body(h))
+
+    def self_layer(h, i):
+        with rules_lib.use_mesh(mesh):
+            lp = fetch(_layer(params, i), "layers")
+            return _layer_body(h, lp, positions, cfg)
+
+    def cross_layer(h, g):
+        with rules_lib.use_mesh(mesh):
+            xp = fetch(_layer(params, g, "cross_layers"), "cross_layers")
+            return _cross_body(h, xp, cross_feats, cfg)
+
     ks, vs, xks, xvs = [], [], [], []
     aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        h, k, v, layer_aux = run(
-            lambda h, lp=lp: _layer_body(h, lp, positions, cfg), h)
+        h, k, v, layer_aux = run(lambda h, i=i: self_layer(h, i), h)
         aux = aux + layer_aux
         ks.append(k)
         vs.append(v)
         g = _cross_after(cfg, i)
         if g is not None:
-            xp = _layer(params, g, "cross_layers")
-            h, xk, xv = run(
-                lambda h, xp=xp: _cross_body(h, xp, cross_feats, cfg), h)
+            h, xk, xv = run(lambda h, g=g: cross_layer(h, g), h)
             xks.append(xk)
             xvs.append(xv)
-    logits = _logits(params, h, cfg)
+    logits = _logits(params, h, cfg, fetch)
     if not return_cache:
         return logits, aux
 

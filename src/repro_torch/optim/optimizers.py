@@ -37,6 +37,14 @@ def lr_at(lr: Schedule, step: int) -> float:
     return float(lr(step)) if callable(lr) else float(lr)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a product with the learning rate promotes it in the JAX
+    package, where the rate is an fp32 array: bf16 becomes fp32 (a Python
+    float would keep bf16), so bf16 params take an fp32 delta and turn
+    fp32 after their first update, as there."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def sgd(lr: Schedule = 0.01) -> Optimizer:
     def init(params):
         return {"step": 0}
@@ -58,9 +66,10 @@ def momentum(lr: Schedule = 0.01, beta: float = 0.9,
         eta = lr_at(lr, state["step"] + 1)
         m = tm.tree_map(lambda mi, g: beta * mi + g, state["m"], grads)
         if nesterov:
-            delta = tm.tree_map(lambda mi, g: -eta * (beta * mi + g), m, grads)
+            delta = tm.tree_map(lambda mi, g: -eta * _f32(beta * mi + g), m,
+                                grads)
         else:
-            delta = tm.tree_map(lambda mi: -eta * mi, m)
+            delta = tm.tree_map(lambda mi: -eta * _f32(mi), m)
         return delta, {"step": state["step"] + 1, "m": m}
 
     return Optimizer(init, update)
@@ -73,8 +82,8 @@ def adagrad(lr: Schedule = 0.01, eps: float = 1e-7) -> Optimizer:
     def update(grads, state, params):
         eta = lr_at(lr, state["step"] + 1)
         v = tm.tree_map(lambda vi, g: vi + g * g, state["v"], grads)
-        delta = tm.tree_map(lambda vi, g: -eta * g / (torch.sqrt(vi) + eps),
-                            v, grads)
+        delta = tm.tree_map(
+            lambda vi, g: -eta * _f32(g) / (torch.sqrt(vi) + eps), v, grads)
         return delta, {"step": state["step"] + 1, "v": v}
 
     return Optimizer(init, update)
@@ -98,9 +107,9 @@ def rmsprop(lr: Schedule = 0.01, decay: float = 0.9, eps: float = 1e-7,
         if mom > 0:
             m = tm.tree_map(lambda mi, sg: mom * mi + sg, state["m"], scaled)
             new["m"] = m
-            delta = tm.tree_map(lambda mi: -eta * mi, m)
+            delta = tm.tree_map(lambda mi: -eta * _f32(mi), m)
         else:
-            delta = tm.tree_map(lambda sg: -eta * sg, scaled)
+            delta = tm.tree_map(lambda sg: -eta * _f32(sg), scaled)
         return delta, new
 
     return Optimizer(init, update)
@@ -148,9 +157,11 @@ def adam(lr: Schedule = 0.001, b1: float = 0.9, b2: float = 0.999,
         v = tm.tree_map(lambda vi, g: b2 * vi + omb2 * g * g, state["v"], grads)
 
         def delta_leaf(mi, vi, p):
-            d = -eta * (mi / bc1) / (torch.sqrt(vi / bc2) + eps)
+            # JAX's bias corrections are fp32 arrays: the delta is fp32
+            # math, cast once.
+            d = -eta * (_f32(mi) / bc1) / (torch.sqrt(_f32(vi) / bc2) + eps)
             if weight_decay:
-                d = d - eta * weight_decay * p
+                d = d - eta * weight_decay * _f32(p)
             return d.to(p.dtype)
 
         delta = tm.tree_map(delta_leaf, m, v, params)

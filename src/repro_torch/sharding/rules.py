@@ -116,12 +116,26 @@ def worker_split(mesh, num_workers: int):
     return None if wax is None or num_workers % data_extent(mesh) else wax
 
 
-def rules_for_arch(arch_id: Optional[str], shape=None, mesh=None,
+def is_fsdp(arch) -> bool:
+    """Whether an arch (its registry entry, or the id it is registered
+    under) takes the FSDP placement: the entry's ``fsdp`` flag, which
+    ``FSDP_ARCHS`` lists for the registered archs."""
+    if arch is None:
+        return False
+    if not isinstance(arch, str):
+        return bool(getattr(arch, "fsdp", False))
+    from repro_torch import configs
+    entry = configs.REGISTRY.get(arch)
+    return entry is not None and bool(entry.fsdp)
+
+
+def rules_for_arch(arch, shape=None, mesh=None,
                    extra: Optional[dict] = None) -> dict:
-    """The rule set for one (arch, shape, mesh): FSDP placement for the
-    ZeRO-class archs, plus the even-division fallback (a global batch that
-    the data extent does not divide, long_500k's batch of 1, replicates)."""
-    rules = rules_for(fsdp=arch_id in FSDP_ARCHS, extra=extra)
+    """The rule set for one (arch, shape, mesh), ``arch`` a registry entry
+    or its id: FSDP placement where ``is_fsdp``, plus the even-division
+    fallback (a global batch that the data extent does not divide,
+    long_500k's batch of 1, replicates)."""
+    rules = rules_for(fsdp=is_fsdp(arch), extra=extra)
     if shape is not None and mesh is not None:
         if shape.global_batch % data_extent(mesh):
             rules["batch"] = None
@@ -331,6 +345,40 @@ class use_mesh:
 def ambient_mesh():
     """The mesh installed by ``use_mesh`` (None outside any context)."""
     return _AMBIENT[-1] if _AMBIENT else None
+
+
+_FETCH: list = []
+
+
+def _own(tree, name: str):
+    return tree
+
+
+class use_fetch:
+    """``with use_fetch(fn):`` routes the model's reads of its params
+    through ``fn(subtree, name)``, ``name`` the top-level key the subtree
+    came from (one layer's slice of ``params["layers"]``, or ``embed``,
+    ``head``, ``final_ln``): the FSDP placement's per-layer gather
+    (``engine/placement.py::MeshPlacement.fetch``). ``use_fetch(None)``
+    reads params as they are."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        _FETCH.append(self.fn)
+        return self.fn
+
+    def __exit__(self, *exc):
+        _FETCH.pop()
+        return False
+
+
+def ambient_fetch():
+    """The read ``use_fetch`` installed, else the identity. Model code
+    takes it once a forward pass, so a layer recomputed in the backward
+    pass (remat) reads through the same one."""
+    return _FETCH[-1] if _FETCH and _FETCH[-1] is not None else _own
 
 
 def _redistribute(x, spec, keep=()):

@@ -145,6 +145,118 @@ def lm_case(name: str, mesh=None):
             "kernels": eng.meta["kernels"]}
 
 
+# The FSDP archs (params, optimizer state and the aggregate ring sharded
+# over data): name -> (arch, make_train_engine kwargs), P = 4 workers,
+# momentum (the archs' train optimizer). The batch-split cases train with
+# remat on, so each layer is gathered again in the backward pass.
+FSDP_P, FSDP_STEPS, FSDP_BATCH, FSDP_SEQ = 4, 4, 8, 16
+FSDP_CASES = {
+    "deepseek-67b-sync": ("deepseek-67b", dict(mode="sync",
+                                               remat_override=True)),
+    "deepseek-67b-stale-psum": ("deepseek-67b", dict(
+        mode="stale-psum", stale_s=2, remat_override=True)),
+    "deepseek-67b-stale-psum-per-worker": ("deepseek-67b", dict(
+        mode="stale-psum", stale_s=2, per_worker_delays=True)),
+    "deepseek-67b-ssp": ("deepseek-67b", dict(mode="ssp", stale_s=2)),
+    "deepseek-67b-simulate": ("deepseek-67b", dict(mode="simulate",
+                                                   stale_s=2)),
+    "kimi-k2-sync": ("kimi-k2-1t-a32b", dict(mode="sync")),
+    "kimi-k2-stale-psum": ("kimi-k2-1t-a32b", dict(mode="stale-psum",
+                                                   stale_s=2)),
+    "kimi-k2-ssp": ("kimi-k2-1t-a32b", dict(mode="ssp", stale_s=2)),
+    "kimi-k2-simulate": ("kimi-k2-1t-a32b", dict(mode="simulate",
+                                                 stale_s=2)),
+}
+# mesh label -> (data, model); 2x2 runs deepseek-67b only.
+FSDP_MESHES = {"2x1": (2, 1), "4x1": (4, 1), "2x2": (2, 2)}
+# The batch-split modes: a sum over ranks replaces one backward pass.
+FSDP_SPLIT = ("sync", "stale-psum")
+
+
+def fsdp_cases(label: str) -> list:
+    return [name for name, (arch, _) in FSDP_CASES.items()
+            if label != "2x2" or arch == "deepseek-67b"]
+
+
+def fsdp_split(name: str) -> bool:
+    kw = FSDP_CASES[name][1]
+    return kw["mode"] == "sync" or (kw["mode"] == "stale-psum"
+                                    and not kw.get("per_worker_delays"))
+
+
+def _whole(tree):
+    from repro_torch.engine.placement import whole_dtensor
+    return tm.tree_map(lambda x: whole_dtensor(x).detach().clone(), tree)
+
+
+def fsdp_case(name: str, mesh=None, label: str = "2x1", plant=False) -> dict:
+    """One FSDP case for FSDP_STEPS steps through ``make_train_engine``
+    (kernels auto, which the FSDP placement vetoes): each step's loss and
+    grad_norm, the whole params at the end, and on a mesh the data axis's
+    gathers and reduce-scatters of one more step. Without a mesh it runs
+    under ``use_mesh`` of the label's shape, so the MoE layer groups its
+    tokens as the mesh does. ``plant``: the per-worker step reads its
+    params through the batch-split modes' gather, whose backward sums each
+    rank's workers' gradients into the others' (the fault the
+    per-worker path's whole gather avoids)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine import api as api_lib
+    arch, kw = FSDP_CASES[name]
+    data, model = FSDP_MESHES[label]
+    shape = InputShape("mesh_fsdp", FSDP_SEQ, FSDP_BATCH, "train")
+    real_loss = api_lib._mesh_loss
+    if plant:
+        api_lib._mesh_loss = lambda fn, placement, m, per_worker: real_loss(
+            fn, placement, m, False)
+    try:
+        eng = planlib.make_train_engine(arch, shape, mesh, reduced=True,
+                                        num_workers=FSDP_P, kernels="auto",
+                                        device="cpu", **kw)
+    finally:
+        api_lib._mesh_loss = real_loss
+    if plant:
+        pl = eng.placement
+        pl.whole_like = lambda params: params
+        pl.data_whole = pl.data_part = lambda tree: tree
+    drawn = []
+    if mesh is not None and eng.placement.sharded:
+        # The values the initialiser hands the placement to cut.
+        real_keep = eng.placement.keep
+
+        def keep(x, axes):
+            if x.device.type != "meta":
+                drawn.append(tuple(x.shape))
+            return real_keep(x, axes)
+        eng.placement.keep = keep
+    stream = synthetic.token_lm_stream(5, eng_vocab(arch), FSDP_SEQ,
+                                       FSDP_BATCH)
+    ambient = rules_lib.AbstractMesh(("data", "model"), (data, model))
+
+    def batch():
+        tokens = next(stream)
+        if kw["mode"] == "simulate":
+            tokens = tokens.reshape(FSDP_P, FSDP_BATCH // FSDP_P, -1)
+        return {"tokens": tokens}
+
+    out = {"losses": [], "grad_norms": [], "kernels": eng.meta["kernels"],
+           "drawn": drawn}
+    with rules_lib.use_mesh(ambient if mesh is None else None):
+        state = eng.init(0)
+        for _ in range(FSDP_STEPS):
+            state, m = eng.step(state, batch())
+            out["losses"].append(float(m["loss"]))
+            if "grad_norm" in m:
+                out["grad_norms"].append(float(m["grad_norm"]))
+        out["params"] = _whole(eng.params(state))
+        if mesh is not None and eng.placement.data_axis is not None:
+            axis = eng.placement.data_axis
+            axis.record = []
+            eng.step(state, batch())
+            out["traffic"], axis.record = axis.record, None
+            out["fsdp"] = eng.placement.fsdp
+    return out
+
+
 def eng_vocab(arch: str) -> int:
     from repro_torch import configs as cfglib
     return cfglib.get(arch).api(reduced=True).vocab_real
@@ -317,11 +429,22 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     try:
         out = {"raises": {}}
         mesh = make_host_mesh(world, 1, device="cpu")
-        out["raises"]["fsdp"] = _raised(lambda: planlib.make_train_engine(
-            "deepseek-67b", "train_4k", mesh, stale_s=2, reduced=True,
-            device="cpu"))
+        out["raises"]["fsdp-compress"] = _raised(
+            lambda: planlib.make_train_engine(
+                "deepseek-67b", "train_4k", mesh, stale_s=2, reduced=True,
+                compress="topk:0.1", device="cpu"))
         for name in MLP_CASES:
             out[name] = mlp_case(name, mesh)
+        out["fsdp"] = {}
+        for label, (data, model) in FSDP_MESHES.items():
+            if data * model != world:
+                continue
+            fmesh = make_host_mesh(data, model, device="cpu")
+            out["fsdp"][label] = {name: fsdp_case(name, fmesh, label)
+                                  for name in fsdp_cases(label)}
+            if label == "2x1":
+                out["fsdp"][label]["planted"] = fsdp_case(
+                    "deepseek-67b-ssp", fmesh, label, plant=True)
         if world == 2:
             out["restore"] = restore_case(mesh, out_dir)
             out["plan_in_shardings"] = planlib.make_train_engine(

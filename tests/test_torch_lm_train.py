@@ -19,8 +19,11 @@ normalises each gradient element, so where a gradient element lies within
 fp32 roundoff of zero the two packages' updates can differ by up to 2 * lr
 a step; those elements are few. So every element must lie within 2 * lr *
 steps of JAX's, and all but ``FLIP_SHARE`` of them within rtol 1e-5, atol
-2e-5. SGD is linear in the gradient, so the SGD legs hold every element to
-rtol 1e-5, atol 2e-5.
+2e-5. SGD and momentum are linear in the gradient, so their legs hold
+every element to rtol 1e-5, atol 2e-5. Params held in bf16 (simulate
+keeps the params' dtype) may also lie one bf16 ulp from JAX's, in at most
+``BF16_FLIP_SHARE`` of their elements; the params' dtypes after a run
+must be JAX's.
 """
 import dataclasses
 import functools
@@ -55,6 +58,11 @@ MODES = ["sync", "stale-psum", "ssp", "simulate"]
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=1e-5, atol=2e-5)
 FLIP_SHARE = 1e-4
+# Params held in bf16: the share of elements one ulp from JAX's. A bf16
+# rounding flips where the fp32 delta lies within its roundoff of a
+# rounding boundary; gradients that cancel carry ~1e-5 relative roundoff,
+# against an ulp of 2^-8.
+BF16_FLIP_SHARE = 1e-2
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -91,10 +99,16 @@ def with_gates(params, value=0.5):
 
 
 @functools.lru_cache(maxsize=None)
-def make_models(arch):
-    """(JAX api, port api, JAX params, the same params as numpy)."""
-    japi = jcfg.get(arch).api(reduced=True)
-    tapi = tcfg.get(arch).api(reduced=True)
+def make_models(arch, param_dtype=None):
+    """(JAX api, port api, JAX params, the same params as numpy);
+    ``param_dtype`` ("bfloat16") overrides the reduced config's fp32
+    params in both packages."""
+    jover = tover = None
+    if param_dtype is not None:
+        jover = {"param_dtype": getattr(jnp, param_dtype)}
+        tover = {"param_dtype": getattr(torch, param_dtype)}
+    japi = jcfg.get(arch).api(reduced=True, overrides=jover)
+    tapi = tcfg.get(arch).api(reduced=True, overrides=tover)
     jp = with_gates(jax.jit(lambda k: japi.init(k)[0])(
         jax.random.PRNGKey(0)))
     return japi, tapi, jp, jax.tree.map(np.asarray, jp)
@@ -124,14 +138,19 @@ def _batches(arch, mode, seq):
     return out
 
 
+def _optimizer(lib, name):
+    return {"adam": lambda: lib.adam(LR), "sgd": lambda: lib.sgd(LR),
+            "momentum": lambda: lib.momentum(LR)}[name]()
+
+
 @functools.lru_cache(maxsize=None)
-def jax_run(arch, mode, optimizer, seq):
+def jax_run(arch, mode, optimizer, seq, param_dtype=None):
     """The JAX package's run of one leg with its kernels off: (losses,
     params leaves with paths). The port's kernels-off and kernels-on runs
     are both held against it (the JAX package holds its own routes
     together), so it is computed once per leg."""
-    japi, _, jp, _ = make_models(arch)
-    jo = jopt.adam(LR) if optimizer == "adam" else jopt.sgd(LR)
+    japi, _, jp, _ = make_models(arch, param_dtype)
+    jo = _optimizer(jopt, optimizer)
     je = jbuild(japi, jo, JConfig(mode=mode, num_workers=P, kernels="off",
                                   **mode_kw(mode, jdel)))
     js = je.init(jax.random.PRNGKey(0), params=jp)
@@ -143,12 +162,13 @@ def jax_run(arch, mode, optimizer, seq):
         jax.tree.map(np.asarray, je.params(js)))[0]
 
 
-def port_run(arch, mode, kernels, optimizer, seq):
-    """The port's run of one leg: (losses, params leaves). Adam takes the
-    fused-Adam opt-in with the kernels on, as the train CLI builds it."""
-    _, tapi, _, npp = make_models(arch)
+def port_run(arch, mode, kernels, optimizer, seq, param_dtype=None):
+    """The port's run of one leg: (losses, params leaves as fp32 or wider
+    numpy, their dtypes). Adam takes the fused-Adam opt-in with the kernels
+    on, as the train CLI builds it."""
+    _, tapi, _, npp = make_models(arch, param_dtype)
     to = (topt.adam(LR, kernel=kernels != "off") if optimizer == "adam"
-          else topt.sgd(LR))
+          else _optimizer(topt, optimizer))
     te = build_engine(tapi, to, EngineConfig(
         mode=mode, num_workers=P, kernels=kernels, **mode_kw(mode, tdel)),
         device="cpu")
@@ -157,27 +177,51 @@ def port_run(arch, mode, kernels, optimizer, seq):
     for batch in _batches(arch, mode, seq):
         ts, tmet = te.step(ts, batch)
         losses.append(float(tmet["loss"]))
+    leaves = tm.tree_leaves(te.params(ts))
     return (np.array(losses),
-            [x.detach().numpy() for x in tm.tree_leaves(te.params(ts))])
+            [x.detach().to(torch.promote_types(x.dtype, torch.float32))
+             .numpy() for x in leaves],
+            [str(x.dtype).removeprefix("torch.") for x in leaves])
 
 
-def check_run(arch, mode, kernels, optimizer="adam", seq=SEQ):
-    jl, jleaves = jax_run(arch, mode, optimizer, seq)
-    tl, tleaves = port_run(arch, mode, kernels, optimizer, seq)
+def check_run(arch, mode, kernels, optimizer="adam", seq=SEQ,
+              param_dtype=None):
+    jl, jleaves = jax_run(arch, mode, optimizer, seq, param_dtype)
+    tl, tleaves, tdtypes = port_run(arch, mode, kernels, optimizer, seq,
+                                    param_dtype)
     assert np.isfinite(tl).all()
     np.testing.assert_allclose(tl, jl, **LOSS_TOL)
     assert [x.shape for x in tleaves] == [x.shape for _, x in jleaves]
-    total = flipped = 0
+    # The params' dtypes after the run are JAX's (bf16 params turn fp32
+    # where JAX promotes them).
+    assert tdtypes == [x.dtype.name for _, x in jleaves]
+    total = flipped = held = flipped_held = 0
     for (path, want), got in zip(jleaves, tleaves):
+        bf16 = want.dtype.name == "bfloat16"
+        want = want.astype(np.float64)
         err = np.abs(got.astype(np.float64) - want)
         within = err <= PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(want)
-        total += want.size
-        flipped += int((~within).sum())
+        if bf16:
+            # Held in bf16 (simulate keeps the params' dtype): a roundoff
+            # difference in an fp32 delta can flip a rounding, one ulp.
+            held += want.size
+            flipped_held += int((~within).sum())
+            within |= err <= bf16_ulp(want)
+        else:
+            total += want.size
+            flipped += int((~within).sum())
         if optimizer == "adam":
             assert err.max() <= 2 * LR * STEPS, jax.tree_util.keystr(path)
         else:
             assert within.all(), jax.tree_util.keystr(path)
     assert flipped <= FLIP_SHARE * total, (flipped, total)
+    assert flipped_held <= BF16_FLIP_SHARE * held, (flipped_held, held)
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each of ``x``'s (bf16) values: bf16 keeps 8 of
+    fp32's 24 significand bits."""
+    return np.spacing(np.abs(x).astype(np.float32)).astype(np.float64) * 2.0**16
 
 
 @pytest.mark.parametrize("kernels", ["off", "on"])

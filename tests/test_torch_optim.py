@@ -122,3 +122,34 @@ def test_schedules_match_jax(step):
         np.testing.assert_allclose(tfn(step), float(jfn(jnp.int32(step))),
                                    rtol=1e-6)
     assert topt.lr_at(tsched.constant(0.25), step) == 0.25
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {}), ("momentum", {}), ("momentum", {"nesterov": True}),
+    ("adam", {}), ("adagrad", {}), ("rmsprop", {}), ("rmsprop", {"mom": 0.9})])
+def test_bf16_params_take_jax_dtypes(name, kw):
+    """bf16 params and gradients, three steps: every delta, param and state
+    leaf takes JAX's dtype. JAX's learning rate is an fp32 array, so a
+    product with it promotes bf16 to fp32 (momentum, adagrad and rmsprop
+    return an fp32 delta and the params turn fp32); sgd and adam cast the
+    delta back. Values within two bf16 ulps of each leaf's largest
+    element (the packages round bf16 intermediates in different places,
+    and a difference of two bf16 values keeps their absolute error)."""
+    params = jax.tree.map(lambda x: np.asarray(x, jnp.bfloat16), _tree(0))
+    jo = jopt.get_optimizer(name, **kw)
+    to = topt.get_optimizer(name, **kw)
+    jp, tp = jax.tree.map(jnp.asarray, params), params_from_jax(params, "cpu")
+    js, ts = jo.init(jp), to.init(tp)
+    for k in range(3):
+        g = jax.tree.map(lambda x: np.asarray(x, jnp.bfloat16), _tree(10 + k))
+        jd, js = jo.update(jax.tree.map(jnp.asarray, g), js, jp)
+        td, ts = to.update(params_from_jax(g, "cpu"), ts, tp)
+        jp, tp = jax.tree.map(jnp.add, jp, jd), tm.tree_add(tp, td)
+        for jt, tt in ((jd, td), (jp, tp)) + tuple(
+                (js[key], ts[key]) for key in ("m", "v") if key in js):
+            for a, b in zip(jax.tree.leaves(jt), tm.tree_leaves(tt)):
+                assert str(b.dtype) == f"torch.{a.dtype.name}"
+                want = np.asarray(a, np.float32)
+                np.testing.assert_allclose(
+                    b.float().numpy(), want, rtol=0,
+                    atol=2 * 2.0**-8 * float(np.abs(want).max()))

@@ -501,3 +501,64 @@ def test_grouped_moe_matches_jax(monkeypatch, extent, capacity_factor):
     # Decode-sized work keeps one group.
     with trules.use_mesh(trules.AbstractMesh(("data",), (extent,))):
         assert tmoe.groups_for(2, moe) == 1
+
+
+def test_fsdp_is_read_from_the_registry():
+    """Whether an arch takes the FSDP placement is its registry entry's
+    ``fsdp`` flag: JAX's ``FSDP_ARCHS`` for every registered id, and for
+    an entry registered under a new id (a depth cut) the same rules and
+    placement verdict as the arch it copies, with no set to extend."""
+    for arch_id in ARCHS:
+        assert trules.is_fsdp(arch_id) == (arch_id in jrules.FSDP_ARCHS)
+        assert trules.is_fsdp(tcfg.get(arch_id)) == trules.is_fsdp(arch_id)
+    assert not trules.is_fsdp(None) and not trules.is_fsdp("no-such-arch")
+    base = tcfg.get("deepseek-67b")
+    cut_id = "deepseek-67b-test-cut"
+    tcfg.REGISTRY[cut_id] = dataclasses.replace(base, arch_id=cut_id)
+    try:
+        before = set(trules.FSDP_ARCHS)
+        assert trules.is_fsdp(cut_id)
+        mesh = trules.AbstractMesh(("data", "model"), (2, 2))
+        assert (trules.rules_for_arch(cut_id, SHAPES["train_4k"], mesh)
+                == trules.rules_for_arch("deepseek-67b", SHAPES["train_4k"],
+                                         mesh))
+        assert tapi.kernel_placement_ok("on", cut_id) == (
+            False, "FSDP placement")
+        assert trules.FSDP_ARCHS == before
+    finally:
+        del tcfg.REGISTRY[cut_id]
+
+
+@pytest.mark.parametrize("arch_id", ["deepseek-67b", "kimi-k2-1t-a32b"])
+def test_init_keeps_blocks_as_drawn(arch_id):
+    """Under ``layers.use_keep`` the initialiser hands each value to the
+    hook as it is drawn: a stacked leaf one layer's slice at a time (a
+    constant leaf only as a meta shape), and keeps what the hook returns.
+    The kept params equal the whole init cut the same way, bit for bit."""
+    from repro_torch import treemath as tm
+    from repro_torch.models import layers as tlayers
+    api = tcfg.get(arch_id).api(reduced=True)
+    whole, axes = api.init(0, device="cpu")
+    drawn = []
+
+    def cut(x, ax):
+        # Half of the first even "embed" dim, as a data extent of 2 keeps.
+        lead = x.dim() - len(ax)
+        for d, name in enumerate(ax):
+            if name == "embed" and x.shape[lead + d] % 2 == 0:
+                return x.narrow(lead + d, 0, x.shape[lead + d] // 2)
+        return x
+
+    def keep(x, ax):
+        if x.device.type != "meta":
+            drawn.append(tuple(x.shape))
+        return cut(x, ax).clone()
+
+    with tlayers.use_keep(keep):
+        kept, kept_axes = api.init(0, device="cpu")
+    assert kept_axes == axes
+    stacked = {tuple(x.shape) for x in tm.tree_leaves(whole["layers"])}
+    assert drawn and not set(drawn) & stacked
+    for w, k, ax in zip(tm.tree_leaves(whole), tm.tree_leaves(kept),
+                        trules.axes_leaves(axes)):
+        assert torch.equal(k, cut(w, ax))
