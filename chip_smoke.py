@@ -152,20 +152,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    width cut to 1 layer (2.37 B bf16 params, momentum) in two processes on
    the one card over ``gloo`` (``--fsdp-mesh-rank``): rank 0 first trains
    it as one process in ``sync`` and ``stale-psum`` over the aggregate
-   ring (3 steps, B 4 x 256) and from one-ulp-nudged params (the
+   ring (2 steps, B 4 x 256) and from one-ulp-nudged params (the
    witness); then both ranks train it at 2x1 (params, momentum and ring
    as data-axis shards, each layer gathered as it runs, its gradient
    reduce-scattered), held within 2x the witness (capped at LM_CEILING),
    the step-1 gradient within 2x its witness's, sync's step-1 params
    elementwise and stale-psum's grad_norm at every step within
    FSDP_NORM_REL; one step with each rank's own half-batch gradient in
-   place of the reduce-scatter (planted), which must part; 2 sync steps
-   at 1x2 through the model axis's c10d gather, bit for bit the
-   one-process run; one sync step at 2x1 with 2 layers, where a layer's
-   gathered leaves must be gone before the next layer's gather and the
+   place of the reduce-scatter (planted), which must part; one sync step
+   at 1x2, where the model axis computes tensor-parallel, its step-1
+   loss, gradient and params held as the 2x1 leg's; one sync step at 2x1
+   with 2 layers, where a layer's gathered leaves must be gone before the next layer's gather and the
    peak may grow by the added layer's shard only; ms a step, the
    collectives' share, a step's gathers and reduce-scatters, and each
-   rank's peak memory (the stale-psum leg's below the one process's).
+   rank's peak memory (the stale-psum leg's below the one process's);
+15. tensor-parallel compute on the model axis (``tp_mesh_path``): the
+   full-width h2o-danube-1.8b at 4 of 24 layers (mixed attention) in
+   ``sync`` Adam, ``stale-psum`` Adam and ``stale-psum`` SGD top-k,
+   qwen3-14b at 1 of 40 layers (contraction attention; 1.89 B params) in
+   ``sync`` SGD and qwen2-moe-a2.7b at 1 of 24 layers (32 of its 64
+   experts a rank) over the aggregate ring with SGD and with Adam (whose
+   losses after step 1 are printed, not held, beside a second witness and
+   the one-process loss from its 1x2 step-1 params), all with kernels on
+   (B 4 x 256, 3 steps, qwen3 and the MoE 2), in two processes on the one
+   card over ``gloo`` at 1x2 (``--tp-mesh-rank``): rank 0 first trains
+   each as one process and from one-ulp-nudged params (the witness); then
+   both ranks train it on their model-axis shards, held within 2x the
+   witness (capped at LM_CEILING) with step 1 held leaf by leaf and each
+   rank's launch counts checked; one step with "reduce" dropped (planted, once
+   an arch), which must part; one step on the gathered route
+   (``placement.full``), bit for bit the reference's step 1, whose step-1
+   gradient's peak (forward and backward) each rank's must fall below; ms
+   a step, the gloo share, a step's model-axis bytes; then kernels 1-4
+   held against their plain versions and timed at a rank's packed width
+   of the danube legs, and a rank's row-parallel products timed with fp32
+   and bf16 partial sums.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -175,7 +196,9 @@ repository beside it, the script exits non-zero and prints no result.
 kernels' timings, with the ``repro_torch`` package under ``SRC`` (see
 ``attention_times``); ``--coherence-times SRC`` only ``coherence_dots``'s
 ptxas lines, checks, timings at the DNN and LM widths and D sweep (see
-``coherence_times``).
+``coherence_times``). ``--fsdp-only`` and ``--tp-only [WORD ...]`` run
+phase 14 or 15 alone (with words, only the legs of phase 15 whose label
+holds one).
 """
 from __future__ import annotations
 
@@ -2827,13 +2850,13 @@ def lm_distance(dev, on: dict, off: dict, p0) -> dict:
     return {"loss": dloss, "rel": (diff ** 0.5) / max(norm ** 0.5, 1e-30)}
 
 
-def nudged(params):
-    """Every param moved up by one ulp: a roundoff-sized perturbation."""
+def nudged(params, toward: float = float("inf")):
+    """Every param moved by one ulp toward ``toward`` (up by default): a
+    roundoff-sized perturbation."""
     import torch
     from repro_torch import treemath as tm
     return tm.tree_map(
-        lambda x: torch.nextafter(x, torch.full_like(x, float("inf"))),
-        params)
+        lambda x: torch.nextafter(x, torch.full_like(x, toward)), params)
 
 
 def cli_engine(dev, argv: list):
@@ -3326,9 +3349,11 @@ def moe_leg(dev, failures: list) -> dict:
     return out
 
 
-def lm_kernels(dev, width: int, workers: int) -> dict:
-    """Kernels 1-5 at the ring legs' LM width (D_pad = ``width``, P =
-    ``workers``), each held against its plain version on the inputs it is
+def lm_kernels(dev, width: int, workers: int, tag: str = "lm",
+               coherence: bool = True) -> dict:
+    """Kernels 1-5 (1-4 without ``coherence``) at the ring legs' LM width
+    (D_pad = ``width``, P = ``workers``; timings keyed ``"<kernel>
+    <tag>"``), each held against its plain version on the inputs it is
     timed on, at the tolerances of phases 3, 5 and 6, then timed beside it:
     stale_accum over the [P, D] ring rows (the SGD top-k leg's aggregate),
     fused_adam over [P * D] (simulate), fused_update plain and ef over P
@@ -3416,8 +3441,11 @@ def lm_kernels(dev, width: int, workers: int) -> dict:
                 "bound": bound_ms(3 * p * d * 4 + p * 4, 3 * p * d)}
         del ops
         torch.cuda.empty_cache()
-    out["coherence_dots"], errs["coherence_dots"] = lm_coherence(dev, d, rnd)
-    return {"timings": {f"{k} lm": v for k, v in summarize(out, d).items()},
+    if coherence:
+        out["coherence_dots"], errs["coherence_dots"] = lm_coherence(dev, d,
+                                                                     rnd)
+    return {"timings": {f"{k} {tag}": v
+                        for k, v in summarize(out, d).items()},
             "errs": errs}
 
 
@@ -5044,24 +5072,24 @@ def add_serve_mesh_rows(kernels: list, serve_mesh: dict) -> None:
 
 # deepseek-67b at full width (d_model 8192, 64 heads, kv 8, d_ff 22,016,
 # vocab 102,400; bf16 params, momentum) cut to FSDP_LEG["layers"] layer:
-# 2.37 B params, 4.74 GB. Legs of FSDP_LEG["steps"] steps on B 4 x 256:
-# ``sync``, and ``stale-psum`` over the aggregate ring (two slots) with
-# the deterministic delays FSDP_DELAYS, which deliver the aggregate one
-# step late at steps 2-3. Two gloo ranks on the one card run them at 2x1
+# 2.37 B params, 4.74 GB. Legs of FSDP_LEG["steps"] steps on B 4 x 256
+# (3 until the tensor-parallel phase joined: a step after the first, in
+# fp32, takes 23-30 s over gloo): ``sync``, and ``stale-psum`` over the
+# aggregate ring (two slots) with the deterministic delays FSDP_DELAYS,
+# which deliver the aggregate one step late from step 2. Two gloo ranks on the one card run them at 2x1
 # (params, momentum and the ring as data-axis shards; each layer gathered
 # as it runs, its gradient reduce-scattered), after rank 0 has run them as
 # one process (the reference) and from one-ulp-nudged params (the witness).
 # Then one sync step with each rank's own half-batch gradient in place of
-# the reduce-scatter (the planted fault), and the sync leg's first
-# FSDP_REPAIR_STEPS steps at 1x2 (the model axis through
-# ``placement.full``'s c10d gather), which must equal the reference bit for
-# bit: every model rank computes the whole batch. The phase runs under
+# the reduce-scatter (the planted fault), and one sync step at 1x2, where
+# deepseek-67b computes tensor-parallel on its model-axis shards (phase 15
+# holds the gathered route bit for bit on the card). The phase runs under
 # deterministic algorithms (the embedding's backward accumulates bf16 rows
 # in a fixed order), so two runs of one computation agree bit for bit.
 FSDP_ARCH = "deepseek-67b"
-FSDP_LEG = dict(layers=1, batch=4, seq=256, steps=3, workers=2, stale=2)
+FSDP_LEG = dict(layers=1, batch=4, seq=256, steps=2, workers=2, stale=2)
 FSDP_DELAYS = (0, 1, 1)
-FSDP_RANKS, FSDP_REPAIR_STEPS = 2, 2
+FSDP_RANKS = 2
 # The stale-psum leg's grad_norm at each step, two ranks against one
 # process: ~6e-6 relative on the H100 (PERF.md), where the aggregate of a
 # neighbouring step parts by ~4.5e-3 (the one process's norms 9.9208,
@@ -5090,46 +5118,71 @@ def tree_stats(dev, got, ref, p0=None) -> dict:
     from repro_torch import treemath as tm
     bases = tm.tree_leaves(p0) if p0 is not None else None
     return piece_stats(dev, [
-        (a, b, None if bases is None else bases[i]) for i, (a, b) in
+        (a, b, None if bases is None else bases[i], i) for i, (a, b) in
         enumerate(zip(tm.tree_leaves(got), tm.tree_leaves(ref)))])
 
 
+def leaf_names(tree, at: str = "") -> list:
+    """Each leaf's path, in ``treemath.tree_leaves``'s order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                            f"{at}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, c in enumerate(tree) for n in leaf_names(c,
+                                                                 f"{at}/{i}")]
+    return [at or "/"]
+
+
 def piece_stats(dev, pieces, chunk: int = 1 << 26) -> dict:
-    """Pieces ``(got, ref, base or None)`` (tensors on the host or the
-    card) held against each other in chunks on the card: ``rel`` =
-    |got - ref| / |ref - base| (|ref| without bases), the share of
-    elements outside TOL_FIRST, whether every element lies within
-    TOL_FIRST or one ulp of ``ref``'s value (a bf16 param moves by far
-    less than its ulp in a step, so a gradient that differs in roundoff
-    can only flip a rounding), and whether they are equal bit for bit."""
+    """Pieces ``(got, ref, base or None, leaf)`` (tensors on the host or
+    the card; a leaf's pieces share its index) held against each other in
+    chunks on the card: ``rel`` = |got - ref| / |ref - base| (|ref|
+    without bases), the share of elements outside TOL_FIRST, whether every
+    element lies within TOL_FIRST or one ulp of ``ref``'s value (a bf16
+    param moves by far less than its ulp in a step, so a gradient that
+    differs in roundoff can only flip a rounding), whether they are equal
+    bit for bit, the largest element's distance, and under ``leaves``
+    each leaf's ``rel`` and share."""
     import torch
-    d2 = n2 = 0.0
+    d2 = n2 = worst = 0.0
     outside = total = 0
     within = bitwise = True
-    for a, b, c in pieces:
+    leaves = {}
+    for a, b, c, leaf in pieces:
         a, b = a.reshape(-1), b.reshape(-1)
         c = None if c is None else c.reshape(-1)
+        mine = leaves.setdefault(leaf, [0.0, 0.0, 0, 0])
         for lo in range(0, b.numel(), chunk):
             x = a[lo:lo + chunk].to(dev)
             y = b[lo:lo + chunk].to(dev)
             bitwise = bitwise and torch.equal(x, y)
             err = (x.float() - y.float()).abs()
-            d2 += float(err.double().square().sum())
+            if err.numel():
+                worst = max(worst, float(err.max()))
+            e2 = float(err.double().square().sum())
             base = y.float() if c is None else (
                 y.float() - c[lo:lo + chunk].to(dev).float())
-            n2 += float(base.double().square().sum())
+            b2 = float(base.double().square().sum())
             tol = err <= TOL_FIRST["atol"] + TOL_FIRST["rtol"] * y.float().abs()
             ulp = (torch.nextafter(y.abs(), torch.full_like(y, float("inf")))
                    .float() - y.abs().float())
-            outside += int((~tol).sum())
+            out = int((~tol).sum())
             within = within and bool((tol | (err <= ulp)).all())
-            total += y.numel()
+            for i, v in enumerate((e2, b2, out, y.numel())):
+                mine[i] += v
+            d2, n2, outside, total = (d2 + e2, n2 + b2, outside + out,
+                                      total + y.numel())
             del x, y, err, base, tol, ulp
     torch.cuda.empty_cache()
     return {"rel": (d2 ** 0.5) / max(n2 ** 0.5, 1e-30),
-            "outside_tol": outside, "elements": total,
+            "max_abs_err": worst, "outside_tol": outside, "elements": total,
             "share": outside / max(total, 1), "within_tol_or_ulp": within,
-            "bitwise": bitwise}
+            "bitwise": bitwise,
+            "leaves": {leaf: {"rel": (e2 ** 0.5) / max(b2 ** 0.5, 1e-30),
+                              "share": out / max(n, 1), "elements": n}
+                       for leaf, (e2, b2, out, n) in leaves.items()}}
 
 
 def block_of(place, rank: int, x, dims, shape):
@@ -5193,7 +5246,8 @@ def fsdp_run(dev, arch: str, mode: str, mesh=None, *, start=None,
     box = [engine.init(0, params=start)]
     del start
     out = {"losses": [], "grad_norms": [], "wall_s": [], "peak_by_step": [],
-           "meta": engine.meta["kernels"]}
+           "meta": engine.meta["kernels"],
+           "model_compute": engine.meta.get("model_compute")}
     reset_counters()
     for t in range(1, steps + 1):
         if t == record_step and axis is not None:
@@ -5261,7 +5315,7 @@ def fsdp_reference(dev, arch: str, mode: str, p0, say=print) -> dict:
     from repro_torch import treemath as tm
     steps = FSDP_LEG["steps"]
     kept = {}
-    keep = (1, FSDP_REPAIR_STEPS, steps) if mode == "sync" else (steps,)
+    keep = (1, steps) if mode == "sync" else (steps,)
 
     def store(t, params, m, _place):
         if t in keep:
@@ -5316,7 +5370,7 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     """``--fsdp-mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of phase
     14 on the one card over ``gloo``. For each leg rank 0 runs the
     one-process reference while rank 1 waits, then both run it at 2x1
-    (after sync, the planted step and the 1x2 leg); last the
+    (after sync, the planted step); last the
     FSDP_MEM_LAYERS-deep sync step. Rank 0 holds each against the
     reference (rank 1's shards read through CUDA IPC); each rank saves
     its readings as ``DIR/rank<R>.pt``."""
@@ -5348,8 +5402,8 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     def reading(run):
         return {k: run[k] for k in (
             "losses", "grad_norms", "wall_s", "peak_mem_gb", "peak_by_step",
-            "host_pinned_gb", "launches", "meta", "traffic", "collectives",
-            "witness")
+            "host_pinned_gb", "launches", "meta", "model_compute",
+            "traffic", "collectives", "witness")
             if k in run}
 
     def holder(at: tuple, m1: bool, want=None, p0=None):
@@ -5384,15 +5438,15 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                             pieces.append((x, block_of(
                                 place, r, ref_leaves[i], dims, shape),
                                 None if bases is None else block_of(
-                                    place, r, bases[i], dims, shape)))
+                                    place, r, bases[i], dims, shape), i))
                     got[f"{name}@{t}"] = piece_stats(dev, pieces)
                     del other, pieces
                 dist.barrier()
         return after, got
 
-    def sync_followers(ref_sync, mesh21, p0) -> float:
-        """After the 2x1 sync leg: the planted step and the 1x2 leg, held
-        against the sync reference (rank 0); returns their seconds."""
+    def planted_step(ref_sync, mesh21) -> float:
+        """After the 2x1 sync leg: the planted step, held against the sync
+        reference (rank 0); returns its seconds."""
         t1 = time.perf_counter()
         kept = ref_sync["kept"] if rank == 0 else None
         # The planted fault: each rank's own half-batch gradient (its
@@ -5415,18 +5469,21 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         del run
         release_memory()
         save()
+        return time.perf_counter() - t1
+
+    def tp_step(ref_sync, p0) -> float:
+        """After the planted step: one sync step at 1x2, where the model
+        axis computes tensor-parallel on its shards, held against the sync
+        reference's step 1 (rank 0); returns its seconds."""
+        t1 = time.perf_counter()
+        kept = ref_sync["kept"] if rank == 0 else None
         mesh12 = make_host_mesh(1, world, device=dev.type)
-        after, got = holder((FSDP_REPAIR_STEPS,), False, kept, p0)
-        run = fsdp_run(dev, arch, "sync", mesh12, steps=FSDP_REPAIR_STEPS,
-                       after=after, say=say)
-        leg = reading(run)
-        if rank == 0:
-            leg["bitwise"] = (
-                run["losses"] == ref_sync["losses"][:FSDP_REPAIR_STEPS]
-                and got[f"params@{FSDP_REPAIR_STEPS}"]["bitwise"])
-            leg["stats"] = got
-        out["1x2 sync"] = leg
+        after, got = holder((1,), True, kept, p0)
+        run = fsdp_run(dev, arch, "sync", mesh12, steps=1, after=after,
+                       say=say)
+        out["1x2 sync"] = reading(run) | {"stats": got}
         del run
+        release_memory()
         save()
         return time.perf_counter() - t1
 
@@ -5464,16 +5521,16 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
             out[f"2x1 {mode}"] = leg
             del run, after, got
             if rank == 0:
-                # What the later legs still read: sync's step-1 momentum
-                # (the planted step) and its params after the 1x2 steps.
+                # What the planted and 1x2 steps still read: sync's
+                # step-1 momentum and params.
                 ref[mode]["kept"] = {k: v for k, v in ref[mode]["kept"].items()
-                                     if sync_leg and k in ("m1",
-                                                           FSDP_REPAIR_STEPS)}
+                                     if sync_leg and k in ("m1", 1)}
             release_memory()
             save()
             mesh_s += time.perf_counter() - t1
             if sync_leg:
-                mesh_s += sync_followers(ref.get("sync"), mesh21, p0)
+                mesh_s += planted_step(ref.get("sync"), mesh21)
+                mesh_s += tp_step(ref.get("sync"), p0)
                 if rank == 0:
                     ref["sync"]["kept"] = {}
                 release_memory()
@@ -5504,7 +5561,7 @@ def fsdp_mesh_path(dev) -> dict:
     (capped at LM_CEILING) with the step-1 gradient held to 2x its
     witness, sync's step-1 params elementwise and stale-psum's grad_norms
     to FSDP_NORM_REL, the planted step parting past the step-1 gradient's
-    limit, the 1x2 leg bit for bit, the 2-layer step's memory
+    limit, the 2-layer step's memory
     (``memory_check``), and each rank's stale-psum peak below the
     one-process peak. The ranks print their progress as they go."""
     import gc
@@ -5615,9 +5672,10 @@ def fsdp_mesh_path(dev) -> dict:
                                     f"{grad_limit[mode]}")
             if r == 0 and label == "2x1 sync":
                 s1 = stats["params@1"]
-                print(f"fsdp 2x1 sync step 1: params {json.dumps(s1)} "
-                      f"(share limit {FSDP_FLIP_SHARE})")
-                row["step1"] = s1
+                print(f"fsdp 2x1 sync step 1: params "
+                      f"{json.dumps(without_leaves(s1))} (share limit "
+                      f"{FSDP_FLIP_SHARE})")
+                row["step1"] = without_leaves(s1)
                 if not (s1["within_tol_or_ulp"]
                         and s1["share"] <= FSDP_FLIP_SHARE):
                     failures.append(f"2x1 sync step 1: {s1}")
@@ -5631,6 +5689,26 @@ def fsdp_mesh_path(dev) -> dict:
                 if len(rels) != steps or max(rels) > FSDP_NORM_REL:
                     failures.append(f"{label} rank {r}: grad_norms "
                                     f"{leg['grad_norms']} against {want}")
+            if r == 0 and label == "1x2 sync" and "sync" in ref:
+                # Tensor-parallel: the row-parallel sums and the
+                # vocab-parallel cross-entropy add in another order, so
+                # step 1 is held as the 2x1 batch split's is.
+                s1, gr = stats["params@1"], stats["m1@1"]["rel"]
+                dloss = abs(leg["losses"][0] - ref["sync"]["losses"][0])
+                print(f"fsdp 1x2 sync ({leg.get('model_compute')}): step-1 "
+                      f"loss {dloss!r} (limit {limits['sync']['loss']!r}), "
+                      f"gradient rel {gr!r} (limit {grad_limit['sync']!r}), "
+                      f"params {json.dumps(without_leaves(s1))} (share "
+                      f"limit {FSDP_FLIP_SHARE})")
+                row.update(step1=without_leaves(s1), grad_rel=gr, loss=dloss)
+                if not (leg.get("model_compute") == "tensor-parallel"
+                        and dloss <= limits["sync"]["loss"]
+                        and gr <= grad_limit["sync"]
+                        and s1["within_tol_or_ulp"]
+                        and s1["share"] <= FSDP_FLIP_SHARE):
+                    failures.append(f"1x2 sync: {leg.get('model_compute')}, "
+                                    f"loss {dloss}, gradient rel {gr}, "
+                                    f"step 1 {s1}")
             if r == 0 and label == "2x1 planted":
                 gr = stats["m1@1"]["rel"]
                 print(f"fsdp 2x1 planted (each rank's own half-batch "
@@ -5643,13 +5721,6 @@ def fsdp_mesh_path(dev) -> dict:
             if label == mem_label and "2x1 sync" in got:
                 row["memory"] = memory_check(
                     leg, got["2x1 sync"], f"{label} rank {r}", failures)
-            if r == 0 and label == "1x2 sync":
-                print(f"fsdp 1x2 sync (placement.full over gloo): bitwise "
-                      f"{leg.get('bitwise')}")
-                row["bitwise"] = leg.get("bitwise")
-                if not leg.get("bitwise"):
-                    failures.append("1x2 sync: not bitwise the one-process "
-                                    "run")
             out[f"{label} rank {r}"] = row
     for r, got in enumerate(ranks):
         print(f"fsdp mesh rank {r}: reference "
@@ -5728,6 +5799,760 @@ def traffic_summary(traffic: list) -> dict:
         row[0] += 1
         row[1] += nbytes / 1e9
     return out
+
+
+# -- phase 15: tensor-parallel compute on the model axis ---------------------------
+
+# Full-width transformers, their depth cut, at 1x2 over two gloo ranks on
+# the one card: each rank holds its model-axis shards and computes on them
+# (``meta["model_compute"] == "tensor-parallel"``): danube in ``mixed``
+# attention (32 q heads, 8 kv heads at tp 16), qwen3-14b in
+# ``contraction`` (40 heads), qwen2-moe-a2.7b's 64 experts 32 a rank. B 4 x
+# 256, bf16 compute over fp32 params, remat on, a leg's "steps" steps,
+# kernels on, the delays of TP_DELAYS. A leg: its label, arch, depth,
+# steps, mode, optimizer, engine settings (``kw``) and launches a step on
+# the mesh run. qwen3 at one layer holds 1.89 B params (7.6 GB in fp32):
+# its one-process reference trains with SGD, which keeps no moments. The
+# danube legs' witness parts as far as a 1x2 run only after a few steps:
+# at 2 layers and 2 steps its loss parted 1.7e-4, the 1x2 stale-psum
+# run's step 1 3.6e-4 (the H100), so they run 4 layers and 3 steps. Per
+# leg, rank 0 runs it as one process (the reference) and from
+# one-ulp-nudged params (the witness; the MoE leg also from params nudged
+# one ulp down, a second witness it prints) while rank 1 waits; both ranks
+# run it at 1x2, held within 2x the witness (capped at LM_CEILING) and
+# step 1 leaf by leaf (``step1_leaves``); one step with "reduce" dropped
+# (each rank keeps its partial sums: planted, once an arch), which must
+# part; one step on the gathered route (the shards made whole for the
+# loss by ``placement.full``'s c10d gather), bit for bit the reference's
+# step 1, whose step-1 gradient's peak (the forward and backward pass)
+# each rank's tensor-parallel one must fall below.
+TP_RANKS = 2
+TP_LEG = dict(batch=4, seq=256, workers=2, stale=2)
+TP_DELAYS = ((0, 0), (1, 0), (1, 1))     # [step, worker]; aggregate: [:, 1]
+# ``on_card``: the reference's copies (the init, step 1's and the last
+# step's params) stay on the card, where they fit beside two ranks' runs
+# (qwen3: 3 x 7.6 GB beside 16 GB a rank); the MoE's Adam reference peaks
+# at 68.7 GB, so its copies wait on the host.
+TP_DANUBE = dict(arch="h2o-danube-1.8b", layers=4, steps=3, on_card=True)
+TP_LEGS = (
+    dict(TP_DANUBE, label="danube sync adam", mode="sync", opt="adam",
+         kw={}, launches=dict(fused_adam=1), planted=True),
+    dict(TP_DANUBE, label="danube stale-psum adam", mode="stale-psum",
+         opt="adam", kw={}, launches=dict(fused_update_plain=1)),
+    dict(TP_DANUBE, label="danube stale-psum sgd topk", mode="stale-psum",
+         opt="sgd", kw=dict(compress="topk:0.01"),
+         launches=dict(sparsify_topk=1, stale_accum=1)),
+    dict(label="qwen3 sync sgd", arch="qwen3-14b", layers=1, steps=2,
+         mode="sync", opt="sgd", kw={}, launches={}, planted=True,
+         on_card=True),
+    dict(label="moe stale-psum sgd", arch="qwen2-moe-a2.7b", layers=1,
+         steps=2, mode="stale-psum", opt="sgd",
+         kw=dict(per_worker_delays=False), launches=dict(stale_accum=1),
+         planted=True, on_card=True),
+    # The MoE under Adam: its 1x2 loss parts 2.5e-3 from one process at
+    # step 2, 2.8x its witness's, though its step-1 params lie closer than
+    # the witness's in every leaf (PERF.md section 7). Held in params, in
+    # step 1 (loss and leaves) and in all but its later losses, which are
+    # printed beside a second witness and ``probe``: the one-process loss
+    # of step 2's batch from the 1x2 run's step-1 params.
+    dict(label="moe stale-psum adam", arch="qwen2-moe-a2.7b", layers=1,
+         steps=2, mode="stale-psum", opt="adam",
+         kw=dict(per_worker_delays=False),
+         launches=dict(fused_update_plain=1), witnesses=2, probe=True,
+         loss_held_steps=1),
+)
+# The planted step must part from the reference's step 1 by more than this
+# (in loss and in the step's params, relative to their move).
+TP_PLANTED = dict(loss=LM_CEILING["loss"], rel=LM_CEILING["rel"])
+
+
+def tp_engine(dev, leg, mesh=None):
+    """A phase-15 leg's engine through ``make_train_engine``."""
+    import numpy as np
+    from repro_torch import delays
+    from repro_torch.configs.base import InputShape
+    from repro_torch.engine.plan import make_train_engine
+    arch, layers, mode, kw = leg["arch"], leg["layers"], leg["mode"], leg["kw"]
+    f = TP_LEG
+    shape = InputShape("train_tp", f["seq"], f["batch"], "train")
+    kw = dict(kw)
+    if mode != "sync":
+        table = np.asarray(TP_DELAYS)
+        if not kw.get("per_worker_delays", True):
+            table = table[:, 1]
+        kw.update(stale_s=f["stale"], delay=delays.Schedule(table))
+    return make_train_engine(cut_arch(arch, layers), shape, mesh, mode=mode,
+                             num_workers=f["workers"], kernels="on",
+                             optimizer_name=leg["opt"], device=dev, **kw)
+
+
+def tp_run(dev, leg, mesh=None, *, start=None, steps=None, after=None,
+           record_step=None, profile=False, keep_init=False,
+           say=print) -> dict:
+    """One phase-15 leg: ``steps`` steps on the CLI's batches (seed 0),
+    each step's wall time between device syncs, the launch counters zeroed
+    just before the steps and read just after, the peak memory above what
+    was allocated at the start (by step, and of each step's gradient),
+    this rank's packed width, and after each step ``after(t, params,
+    placement)``. ``keep_init``: the initial params on the host
+    (``out["init"]``). ``record_step``: the
+    model axis's collectives of that step; ``profile``: the last step under
+    ``profile_collectives``."""
+    import gc
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+
+    from repro_torch.core import stale_sync
+
+    steps = steps or leg["steps"]
+    engine = tp_engine(dev, leg, mesh)
+    api = cfglib.get(cut_arch(leg["arch"], leg["layers"])).api()
+    batches = iter(train.make_batch_fn(api, TP_LEG["batch"], TP_LEG["seq"],
+                                       0), None)
+    place = engine.placement
+    axis = getattr(place, "model_axis", None)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    box = [engine.init(0, params=start)]
+    del start
+    out = {"losses": [], "grad_norms": [], "sparsity": [], "wall_s": [],
+           "peak_by_step": [], "grad_peak_by_step": [],
+           "meta": engine.meta["kernels"],
+           "model_compute": engine.meta.get("model_compute"),
+           "width": tm.padded_size(tm.pack_spec(box[0].inner.params).total,
+                                   dispatch.PACK_ALIGN)}
+    if keep_init:
+        out["init"] = ref_copy(leg, box[0].inner.params)
+    # The gradient's peak (the forward and backward pass, where the two
+    # routes differ): the peak counter is reset as it starts and read as
+    # it ends; the optimizer's update, the same on both routes, follows.
+    real_grad = stale_sync.value_and_grad
+
+    def measured_grad(*args):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = real_grad(*args)
+        torch.cuda.synchronize(dev)
+        out["grad_peak_by_step"].append(
+            (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+        return got
+    stale_sync.value_and_grad = measured_grad
+    try:
+        tp_steps(dev, leg, engine, box, batches, out, base, steps, after,
+                 record_step, profile, say)
+    finally:
+        stale_sync.value_and_grad = real_grad
+    out["peak_mem_gb"] = max(out["peak_by_step"])
+    box.clear()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_steps(dev, leg, engine, box, batches, out: dict, base: int,
+             steps: int, after, record_step, profile, say) -> None:
+    """``tp_run``'s steps, each read into ``out`` (a step's peak counts
+    from its gradient's start, above ``base`` bytes)."""
+    import torch
+    place = engine.placement
+    axis = getattr(place, "model_axis", None)
+    reset_counters()
+    for t in range(1, steps + 1):
+        if t == record_step and axis is not None:
+            axis.record = []
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if profile and t == steps:
+            last = []
+            out["collectives"] = profile_collectives(
+                engine, box.pop(), batches, 1,
+                lambda: torch.cuda.synchronize(dev), warm=False, keep=last)
+            state, m = last.pop()
+        else:
+            state, m = engine.step(box.pop(), next(batches))
+        torch.cuda.synchronize(dev)
+        out["wall_s"].append(time.perf_counter() - t0)
+        if t == record_step and axis is not None:
+            out["traffic"], axis.record = list(axis.record), None
+        out["peak_by_step"].append(
+            (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+        for key, into in (("loss", "losses"), ("grad_norm", "grad_norms"),
+                          ("sparsity", "sparsity")):
+            if key in m:
+                out[into].append(float(m[key]))
+        say(f"{leg['label']} step {t}: loss {out['losses'][-1]!r}, "
+            f"{out['wall_s'][-1]:.2f} s")
+        del m
+        if after is not None:
+            after(t, state.inner.params, place)
+        box.append(state)
+        del state
+    out["launches"] = counters()
+
+
+def ref_copy(leg, params):
+    """A copy of ``params`` kept for the comparisons: on the card for a
+    leg marked ``on_card``, else on the host."""
+    from repro_torch import treemath as tm
+    if leg.get("on_card"):
+        return tm.tree_map(lambda x: x.detach().clone(), params)
+    return to_host(params)
+
+
+def tp_reference(dev, leg, say=print) -> tuple:
+    """Rank 0's one-process run of a leg (its initial params ``p0`` and
+    its params after step 1 and the last step kept, ``ref_copy``) and its
+    witness from ``p0`` nudged one ulp up (with ``witnesses=2`` a second,
+    ``witness2``, nudged one ulp down), held against them as it runs.
+    Returns ``(run, p0)``."""
+    import gc
+    from repro_torch import treemath as tm
+    steps = leg["steps"]
+    kept = {}
+
+    def store(t, params, _place):
+        if t in (1, steps):
+            kept[t] = ref_copy(leg, params)
+
+    run = tp_run(dev, leg, after=store, keep_init=True, say=say)
+    p0 = run.pop("init")
+    run["kept"] = kept
+    run["names"] = leaf_names(p0)
+    for key, toward in (("witness", float("inf")),
+                        ("witness2", float("-inf")))[:leg.get("witnesses",
+                                                              1)]:
+        wit = {}
+
+        def against(t, params, _place):
+            if t in (1, steps):
+                wit[t] = tree_stats(dev, params, kept[t], p0)
+
+        wrun = tp_run(dev, leg, start=nudged(
+            tm.tree_map(lambda x: x.to(dev), p0), toward),
+            after=against, say=say)
+        run[key] = {
+            "loss": max(abs(a - b) for a, b in zip(wrun["losses"],
+                                                   run["losses"])),
+            "rel": wit[steps]["rel"], "step1": wit[1], "last": wit[steps],
+            "losses": wrun["losses"]}
+        del wrun, wit
+        gc.collect()
+    return run, p0
+
+
+def ipc_holder(rank: int, dev, at: tuple, want, p0, whole: bool = False):
+    """An ``after`` that holds this step's shards of the params (after the
+    steps in ``at``) against the whole params ``want[t]`` on rank 0 (with
+    ``p0`` as the base of ``rel``): rank 1 shares its shards through CUDA
+    IPC (the two ranks share the card), rank 0 reads them in place and
+    compares each rank's block (``piece_stats``). With ``whole`` rank 0
+    also keeps step 1's params made whole on the host (``got["whole"]``).
+    Every rank makes the same calls. Returns ``(after, got)``, ``got``
+    filled on rank 0."""
+    import torch
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    from repro_torch import treemath as tm
+    got = {}
+
+    def after(t, params, place):
+        if t not in at:
+            return
+        mine = tm.tree_leaves(params)
+        box = [[reduce_tensor(x) for x in mine] if rank else None]
+        dist.broadcast_object_list(box, src=1)
+        if rank == 0:
+            other = [fn(*args) for fn, args in box[0]]
+            ref_leaves = tm.tree_leaves(want[t])
+            bases = tm.tree_leaves(p0)
+            pieces = []
+            for i, (dims, shape) in enumerate(zip(place._dims,
+                                                  place.full_shapes)):
+                for r, x in ((0, mine[i]), (1, other[i])):
+                    pieces.append((x, block_of(place, r, ref_leaves[i], dims,
+                                               shape),
+                                   block_of(place, r, bases[i], dims, shape),
+                                   i))
+            got[t] = piece_stats(dev, pieces)
+            if whole and t == 1:
+                got["whole"] = tm.tree_unflatten(
+                    tm.tree_flatten(want[t])[1],
+                    [(a if dims[1] is None else torch.cat([a, b], dims[1]))
+                     .cpu() for a, b, dims in zip(mine, other, place._dims)])
+            del other, pieces
+        dist.barrier()
+    return after, got
+
+
+def without_leaves(stats: dict) -> dict:
+    """A ``piece_stats`` reading without its per-leaf part."""
+    return {k: v for k, v in stats.items() if k != "leaves"}
+
+
+def leaf_table(stats: dict, names: list) -> str:
+    """A ``piece_stats`` reading leaf by leaf: ``name rel/share``."""
+    return "; ".join(f"{names[i]} {v['rel']:.3g}/{v['share']:.3g}"
+                     for i, v in sorted(stats["leaves"].items()))
+
+
+def step1_leaves(s1: dict, wit1: dict, names: list) -> list:
+    """The leaves whose step-1 reading ``s1`` parts past its limit: a
+    leaf's ``rel`` and its share outside TOL_FIRST may each be
+    WITNESS_FACTOR times the larger of the witness's (``wit1``) for that
+    leaf and for the whole tree (the share at least FIRST_FLIP_SHARE). A
+    leaf whose gradient misses its sum over the ranks (a dropped
+    ``copy``; 0.83 in rel and 57% of the elements of the MoE router's on
+    the CPU) parts past that however small it is."""
+    bad = []
+    for i, got in sorted(s1["leaves"].items()):
+        w = wit1["leaves"][i]
+        rel = WITNESS_FACTOR * max(w["rel"], wit1["rel"])
+        share = max(FIRST_FLIP_SHARE,
+                    WITNESS_FACTOR * max(w["share"], wit1["share"]))
+        if got["rel"] > rel or got["share"] > share:
+            bad.append({"leaf": names[i], "rel": got["rel"],
+                        "rel_limit": rel, "share": got["share"],
+                        "share_limit": share})
+    return bad
+
+
+# A rank's row-parallel products in phase 15 (name, contracted width,
+# output width; B 4 x 256 rows): danube's ``w_down`` (6912 / 2) and
+# mixed-mode ``wo`` (16 of 32 heads of 80), qwen3's ``w_down``
+# (17408 / 2).
+TP_PRODUCTS = (("danube w_down", 3456, 2560), ("danube wo", 1280, 2560),
+               ("qwen3 w_down", 8704, 5120))
+
+
+def tp_product_timings(dev) -> dict:
+    """Each of TP_PRODUCTS, forward and backward as autograd runs it, in
+    three ways: an fp32 result from bf16 operands on the tensor cores
+    (``models.layers.contract_f32``, the port's), both operands cast to
+    fp32 first (fp32 CUDA cores, TF32 off), and a bf16 result (the partial
+    rounded before its sum over the ranks). ms by ``time_ms`` (the
+    device's, graph replay). ``contract_f32`` is first held against the
+    fp32 product through autograd: forward and both gradients."""
+    import torch
+    from repro_torch.models import layers as L
+    t = TP_LEG["batch"] * TP_LEG["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    out = {}
+    for name, k, n in TP_PRODUCTS:
+        a = torch.randn(t, k, generator=gen, device=dev).to(bf)
+        w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(bf)
+        g = torch.randn(t, n, generator=gen, device=dev).to(bf)
+        g32 = g.float()
+        errs = {}
+        for way, fn in (("port", lambda x, y: L.contract_f32(x, y, 1)),
+                        ("fp32", lambda x, y: x.float() @ y.float())):
+            x, y = (v.clone().requires_grad_(True) for v in (a, w))
+            r = fn(x, y)
+            r.backward(g32)
+            errs[way] = (r.detach(), x.grad, y.grad)
+        err = [max_abs(u, v) for u, v in zip(errs["port"], errs["fp32"])]
+        scale = [float(v.float().abs().max()) for v in errs["fp32"]]
+        # fp32 sums of k terms in two orders: each within k units of
+        # roundoff of the sum of the terms' sizes.
+        worst = float(((errs["port"][0] - errs["fp32"][0]).abs()
+                       / (a.float().abs() @ w.float().abs())).max())
+        ways = {
+            "port": (lambda: torch.mm(a, w, out_dtype=torch.float32),
+                     lambda: (g @ w.t(), a.t() @ g)),
+            "fp32 operands": (lambda: a.float() @ w.float(),
+                              lambda: ((g32 @ w.float().t()).to(bf),
+                                       (a.float().t() @ g32).to(bf))),
+            "bf16 result": (lambda: a @ w,
+                            lambda: (g @ w.t(), a.t() @ g)),
+        }
+        row = {"max_abs_err": err, "scale": scale, "forward_rel": worst}
+        for way, (fwd, bwd) in ways.items():
+            f_ms = time_ms(lambda: fwd(), [()], reps=30)[0]
+            b_ms = time_ms(lambda: bwd(), [()], reps=30)[0]
+            row[way] = {"forward_ms": f_ms, "backward_ms": b_ms,
+                        "ms": f_ms + b_ms}
+        out[name] = row
+        print(f"tp product {name} [{t}, {k}] @ [{k}, {n}]: port vs fp32 "
+              f"product max_abs_err (out, da, dw) {err} of {scale} (out "
+              f"{worst!r} of the terms' sizes); ms "
+              f"forward + backward: " + ", ".join(
+                  f"{way} {row[way]['ms']:.4f} ({row[way]['forward_ms']:.4f}"
+                  f" + {row[way]['backward_ms']:.4f})" for way in ways))
+        # The bf16 gradients round once, from sums in another order: one
+        # bf16 ulp of the largest element.
+        if not (worst <= k * 2 ** -24
+                and all(e <= 2 ** -7 * sc for e, sc in zip(err[1:],
+                                                           scale[1:]))):
+            raise AssertionError(f"contract_f32 {name}: {err} of {scale}, "
+                                 f"forward {worst} of the terms' sizes")
+        del a, w, g, g32, errs
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_losses(dev, leg, trees: dict) -> dict:
+    """The one-process loss (``ModelAPI.loss``, forward only) of the leg's
+    second batch from each tree of params in ``trees``; from the
+    reference's params after step 1 it is the reference's step-2 loss
+    again (the aggregate ring takes the loss of the whole batch)."""
+    import torch
+    from repro_torch import configs as cfglib
+    from repro_torch import treemath as tm
+    from repro_torch.launch import train
+    api = cfglib.get(cut_arch(leg["arch"], leg["layers"])).api()
+    batches = train.make_batch_fn(api, TP_LEG["batch"], TP_LEG["seq"], 0)
+    batches()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batches().items()}
+    out = {}
+    for name, params in trees.items():
+        params = tm.tree_map(lambda x: x.to(dev), params)
+        with torch.no_grad():
+            out[name] = float(api.loss(params, batch))
+        del params
+        release_memory()
+    return out
+
+
+def tp_legs(only=()) -> tuple:
+    """The TP_LEGS whose label holds one of the words ``only`` (all of
+    them without words)."""
+    return tuple(leg for leg in TP_LEGS
+                 if not only or any(w in leg["label"] for w in only))
+
+
+def tp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
+                 device: str = "cuda", *only: str) -> int:
+    """``--tp-mesh-rank R WORLD PORT DIR DEVICE [WORD ...]``: one rank of
+    phase 15 on the one card over ``gloo``, leg by leg (``tp_legs``): rank
+    0's
+    reference and witness while rank 1 waits, then on both ranks the 1x2
+    run, the planted step and the gathered route's step, each held on rank
+    0 against the reference through ``ipc_holder``. Saves its readings as
+    ``DIR/rank<R>.pt`` after each leg."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import placement as placement_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The gathered route's step is held bit for bit: the embedding's
+    # backward accumulates bf16 rows in a fixed order.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    t_start = time.perf_counter()
+
+    def say(msg):
+        print(f"tp rank {rank} +{time.perf_counter() - t_start:.1f} s: "
+              f"{msg}", flush=True)
+
+    def reading(run):
+        return {k: run[k] for k in (
+            "losses", "grad_norms", "sparsity", "wall_s", "peak_mem_gb",
+            "peak_by_step", "grad_peak_by_step", "launches", "meta",
+            "model_compute", "traffic", "collectives", "witness",
+            "witness2", "width", "names") if k in run}
+
+    def patched(obj, name, value, fn):
+        real = getattr(obj, name)
+        setattr(obj, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(obj, name, real)
+
+    try:
+        mesh = make_host_mesh(1, world, device=dev.type)
+        for leg in tp_legs(only):
+            label = leg["label"]
+            row = out[label] = {}
+            t0 = time.perf_counter()
+            ref = p0 = None
+            if rank == 0:
+                ref, p0 = tp_reference(dev, leg, say=say)
+                row["reference"] = reading(ref)
+            release_memory()
+            dist.barrier()
+            row["reference_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            kept = ref["kept"] if rank == 0 else None
+            after, got = ipc_holder(rank, dev, (1, leg["steps"]), kept, p0,
+                                    whole=leg.get("probe", False))
+            run = tp_run(dev, leg, mesh, after=after, record_step=2,
+                         profile=True, say=say)
+            mine = got.pop("whole", None)
+            row["tp"] = reading(run) | {"stats": got}
+            del run
+            release_memory()
+            if mine is not None:
+                row["probe"] = probe_losses(dev, leg, {"reference": kept[1],
+                                                       "1x2": mine})
+                del mine
+                say(f"{label} probe: {row['probe']}")
+            dist.barrier()
+            if leg.get("planted"):
+                # Once an arch: each runs its own attention mode's (and
+                # the MoE's) reduces.
+                after, got = ipc_holder(rank, dev, (1,), kept, p0)
+                run = patched(placement_lib.ModelParallel, "reduce",
+                              lambda self, x: x,
+                              lambda: tp_run(dev, leg, mesh, steps=1,
+                                             after=after, say=say))
+                row["planted"] = reading(run) | {"stats": got}
+                del run
+                release_memory()
+            after, got = ipc_holder(rank, dev, (1,), kept, p0)
+            run = patched(placement_lib, "tensor_parallel_verdict",
+                          lambda *a: (False, "the gathered route, forced"),
+                          lambda: tp_run(dev, leg, mesh, steps=1,
+                                         after=after, say=say))
+            row["gathered"] = reading(run) | {"stats": got}
+            row["mesh_s"] = time.perf_counter() - t1
+            del run, ref, p0, kept, after, got
+            release_memory()
+            torch.save(out, path)
+    except Exception as e:      # noqa: BLE001 (reported, then raised)
+        out["error"] = f"{type(e).__name__}: {e}"
+        torch.save(out, path)
+        raise
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_mesh_path(dev, only=()) -> dict:
+    """Phase 15: the TP_LEGS (``tp_legs(only)``) at 1x2 over two gloo
+    ranks on the one card (``--tp-mesh-rank``), held on rank 0 against the
+    reference and its witness (module comment above), each rank's
+    launches, model-axis traffic (no gather but the MoE router's logits)
+    and step-1 peak against the gathered route's; then, with every leg,
+    kernels 1-4 held against their plain versions and timed at a rank's
+    packed width of the danube legs (``lm_kernels``) and the row-parallel
+    products timed (``tp_product_timings``). The ranks print their
+    progress as they go."""
+    import gc
+    import socket
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    failures, out = [], {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        sys.stdout.flush()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-mesh-rank",
+             str(r), str(TP_RANKS), str(port), tmp, dev.type, *only],
+            env=env)
+            for r in range(TP_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            ranks.append(torch.load(path, weights_only=False)
+                         if os.path.exists(path) else {})
+            if p.returncode != 0 or "error" in ranks[-1]:
+                failures.append(f"tp mesh rank {r} exited {p.returncode}: "
+                                f"{ranks[-1].get('error')}")
+    for spec in tp_legs(only):
+        label, steps = spec["label"], spec["steps"]
+        legs = [got.get(label, {}) for got in ranks]
+        if not all("gathered" in leg for leg in legs):
+            failures.append(f"{label}: no result")
+            continue
+        ref = legs[0]["reference"]
+        wit = ref["witness"]
+        limit = {k: min(max(WITNESS_FACTOR * wit[k], LM_FLOOR[k]),
+                        LM_CEILING[k]) for k in ("loss", "rel")}
+        brief = {k: without_leaves(v) if isinstance(v, dict) else v
+                 for k, v in wit.items()}
+        print(f"tp {label} one process: losses {ref['losses']} grad_norms "
+              f"{ref['grad_norms']}; ms a step {ms_after_first(ref)!r}; peak "
+              f"{ref['peak_mem_gb']:.2f} GB; witness {json.dumps(brief)}; "
+              f"limit {json.dumps(limit)}")
+        row = {"one process": dict(reading_row(ref),
+                                   ms_per_step=ms_after_first(ref),
+                                   witness=brief, limit=limit)}
+        want = expect(steps, **spec["launches"])
+        for r, leg in enumerate(legs):
+            tp, gathered = leg["tp"], leg["gathered"]
+            moved = traffic_summary(tp.get("traffic", []))
+            share = sum(op["share"] for key, op in tp.get(
+                "collectives", {}).get("ops", {}).items()
+                if key.startswith("mesh."))
+            # The step-1 gradient's peak: the optimizer's update (the same
+            # on both routes) sets the step's peak on the Adam and top-k
+            # legs.
+            peak = tp["grad_peak_by_step"][0]
+            gpeak = gathered["grad_peak_by_step"][0]
+            print(f"tp {label} rank {r}: {tp['model_compute']}; losses "
+                  f"{tp['losses']} grad_norms {tp['grad_norms']} sparsity "
+                  f"{tp['sparsity']}; ms a step {ms_after_first(tp)!r}; "
+                  f"gloo share of the profiled step {share!r}; a step's "
+                  f"model-axis traffic {json.dumps(moved)}; step-1 "
+                  f"gradient's peak {peak:.2f} GB against the gathered "
+                  f"route's {gpeak:.2f} GB (steps' peaks "
+                  f"{tp['peak_by_step']}, gathered "
+                  f"{gathered['peak_by_step']}); launches "
+                  f"{tp['launches']}; width {tp['width']}")
+            print(f"tp {label} rank {r} profile: "
+                  f"{json.dumps(tp.get('collectives'))}")
+            row[f"rank {r}"] = dict(
+                reading_row(tp), ms_per_step=ms_after_first(tp),
+                gloo_share=share, traffic=moved, grad_peak_gb=peak,
+                gathered_grad_peak_gb=gpeak,
+                step_peaks_gb=tp["peak_by_step"],
+                gathered_step_peak_gb=gathered["peak_by_step"][0],
+                launches=tp["launches"],
+                width=tp["width"])
+            if tp["model_compute"] != "tensor-parallel" or \
+                    gathered["model_compute"] != "gathered":
+                failures.append(f"{label} rank {r}: routes "
+                                f"{tp['model_compute']}, "
+                                f"{gathered['model_compute']}")
+            if tp["launches"] != want:
+                failures.append(f"{label} rank {r}: launches "
+                                f"{tp['launches']} != {want}")
+            gathers = {name for kind, name, *_ in tp.get("traffic", [])
+                       if kind == "model.gather"}
+            if not gathers <= {"router"} or not moved:
+                failures.append(f"{label} rank {r}: model-axis gathers "
+                                f"{gathers}, traffic {moved}")
+            if not peak < gpeak:
+                failures.append(f"{label} rank {r}: step-1 gradient's peak "
+                                f"{peak} GB not below the gathered route's "
+                                f"{gpeak}")
+            if tp["losses"] != legs[0]["tp"]["losses"]:
+                failures.append(f"{label} rank {r}: losses differ from rank "
+                                "0's")
+        tp = legs[0]["tp"]
+        stats = tp["stats"]
+        gaps = [abs(a - b) for a, b in zip(tp["losses"], ref["losses"])]
+        held = spec.get("loss_held_steps", steps)
+        dist_ = {"loss": max(gaps[:held]), "rel": stats[steps]["rel"]}
+        if held < steps:
+            print(f"tp {label}: loss gap by step {gaps} (held over the "
+                  f"first {held}; witness {wit['losses']}, one process "
+                  f"{ref['losses']}, 1x2 {tp['losses']})")
+            row["loss_gaps"] = gaps
+        if "probe" in legs[0]:
+            probe = legs[0]["probe"]
+            print(f"tp {label}: the one-process loss of step 2's batch from "
+                  f"the reference's step-1 params {probe['reference']!r} "
+                  f"(its step 2 {ref['losses'][1]!r}), from the 1x2 run's "
+                  f"{probe['1x2']!r} (the 1x2 run's step 2 "
+                  f"{tp['losses'][1]!r})")
+            row["probe"] = probe
+        s1 = stats[1]
+        # In bf16 compute roundoff flips the Adam step of a share of
+        # elements whose gradient is near 0: the witness shows how large
+        # (0.46% of danube's, 1.3% of the MoE's on the H100).
+        share_limit = max(FIRST_FLIP_SHARE,
+                          WITNESS_FACTOR * wit["step1"]["share"])
+        bad = step1_leaves(s1, wit["step1"], ref["names"])
+        first_ok = not bad and s1["share"] <= share_limit
+        for key in ("witness", "witness2"):
+            if key in ref:
+                print(f"tp {label}: {key} step 1 by leaf "
+                      f"{leaf_table(ref[key]['step1'], ref['names'])}; "
+                      f"step {steps} by leaf "
+                      f"{leaf_table(ref[key]['last'], ref['names'])}")
+        print(f"tp {label}: 1x2 step 1 by leaf "
+              f"{leaf_table(s1, ref['names'])}; step {steps} by leaf "
+              f"{leaf_table(stats[steps], ref['names'])}")
+        if "witness2" in ref:
+            w2 = ref["witness2"]
+            print(f"tp {label}: second witness (nudged down) loss "
+                  f"{w2['loss']!r} rel {w2['rel']!r} losses {w2['losses']}; "
+                  f"first {wit['loss']!r} / {wit['rel']!r}; 1x2 "
+                  f"{dist_['loss']!r} / {dist_['rel']!r}")
+        planted = legs[0].get("planted")
+        pdist = planted and {
+            "loss": abs(planted["losses"][0] - ref["losses"][0]),
+            "rel": planted["stats"][1]["rel"]}
+        gstats = legs[0]["gathered"]["stats"][1]
+        gbit = (gstats["bitwise"]
+                and legs[0]["gathered"]["losses"][0] == ref["losses"][0])
+        print(f"tp {label}: 1x2 vs one process {json.dumps(dist_)} (limit "
+              f"{json.dumps(limit)}); step 1 {json.dumps(without_leaves(s1))} "
+              f"(share limit {share_limit}; leaves past their limit "
+              f"{bad}); planted "
+              f"(reduce dropped) step 1 {json.dumps(pdist)} (must exceed "
+              f"{json.dumps(TP_PLANTED)}, once an arch); gathered route "
+              f"step 1 bitwise {gbit}")
+        row.update(distance=dist_, step1=without_leaves(s1),
+                   step1_leaves_over=bad, planted=pdist,
+                   gathered_bitwise=gbit)
+        if "witness2" in ref:
+            row["witness2"] = {k: ref["witness2"][k]
+                               for k in ("loss", "rel", "losses")}
+        over = [k for k in dist_ if dist_[k] > limit[k]]
+        if over:
+            failures.append(f"{label}: {dist_} over {limit} on {over}")
+        if not first_ok:
+            failures.append(f"{label} step 1: {without_leaves(s1)}, "
+                            f"leaves {bad}")
+        if spec.get("planted") and not (
+                pdist and all(pdist[k] > TP_PLANTED[k] for k in pdist)):
+            failures.append(f"{label} planted: parts only {pdist}")
+        if not gbit:
+            failures.append(f"{label}: the gathered route's step 1 is not "
+                            f"the reference's bit for bit ({gstats})")
+        print(f"tp {label}: reference {legs[0]['reference_s']:.1f} s, mesh "
+              f"legs {legs[0]['mesh_s']:.1f} s")
+        out[label] = row
+    first = TP_LEGS[0]["label"]
+    width = max((got[first]["tp"]["width"] for got in ranks if first in got),
+                default=0)
+    if width and not only:
+        out["kernels"] = lm_kernels(dev, width, TP_LEG["workers"],
+                                    tag="tp", coherence=False)
+        out["products"] = tp_product_timings(dev)
+    print(f"tp mesh phase: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("tp mesh phase: " + "; ".join(failures))
+    return out
+
+
+def add_tp_rows(kernels: list, tp: dict) -> None:
+    """Beside each of kernels 1-4, its times at a rank's packed width of
+    phase 15's danube legs and its launches on rank 0's tensor-parallel
+    run of every leg."""
+    timings, errs = tp["kernels"]["timings"], tp["kernels"]["errs"]
+    for entry in kernels:
+        name = entry["name"]
+        key = {"fused_update": "fused_update.plain"}.get(name, name)
+        if f"{key} tp" not in timings:
+            continue
+        t = timings[f"{key} tp"]
+        entry["tp_width"] = {
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "max_abs_err": errs[key],
+            "launches_by_leg": {
+                label: sum(n for k, n in row["rank 0"]["launches"].items()
+                           if k.split(".")[0] == name)
+                for label, row in tp.items() if "rank 0" in row}}
 
 
 def blocks_per_sm(regs: int, threads: int = 256) -> int:
@@ -5891,6 +6716,22 @@ def card_setup():
     return dev
 
 
+def tp_only(only=()) -> int:
+    """``--tp-only [WORD ...]``: phase 15 alone (with the kernels' build,
+    for its kernel checks and timings), or only its legs whose label holds
+    one of the words (then without the kernels' checks and timings)."""
+    dev = card_setup()
+    if dev is None:
+        return 2
+    from repro_torch.kernels import build
+    build.build()
+    build.library()
+    t0 = time.perf_counter()
+    tp_mesh_path(dev, only)
+    print(f"phase tp mesh path alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def fsdp_only() -> int:
     """``--fsdp-only``: phase 14 alone (it launches no kernel, so nothing
     is built)."""
@@ -5933,8 +6774,9 @@ CUTS = (
 )
 
 
-def time_cuts() -> int:
-    """``--time-cuts``: each leg of ``CUTS`` at its cut depth and then at
+def time_cuts(only=()) -> int:
+    """``--time-cuts [WORD ...]``: each leg of ``CUTS`` (those whose label
+    holds one of the words, if any are given) at its cut depth and then at
     the depth before the cut, on one host, with its wall seconds (the
     first run of a leg also pays its one-time costs, so the saving printed
     is if anything low). A leg's failures are printed, not raised: the
@@ -5952,6 +6794,8 @@ def time_cuts() -> int:
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, name, key, cut, before, gates, leg in CUTS:
+            if only and not any(word in label for word in only):
+                continue
             kept = g[name]
             secs = {}
             for depth in (cut, before):
@@ -6099,6 +6943,12 @@ def main() -> int:
     fsdp_mesh = fsdp_mesh_path(dev)
     lap("fsdp mesh path")
 
+    # Tensor-parallel compute on the model axis: danube, qwen3-14b and
+    # qwen2-moe-a2.7b at full width, depth cut, over two gloo ranks at 1x2;
+    # kernels 1-4 at a rank's packed width.
+    tp_mesh = tp_mesh_path(dev)
+    lap("tp mesh path")
+
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
     kernels.append(coherence_entry(timings, coh, coh_err))
@@ -6109,6 +6959,7 @@ def main() -> int:
     add_cross_rows(kernels, cross)
     add_mesh_rows(kernels, mesh)
     add_serve_mesh_rows(kernels, serve_mesh)
+    add_tp_rows(kernels, tp_mesh)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -6141,6 +6992,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}, default=str))
     print(json.dumps({"serve_mesh": serve_mesh}, default=str))
     print(json.dumps({"fsdp_mesh": fsdp_mesh}, default=str))
+    print(json.dumps({"tp_mesh": tp_mesh}, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -6165,6 +7017,10 @@ if __name__ == "__main__":
         sys.exit(fsdp_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
     if sys.argv[1:2] == ["--fsdp-only"]:
         sys.exit(fsdp_only())
+    if sys.argv[1:2] == ["--tp-mesh-rank"]:
+        sys.exit(tp_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:]))
+    if sys.argv[1:2] == ["--tp-only"]:
+        sys.exit(tp_only(sys.argv[2:]))
     if sys.argv[1:2] == ["--time-cuts"]:
-        sys.exit(time_cuts())
+        sys.exit(time_cuts(sys.argv[2:]))
     sys.exit(main())

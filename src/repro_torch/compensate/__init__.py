@@ -72,9 +72,13 @@ class Compensator:
     the comp dict (``EngineState.comp``) built by :meth:`init`; every shape
     is re-derived from the tensors it is handed."""
 
-    def __init__(self, cfg: CompensateConfig):
+    def __init__(self, cfg: CompensateConfig, shard=None):
         self.cfg = cfg
         self.kind, self.amount = parse_compress(cfg.compress)
+        # On a model axis (``engine.placement.MeshPlacement`` whose packed
+        # views are parts of one process's row): the threshold and the
+        # sparsity are the whole row's.
+        self.shard = shard
 
     @property
     def sparsifies(self) -> bool:
@@ -114,7 +118,10 @@ class Compensator:
         else:
             mom_in = None
             acc = vec + comp["resid"]
-        if self.kind == "topk":
+        if self.kind == "topk" and self.shard is not None:
+            thr = self.shard.row_threshold(
+                acc.abs(), topk_count(self.amount, self.shard.row().total))
+        elif self.kind == "topk":
             thr = topk_threshold(acc.abs(), topk_count(self.amount, true_size),
                                  true_size)
         else:  # thresh
@@ -129,7 +136,10 @@ class Compensator:
         return comp
 
     def ef_metrics(self, sent, true_size: int) -> dict:
-        """Realized sparsity of a sent payload over its real entries."""
+        """Realized sparsity of a sent payload over its real entries (the
+        whole row's on a model axis)."""
+        if self.shard is not None:
+            return {"sparsity": self.shard.row_sparsity(sent)}
         return {"sparsity": sparsity_of(sent, true_size)}
 
     def sparsify_tree(self, comp: dict, tree, lead_ndim: int = 0):

@@ -328,7 +328,8 @@ def make_stale_train_step(loss_fn: Callable, optimizer: Optimizer,
             opt_state={"step": ostep, "m": m2, "v": v2}, gbuf=gbuf,
             step=state.step + 1, key=state.key)
         metrics = {"loss": losses.mean(),
-                   "grad_norm": torch.sqrt(torch.sum(u * u)),
+                   "grad_norm": (torch.sqrt(torch.sum(u * u)) if shard is None
+                                 else shard.packed_norm(u, spec)),
                    "mean_staleness": mean_stale, **cmetrics}
         if compensator is not None:
             return new_state, comp, metrics

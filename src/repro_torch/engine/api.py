@@ -45,7 +45,14 @@ Placement: ``mesh=`` (a ``DeviceMesh`` from ``launch.mesh.make_host_mesh``)
 spreads the P workers over the mesh's data axis, one process a rank, and
 holds params on the model axis by the sharding rules, and an FSDP arch's
 params on the data axis too (``engine/placement.py`` says which collective
-runs where). With ``shape`` and a ``ModelAPI`` the engine also carries
+runs where). On a model axis > 1 a decoder-only transformer whose every
+model-sharded dim the extent divides computes tensor-parallel on its
+shards; anything else gathers them whole for the loss.
+``meta["model_compute"]`` says which (``"tensor-parallel"`` or
+``"gathered"``, with ``meta["model_compute_fallback"]`` saying why). The
+packed kernels and compression run on each rank's shards there, the top-k
+threshold and the sparsity taken over the whole packed row. With ``shape``
+and a ``ModelAPI`` the engine also carries
 the placement plan (``engine.plan()``,
 ``engine/plan.py::attach_train_plan``); an
 ``AbstractMesh`` builds that plan and runs nothing. ``arch`` feeds the
@@ -58,8 +65,7 @@ placement verdict and the FSDP rule.
 the flag and ignore it, as in the JAX package.
 
 Not run yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: the packed kernels or compression over a model axis > 1 (A.18),
-compression over an FSDP arch's data shards (A.20), a ``pod`` axis
+item: compression over an FSDP arch's data shards (A.20), a ``pod`` axis
 (A.19).
 """
 from __future__ import annotations
@@ -365,19 +371,25 @@ def _stacked_loss(api_loss):
 
 
 def _mesh_loss(loss_fn, placement, mesh, per_worker: bool):
-    """The loss on one rank of a mesh: the model axis's shards made whole
-    (``placement.full``), under the ambient mesh the MoE layer groups its
-    tokens by. Per-worker modes see the mesh, as each JAX worker does; a
-    rank of a batch-split mode holds one data shard, which is its one
-    group. A batch-split mode of an FSDP arch reads its data-sharded params
-    a layer at a time (``placement.fetch``); the per-worker modes hand the
-    loss params gathered whole."""
+    """The loss on one rank of a mesh, under the ambient mesh the MoE layer
+    groups its tokens by. On the tensor-parallel route the model computes
+    on this rank's model-axis shards (``placement.model_parallel``
+    installed); elsewhere they are made whole (``placement.full``).
+    Per-worker modes see the mesh, as each JAX worker does; a rank of a
+    batch-split mode holds one data shard, which is its one group. A
+    batch-split mode of an FSDP arch reads its data-sharded params a layer
+    at a time (``placement.fetch``); the per-worker modes hand the loss
+    params gathered whole on the data axis."""
     ambient = mesh if per_worker or placement.n == 1 else None
     fetch = placement.fetch if placement.fsdp and not per_worker else None
+    mp = placement.model_parallel
 
     def loss(params, batch, *rest):
-        with rules_lib.use_mesh(ambient), rules_lib.use_fetch(fetch):
-            return loss_fn(placement.full(params, lead=1), batch, *rest)
+        with rules_lib.use_mesh(ambient), rules_lib.use_fetch(fetch), \
+                rules_lib.use_model_parallel(mp):
+            if mp is None:
+                params = placement.full(params, lead=1)
+            return loss_fn(params, batch, *rest)
     return loss
 
 
@@ -424,7 +436,7 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     if shape is not None and isinstance(shape, str):
         from repro_torch.configs.base import SHAPES
         shape = SHAPES[shape]
-    placement = None
+    placement, model_compute = None, None
     if placement_lib.is_device_mesh(mesh):
         if mesh.device_type != dev.type:
             raise ValueError(f"mesh on {mesh.device_type!r} devices, engine "
@@ -441,13 +453,18 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
             specs = plan_lib.params_specs(api, mesh, arch, shape)
         placement = placement_lib.MeshPlacement(
             mesh, cfg.num_workers, specs, fsdp=fsdp, rules=rules)
+        if placement.m > 1:
+            tp, why = placement_lib.tensor_parallel_verdict(api, specs,
+                                                            placement.m)
+            model_compute = ("tensor-parallel", "") if tp else ("gathered",
+                                                                why)
+            if tp:
+                placement.model_parallel = placement_lib.ModelParallel(
+                    placement.model_axis)
         per_worker = mode in ("simulate", "ssp") or (
             mode == "stale-psum" and cfg.per_worker_delays)
         if loss_fn is not None:
             loss_fn = _mesh_loss(loss_fn, placement, mesh, per_worker)
-        if placement.m > 1 and cfg.compress != "none":
-            raise _not_run(f"compression over a model axis of {placement.m}",
-                           placement_lib.MODEL_ITEM)
         if placement.fsdp and cfg.compress != "none":
             # A top-k over a rank's shard is not the top-k over the row.
             raise _not_run(f"compression over the FSDP shards of {arch_id!r} "
@@ -478,16 +495,15 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
                 "buffer cannot keep the 'embed'->data placement; use "
                 "kernels='auto' (falls back to tree math)")
         delivery = "packed" if kernel_delivery else "tree"
-    if placement is not None and placement.m > 1 and (
-            kernel_delivery or (mode == "sync" and kernel_placement_ok(
-                cfg.kernels, arch, mesh)[0])):
-        raise _not_run(f"the packed kernels over a model axis of "
-                       f"{placement.m}", placement_lib.MODEL_ITEM)
     meta = {"mode": mode, "workers": cfg.num_workers, "s": cfg.s,
             "device": str(dev),
             "kernels": {"config": cfg.kernels, "delivery": delivery}}
     if mesh is not None:
         meta["mesh"] = rules_lib.mesh_sizes(mesh)
+    if model_compute is not None:
+        meta["model_compute"] = model_compute[0]
+        if model_compute[1]:
+            meta["model_compute_fallback"] = model_compute[1]
     if why and mode != "sync":
         meta["kernels"]["fallback"] = why
     if cfg.delay is not None:
@@ -498,7 +514,11 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
     ccfg = compensate_lib.CompensateConfig(
         lr_scale=cfg.lr_scale, compress=cfg.compress, s=cfg.s,
         ef_momentum=cfg.ef_momentum)
-    compensator = compensate_lib.Compensator(ccfg) if ccfg.active else None
+    # On a model axis each rank packs its shards: the compensator takes the
+    # top-k threshold and the sparsity of the whole row over the ranks.
+    compensator = (compensate_lib.Compensator(
+        ccfg, shard=placement if placement is not None
+        and placement.splits_rows else None) if ccfg.active else None)
     init_comp = None
     if compensator is not None:
         meta["compensate"] = {"lr_scale": cfg.lr_scale,

@@ -19,13 +19,21 @@ A :class:`MeshPlacement` describes one rank's share of an engine:
   whole batch, so it agrees to fp32 roundoff only.
 * **The model axis.** Every param-shaped tensor is held as this rank's
   shard along the dims its spec puts on ``"model"`` (``torch.chunk``
-  semantics, as DTensor's ``Shard``). The loss sees those dims whole:
-  ``full`` gathers them with ``GatherShards`` (c10d's ``all_gather``; its
-  backward hands each rank its chunk of the gradient, since every model
-  rank computed it from the same batch). The optimizer's tree math is
-  elementwise, so it runs on the shards; norms add their squares over the
-  groups that shard a leaf. ``public`` returns params as DTensors over the
-  whole mesh.
+  semantics, as DTensor's ``Shard``). A decoder-only transformer whose
+  every model-sharded dim the extent divides computes tensor-parallel on
+  those shards (``tensor_parallel_verdict``; the engine's loss installs
+  :class:`ModelParallel`, whose ``copy`` and ``reduce`` are the layers'
+  collectives; ``models/transformer.py``). Anywhere else the loss sees
+  those dims whole: ``full`` gathers them with ``GatherShards`` (c10d's
+  ``all_gather``; its backward hands each rank its chunk of the gradient,
+  since every model rank computed it from the same batch). Either way
+  each leaf's gradient is this rank's shard of the whole gradient. The
+  optimizer's tree math and the packed kernels are elementwise, so they
+  run on the shards (packed: this rank's leaves concatenated); norms add
+  their squares over the groups that shard a leaf, and compression takes
+  the top-k threshold and the sparsity of the whole packed row
+  (``row_threshold``, ``row_sparsity``). ``public`` returns params as
+  DTensors over the whole mesh.
 * **The data axis of the FSDP archs** (``deepseek-67b``, ``kimi-k2``: the
   rules put ``embed`` on data). Params, optimizer state and the aggregate
   ring hold this rank's block of each leaf's ``embed`` dim. In the
@@ -62,7 +70,6 @@ from repro_torch.sharding import rules as rules_lib
 Pytree = Any
 
 # ROADMAP items for what a mesh does not run yet.
-MODEL_ITEM = "A.18, the model axis on more than one card"
 FSDP_COMPRESS_ITEM = "A.20, compression over FSDP shards"
 MULTINODE_ITEM = "A.19, multi-node"
 
@@ -166,6 +173,101 @@ class GatherShards(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+def _all_reduce_f32(axis, x: torch.Tensor, label: str) -> torch.Tensor:
+    """The sum over ``axis`` of ``x``, taken in fp32 (a bf16 part rounds
+    once, in the cast back) on a fresh tensor."""
+    out = x.float().contiguous()
+    if out is x:
+        out = out.clone()
+    axis.note("all_reduce", label, out)
+    axis.dist.all_reduce(out, group=axis.group)
+    return out.to(x.dtype)
+
+
+class CopyToModel(torch.autograd.Function):
+    """The "copy": the identity forward, an all-reduce of the gradient over
+    the model axis backward. It marks where a value every rank holds whole
+    enters a rank-partial computation, whose gradient each rank then holds
+    only its part of."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(ctx.axis, g, "copy"), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """The "reduce": an all-reduce over the model axis forward, the
+    identity backward. It closes a rank-partial product (a row-parallel
+    matmul): every rank's output, and so the gradient coming back, is
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce_f32(axis, x, "reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ModelParallel:
+    """The model axis as a tensor-parallel model sees it
+    (``sharding.rules.use_model_parallel``): ``m`` ranks, this one at
+    ``rank``; ``span(n)`` is this rank's ``(start, length)`` of a dim ``n``
+    long (``chunk_span``, as the params are cut), and ``copy``, ``reduce``,
+    ``gather`` (a dim whole, its backward this rank's chunk) and ``max``
+    (detached) are its collectives over the model group."""
+
+    def __init__(self, axis: Axis):
+        self.axis, self.m, self.rank = axis, axis.n, axis.rank
+
+    def span(self, n: int) -> tuple:
+        return chunk_span(n, self.m, self.rank)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return CopyToModel.apply(x, self.axis)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return ReduceFromModel.apply(x, self.axis)
+
+    def gather(self, x: torch.Tensor, d: int, full: int,
+               label: str) -> torch.Tensor:
+        return GatherShards.apply(x, self.axis, d, full, "slice", label)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.detach().contiguous().clone()
+        self.axis.dist.all_reduce(out, op=self.axis.dist.ReduceOp.MAX,
+                                  group=self.axis.group)
+        return out
+
+
+def tensor_parallel_verdict(api, specs, m: int) -> tuple:
+    """``(ok, why_not)``: whether a model axis of extent ``m`` computes
+    tensor-parallel. It needs a decoder-only transformer (no cross layers;
+    not whisper, mamba2 or zamba2) and, as the JAX planner's jit arguments
+    do, every dim a spec puts on ``"model"`` divisible by ``m``; anywhere
+    else the loss gathers the shards whole."""
+    cfg = getattr(api, "cfg", None)
+    if specs is None or api is None:
+        return False, "a bare loss (no params specs)"
+    if api.family != "transformer" or not getattr(cfg, "causal", False):
+        return False, f"{api.family} family"
+    if cfg.num_cross_layers:
+        return False, "cross-attention layers"
+    params, _ = api.init(0, device="meta")
+    for x, spec in zip(tm.tree_leaves(params), rules_lib.axes_leaves(specs)):
+        for d, part in enumerate(spec):
+            if "model" in rules_lib._names(part) and x.shape[d] % m:
+                return False, (f"a dim of {x.shape[d]} in a leaf of shape "
+                               f"{tuple(x.shape)} does not divide by {m}")
+    return True, ""
+
+
 def whole_dtensor(x):
     """A DTensor's whole value by c10d's ``all_gather`` over each mesh dim
     that shards it (``DTensor.full_tensor()``'s functional collective
@@ -229,6 +331,10 @@ class MeshPlacement:
         self.sharded = specs is not None and (self.fsdp or self.m > 1)
         self.full_shapes = None
         self._dims = None
+        # The model parallel context of the tensor-parallel route (the
+        # engine sets it), else None: the loss gathers whole params.
+        self.model_parallel = None
+        self._row = None
 
     # -- rows -----------------------------------------------------------------
     @property
@@ -521,6 +627,74 @@ class MeshPlacement:
     def norm(self, tree: Pytree, data: bool = True) -> torch.Tensor:
         return torch.sqrt(self.sq_norm(tree, data))
 
+    def packed_norm(self, vec: torch.Tensor,
+                    spec: tm.PackSpec) -> torch.Tensor:
+        """L2 norm of the whole params-shaped row a packed ``[D]`` view of
+        this rank's shards stands for."""
+        if not self.sharded:
+            return torch.sqrt(torch.sum(vec * vec))
+        return self.norm(tm.tree_unpack(vec, spec, dtype=torch.float32))
+
+    # -- the whole packed row (compression over the model axis) -------------
+    @property
+    def splits_rows(self) -> bool:
+        """Whether a packed view of this rank's params is a part of one
+        process's packed row (the model axis shards some leaf)."""
+        return self.sharded and self.model_axis is not None
+
+    def row(self) -> tm.ShardRow:
+        """This rank's place in one process's packed row of the params:
+        each leaf's model dim and this rank's chunk of it, the replicated
+        leaves counted on model rank 0 alone."""
+        if self._row is None:
+            md = [dims[1] for dims in self._dims]
+            spans = [None if d is None else chunk_span(
+                shape[d], self.m, self.model_axis.rank)
+                for d, shape in zip(md, self.full_shapes)]
+            self._row = tm.ShardRow(self.full_shapes, md, spans,
+                                    owns_whole=self.model_axis.rank == 0)
+        return self._row
+
+    def row_threshold(self, absacc: torch.Tensor, k: int) -> torch.Tensor:
+        """The per-row top-k threshold of the whole packed row, bitwise the
+        one-process ``compensate.topk_threshold(absacc_whole, k, total)``:
+        up to ``EXACT_TOPK_MAX`` elements the k-th largest of the union of
+        the ranks' local top-k (one all-gather); above, the same strided
+        sample of the whole row, each rank filling the positions it owns
+        and one all-reduce summing them."""
+        from repro_torch.compensate import sparsify as sp
+        row, axis = self.row(), self.model_axis
+        n = row.total
+        lead = tuple(absacc.shape[:-1])
+        if n <= sp.EXACT_TOPK_MAX:
+            kk = min(k, n)
+            owned = row.owned(absacc)
+            top = torch.topk(owned, min(kk, owned.shape[-1]), dim=-1).values
+            if top.shape[-1] < kk:
+                top = torch.cat([top, top.new_full(
+                    lead + (kk - top.shape[-1],), -1.0)], dim=-1)
+            parts = [torch.empty_like(top) for _ in range(axis.n)]
+            axis.dist.all_gather(parts, top.contiguous(), group=axis.group)
+            return torch.topk(torch.cat(parts, dim=-1), kk,
+                              dim=-1).values[..., -1]
+        stride = -(-n // sp.TOPK_SAMPLE)
+        slots, local = row.sample(stride, absacc.device)
+        ns = -(-n // stride)
+        sample = absacc.new_zeros(lead + (ns,))
+        sample[..., slots] = absacc[..., local]
+        axis.dist.all_reduce(sample, group=axis.group)
+        ks = max(1, round(k * ns / n))
+        return torch.topk(sample, ks, dim=-1).values[..., -1]
+
+    def row_sparsity(self, sent: torch.Tensor) -> torch.Tensor:
+        """Realized zero fraction of a sent payload over the whole row's
+        real entries (the nnz of each rank's owned elements, summed)."""
+        row, axis = self.row(), self.model_axis
+        rows = sent.numel() // sent.shape[-1] if sent.shape[-1] else 0
+        nnz = row.owned_nnz(sent).reshape(1)
+        axis.dist.all_reduce(nnz, group=axis.group)
+        return 1.0 - nnz[0] / (rows * row.total)
+
 
 class ServePlacement:
     """One rank's share of a serve on a ``DeviceMesh`` that spans the
@@ -536,7 +710,7 @@ class ServePlacement:
       torch 2.11; PERF.md). The server calls it once a load or
       refresh, so its decode and prefill steps call no collective; the cost
       is memory, since every rank holds the whole served copy beside its
-      shards (tensor-parallel layers are A.18).
+      shards (serving on the shards is what is left of A.18).
     * ``decide(values)``: rank 0's host decisions (a list of numbers; None
       goes as NaN and comes back as None), broadcast to every rank, and
       ``all_ok(flag)``: whether every rank's flag holds. Any decision a

@@ -15,7 +15,11 @@ stale-psum otherwise. Every flag of the JAX driver is taken with the same
 meaning and the same errors. ``--mesh DATAxMODEL`` other than ``1x1``
 runs under ``torchrun`` with DATA x MODEL ranks (``gloo`` with ``--cpu``,
 ``nccl`` on the cards): every rank builds the same engine and draws the
-same batches, and rank 0 prints the rows the one-process run prints. The
+same batches, and rank 0 prints the rows the one-process run prints. On a
+model axis > 1 (``--mesh 1x2``, ``2x2``) a decoder-only transformer whose
+every model-sharded dim the extent divides (reduced ``deepseek-7b``, for
+one) trains tensor-parallel on its shards, its rows within fp32 roundoff
+of the one-process rows; it prints which route it took. The
 coherence monitor, checkpoints and trace recording stay on the one-process
 run. The JAX package's deprecated ``launch/steps.py`` shim has no
 counterpart.
@@ -178,6 +182,10 @@ def main(argv=None) -> dict:
                         ssp_steps=max(args.steps, 1), ssp_seed=args.seed)
     engine = build_engine(api, opt, ecfg, mesh=mesh, arch=arch, shape=shape,
                           device=device)
+    if "model_compute" in engine.meta:
+        why = engine.meta.get("model_compute_fallback")
+        say(f"model axis: {engine.meta['model_compute']}"
+            + (f" ({why})" if why else ""))
     # The driver keeps no reference to the initial state once training
     # starts, so a full-width run holds one copy of its params, moments
     # and ring at a time.

@@ -197,6 +197,41 @@ def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     return F.silu(x_gate) * x_up
 
 
+class _MmF32(torch.autograd.Function):
+    """``a [N, K] @ w [K, M]`` of 16-bit operands with an fp32 result, on
+    the tensor cores (``torch.mm(out_dtype=)``, which has no derivative of
+    its own). The gradient that comes back is a 16-bit one cast up (the
+    result is only ever summed and rounded back), so the backward products
+    run in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.t(), a.t() @ g
+
+
+def contract_f32(a: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """``a``'s last ``n`` dims contracted with ``w``'s first ``n``, in
+    ``a``'s dtype, the result fp32 (a rank-partial product, summed before
+    it rounds). On the card 16-bit operands stay on the tensor cores with
+    fp32 accumulation; elsewhere both are cast up, which is the same
+    product (a product of two bf16 numbers is exact in fp32)."""
+    lead, tail = a.shape[:a.dim() - n], w.shape[n:]
+    a2 = a.reshape(math.prod(lead), -1)
+    w2 = w.to(a.dtype).reshape(a2.shape[1], -1)
+    if a2.is_cuda and a2.dtype in (torch.bfloat16, torch.float16):
+        out = _MmF32.apply(a2, w2)
+    else:
+        out = a2.float() @ w2.float()
+    return out.reshape(*lead, *tail)
+
+
 def causal_mask(q_len: int, kv_len: int, q_offset, device=None) -> torch.Tensor:
     """[q_len, kv_len] boolean mask; q positions are offset by
     ``q_offset`` relative to kv position 0."""

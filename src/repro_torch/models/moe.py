@@ -18,6 +18,18 @@ batch-split step holds one data shard, which is its one group.
 Routed-expert counts are padded (dead experts: router logits forced to
 ``NEG_INF``, so they are never selected).
 
+Experts over the model axis: under an ambient model-parallel context
+(``sharding.rules.use_model_parallel``) the router's expert columns, the
+experts and the shared FFN's ``mlp`` dim are this rank's shards. Every
+rank routes every token with the whole router logits (gathered), exactly as
+one process does, evaluates only its experts' block of ``[G, E, cap, d]``,
+combines the slots that land on them, and one ``reduce`` sums the ranks'
+parts of the combine and of the shared FFN's row-parallel product. Each of
+the two sums then rounds once and they add as one process adds them, so
+the layer rounds as one process's does. The combine weights enter the
+partial product through ``copy``, so the router's gradient is whole where
+the gather's backward takes this rank's columns of it.
+
 Ties follow the JAX package: ``jax.lax.top_k`` keeps the lower expert index
 among equal probabilities, and ``jnp.argsort`` is stable, so both are
 stable sorts here.
@@ -119,40 +131,49 @@ def groups_for(tokens: int, moe) -> int:
     return 1 if tokens * moe.top_k <= 4 * moe.num_experts else g
 
 
-def _dispatch_group(xt, logits, moe, cap: int, dtype):
-    """Scatter one group's tokens into their ``[E, cap, d]`` buffers; run
-    nothing. Returns (xin [E,cap,d], slot [t*k], w_keep [t*k], aux)."""
+def _dispatch_group(xt, logits, moe, cap: int, dtype, e0: int, en: int):
+    """Scatter one group's tokens into the ``[en, cap, d]`` buffers of the
+    experts ``[e0, e0 + en)`` (all of them: ``(0, E)``); run nothing.
+    Entries past the capacity, and those routed to other experts, land on
+    the overflow row ``en * cap``, which is dropped. Returns (xin
+    [en,cap,d], slot [t*k], w_keep [t*k], aux)."""
     t, d = xt.shape
     weights, idx, aux = router_topk(logits, moe)
-    k, e = moe.top_k, moe.num_experts
+    k = moe.top_k
     e_flat = idx.reshape(-1)
-    w_flat = weights.reshape(-1)
     tok_of = torch.arange(t * k, device=xt.device) // k
-    pos = _positions_within_expert(e_flat, e)
+    pos = _positions_within_expert(e_flat, moe.num_experts)
     keep = pos < cap
-    # Entries past the capacity all land on the overflow row e * cap, which
-    # is dropped.
-    slot = torch.where(keep, e_flat * cap + pos,
-                       torch.full_like(pos, e * cap))
-    buf = torch.zeros((e * cap + 1, d), dtype=dtype, device=xt.device)
+    mine = keep & (e_flat >= e0) & (e_flat < e0 + en)
+    slot = torch.where(mine, (e_flat - e0) * cap + pos,
+                       torch.full_like(pos, en * cap))
+    buf = torch.zeros((en * cap + 1, d), dtype=dtype, device=xt.device)
     buf = buf.index_add(0, slot, xt[tok_of].to(dtype))
-    return buf[:e * cap].reshape(e, cap, d), slot, w_flat * keep, aux
+    return (buf[:en * cap].reshape(en, cap, d), slot,
+            weights.reshape(-1) * keep, aux)
 
 
 def moe_ffn(p: Any, x: torch.Tensor, moe, dtype):
-    """x [B, S, d] -> (y [B, S, d], aux_loss) over ``groups_for`` groups."""
+    """x [B, S, d] -> (y [B, S, d], aux_loss) over ``groups_for`` groups;
+    over this rank's experts under an ambient model-parallel context
+    (module docstring)."""
+    mp = rules_lib.ambient_model_parallel()
+    copy = (lambda v: v) if mp is None else mp.copy
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = copy(x.reshape(t, d))
     k, e = moe.top_k, moe.num_experts
+    e0, en = (0, e) if mp is None else mp.span(e)
     logits = xt.float() @ p["router"]
+    if mp is not None:
+        logits = mp.gather(logits, 1, e, "router")
     groups = groups_for(t, moe)
     t_loc = t // groups
     cap = capacity(t_loc, moe)
     parts = [_dispatch_group(xt[g * t_loc:(g + 1) * t_loc],
                              logits[g * t_loc:(g + 1) * t_loc], moe, cap,
-                             dtype) for g in range(groups)]
-    # [G, E, cap, d]; one group (one device, decode) is a view, no copy.
+                             dtype, e0, en) for g in range(groups)]
+    # [G, en, cap, d]; one group (one device, decode) is a view, no copy.
     xin = (parts[0][0].unsqueeze(0) if groups == 1
            else torch.stack([q[0] for q in parts]))
 
@@ -162,18 +183,32 @@ def moe_ffn(p: Any, x: torch.Tensor, moe, dtype):
                      p["w_down"].to(dtype))
 
     # Combine, per group: gather expert outputs back to entries (the
-    # overflow row is zero), weight them and sum each token's k choices.
+    # overflow row is zero) and weight them: [t, k, d].
     zero = torch.zeros((1, d), dtype=h.dtype, device=h.device)
-    ys = [(torch.cat([h[g].reshape(e * cap, d), zero])[slot]
-           * w_keep.to(dtype)[:, None]).reshape(t_loc, k, d).sum(dim=1)
-          for g, (_, slot, w_keep, _) in enumerate(parts)]
-    y = ys[0] if groups == 1 else torch.cat(ys)
+    yk = torch.cat([(torch.cat([h[g].reshape(en * cap, d), zero])[slot]
+                     * copy(w_keep).to(dtype)[:, None]).reshape(t_loc, k, d)
+                    for g, (_, slot, w_keep, _) in enumerate(parts)])
     aux = torch.stack([q[3] for q in parts]).mean()
 
+    shared = None
     if "shared" in p:
         sp = p["shared"]
         g = torch.einsum("td,df->tf", xt, sp["w_gate"].to(dtype))
         u = torch.einsum("td,df->tf", xt, sp["w_up"].to(dtype))
-        y = y + torch.einsum("tf,fd->td", L.swiglu(g, u),
-                             sp["w_down"].to(dtype))
-    return y.reshape(b, s, d), aux
+        shared = L.swiglu(g, u)
+    if mp is None:
+        # Each token's sum over its k choices, and the shared FFN's.
+        y = yk.sum(dim=1)
+        if shared is not None:
+            y = y + torch.einsum("tf,fd->td", shared, sp["w_down"].to(dtype))
+        return y.reshape(b, s, d), aux
+    # This rank's parts of the same two sums (its experts' choices; the
+    # shared FFN's row-parallel product), fp32 until one ``reduce`` has
+    # summed the ranks' parts; each then rounds to ``dtype`` once and they
+    # add in ``dtype``, as one process's two sums do.
+    y = yk.float().sum(dim=1)
+    if shared is None:
+        return mp.reduce(y).to(dtype).reshape(b, s, d), aux
+    both = mp.reduce(torch.stack(
+        [y, L.contract_f32(shared, sp["w_down"].to(dtype), 1)])).to(dtype)
+    return (both[0] + both[1]).reshape(b, s, d), aux

@@ -25,14 +25,32 @@ reference's parameter and cache layouts kept as they are so that
 layer in ``jax.checkpoint``): it changes no number, only the memory a
 training step holds; each cross layer is recomputed as one unit, as the
 JAX package checkpoints its ``run_cross``. The MoE FFN (``models/moe.py``)
-groups its tokens by the ambient mesh. ``cfg.tp`` and the attention
-sharding modes steer the JAX package's tensor-parallel layout; the port's
-model axis gathers whole params for the forward pass
-(``engine/placement.py``), so they change nothing here. ``forward`` reads
-each layer's params (and ``embed``, ``head``, ``final_ln``) through the
-ambient fetch (``sharding.rules.use_fetch``): the identity, or on a mesh
-an FSDP arch's gather of that layer from its data-axis shards, inside the
-remat body so the backward pass gathers it again.
+groups its tokens by the ambient mesh. ``forward`` reads each layer's
+params (and ``embed``, ``head``, ``final_ln``) through the ambient fetch
+(``sharding.rules.use_fetch``): the identity, or on a mesh an FSDP arch's
+gather of that layer from its data-axis shards, inside the remat body so
+the backward pass gathers it again.
+
+Tensor-parallel compute (the JAX package's ``cfg.tp`` layouts, which GSPMD
+partitions there): under ``sharding.rules.use_model_parallel`` (installed
+by the engine's loss on a model axis > 1) the params are this rank's
+model-axis shards and each layer computes on them. ``copy`` (identity
+forward, all-reduce backward) marks where a replicated value enters a
+rank-partial product, ``reduce`` (all-reduce forward) closes one:
+
+  * attention by ``cfg.attn_mode``: ``head`` runs this rank's q and kv
+    heads; ``mixed`` its q heads and the kv heads they use, from the
+    replicated ``wk``/``wv``; ``contraction`` projects q/k/v from its
+    ``d_model`` slice (``reduce`` makes them whole), attends on whole heads
+    and multiplies its ``head_dim`` slice of the output into its ``wo``
+    block. ``wo`` is row-parallel in every mode;
+  * the dense FFN column-parallel on ``mlp``, ``w_down`` row-parallel.
+    A row-parallel product keeps its partial sums fp32 until ``reduce``
+    has summed them, so it rounds once, as one process's does;
+  * the embedding from this rank's vocab rows, the head column-parallel on
+    ``vocab`` and ``sharded_ce`` vocab-parallel (max, sum of exp and the
+    picked logit each summed over the ranks);
+  * the MoE FFN over this rank's experts (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -270,9 +288,10 @@ def _attend(q, k, v, mask, cfg: TransformerConfig):
     it, which is what JAX's ``preferred_element_type`` does (a product of
     two bf16 numbers is exact in fp32)."""
     b, s, h, hd = q.shape
-    g = cfg.q_groups
+    n = k.shape[2]                 # kv heads (a rank's, tensor-parallel)
+    g = h // n
     sdt = cfg.attn_softmax_dtype
-    qg = q.reshape(b, s, cfg.num_kv_heads, g, hd)
+    qg = q.reshape(b, s, n, g, hd)
     scores = torch.einsum("bsngd,bknd->bngsk", qg.to(sdt), k.to(sdt))
     scores = scores / math.sqrt(hd)
     neg = -3e38 if sdt == torch.float32 else -3e4
@@ -289,7 +308,8 @@ def _attend_chunked(q, k, v, cfg: TransformerConfig):
     at position 0 (train/prefill)."""
     b, s, h, hd = q.shape
     kv_len = k.shape[1]
-    g, hkv = cfg.q_groups, cfg.num_kv_heads
+    hkv = k.shape[2]
+    g = h // hkv
     c = min(cfg.attn_chunk, kv_len)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
@@ -322,25 +342,84 @@ def _attend_chunked(q, k, v, cfg: TransformerConfig):
     return out.to(cfg.dtype)
 
 
-def _self_attention_full(p, x, positions, cfg: TransformerConfig):
-    """Train/prefill attention over the full sequence (causal or bidi)."""
-    q, k, v = _project_qkv(p, x, x, cfg)
+def _attend_full(q, k, v, positions, cfg: TransformerConfig):
+    """Rotary, then train/prefill attention over the full sequence (causal
+    or bidi) -> (out, rotated k)."""
+    s = q.shape[1]
     cos, sin = L.rotary(cfg.rope_theta, positions, cfg.head_dim)
     q = L.apply_rotary(q, cos, sin)
     k = L.apply_rotary(k, cos, sin)
-    s = x.shape[1]
     if cfg.attn_impl == "chunked":
-        out = _attend_chunked(q, k, v, cfg)
+        return _attend_chunked(q, k, v, cfg), k
+    if not cfg.causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    elif cfg.swa_window:
+        mask = L.sliding_window_mask(s, s, 0, cfg.swa_window, q.device)
     else:
-        if not cfg.causal:
-            mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
-        elif cfg.swa_window:
-            mask = L.sliding_window_mask(s, s, 0, cfg.swa_window, x.device)
-        else:
-            mask = L.causal_mask(s, s, 0, x.device)
-        out = _attend(q, k, v, mask[None], cfg)
+        mask = L.causal_mask(s, s, 0, q.device)
+    return _attend(q, k, v, mask[None], cfg), k
+
+
+def _self_attention_full(p, x, positions, cfg: TransformerConfig):
+    """Train/prefill attention over the full sequence (causal or bidi);
+    tensor-parallel under an ambient model-parallel context."""
+    mp = rules_lib.ambient_model_parallel()
+    if mp is not None:
+        return _self_attention_tp(p, x, positions, cfg, mp)
+    q, k, v = _project_qkv(p, x, x, cfg)
+    out, k = _attend_full(q, k, v, positions, cfg)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cfg.dtype))
     return y, (k, v)
+
+
+def _row_parallel(a, w, n: int, mp, dt):
+    """A rank-partial product (``a``'s last ``n`` dims with ``w``'s first
+    ``n``), summed over the ranks by ``reduce``: the partial sums stay fp32
+    and round to ``dt`` once, after the sum, as one process's product (its
+    accumulation fp32) rounds once."""
+    return mp.reduce(L.contract_f32(a.to(dt), w.to(dt), n)).to(dt)
+
+
+def _self_attention_tp(p, x, positions, cfg: TransformerConfig, mp):
+    """Attention on this rank's shards of ``p`` (``cfg.attn_mode``'s
+    layout; module docstring). Returns this layer's output, whole on every
+    rank, and the k/v it attended with."""
+    dt = cfg.dtype
+    xc = mp.copy(x)
+    if cfg.attn_mode == "contraction":
+        d0, dn = mp.span(cfg.d_model)
+        xs = xc[..., d0:d0 + dn]
+        q, k, v = (_row_parallel(xs, p[w], 1, mp, dt)
+                   for w in ("wq", "wk", "wv"))
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        out, k = _attend_full(q, k, v, positions, cfg)
+        h0, hn = mp.span(cfg.head_dim)
+        return _row_parallel(mp.copy(out)[..., h0:h0 + hn], p["wo"], 2, mp,
+                             dt), (k, v)
+    # head: this rank's q and kv heads; mixed: its q heads and the kv heads
+    # they use, from the replicated wk/wv. A replicated leaf read here
+    # (mixed wk/wv, the qk norms) gets this rank's part of its gradient,
+    # which ``copy`` sums over the ranks.
+    shards = {w: mp.copy(p[w]) for w in ("q_norm", "k_norm") if w in p}
+    kv_of_q = None
+    if cfg.attn_mode == "mixed":
+        q0, qn = mp.span(cfg.num_heads)
+        g = cfg.q_groups
+        k0, k1 = q0 // g, (q0 + qn - 1) // g + 1
+        shards.update({w: mp.copy(p[w])[:, k0:k1] for w in ("wk", "wv")})
+        kv_of_q = [(q0 + i) // g - k0 for i in range(qn)]
+        n = k1 - k0
+        if qn % n == 0 and kv_of_q == [i // (qn // n) for i in range(qn)]:
+            kv_of_q = None          # whole groups: the grouped product
+    q, k, v = _project_qkv({**p, **shards}, xc, xc, cfg)
+    if kv_of_q is not None:
+        # A group split between ranks: one kv head a q head.
+        idx = torch.tensor(kv_of_q, device=x.device)
+        k, v = k[:, :, idx], v[:, :, idx]
+    out, k = _attend_full(q, k, v, positions, cfg)
+    return _row_parallel(out, p["wo"], 2, mp, dt), (k, v)
 
 
 def _self_attention_decode(p, x, cache_k, cache_v, slot_pos, pos: int,
@@ -410,9 +489,16 @@ def _cross_body(h, xp, feats, cfg: TransformerConfig):
 # --------------------------------------------------------------- ffn -------
 
 def _dense_ffn(p, x, cfg: TransformerConfig):
+    """SwiGLU; under an ambient model-parallel context ``w_gate``/``w_up``
+    hold this rank's ``mlp`` columns and ``w_down`` its rows."""
     dt = cfg.dtype
+    mp = rules_lib.ambient_model_parallel()
+    if mp is not None:
+        x = mp.copy(x)
     gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    if mp is not None:
+        return _row_parallel(L.swiglu(gate, up), p["w_down"], 1, mp, dt)
     return torch.einsum("bsf,fd->bsd", L.swiglu(gate, up), p["w_down"].to(dt))
 
 
@@ -444,17 +530,36 @@ def _cross_after(cfg: TransformerConfig, i: int) -> Optional[int]:
     return None
 
 
-def _logits(params, h, cfg: TransformerConfig, fetch=None):
+def _logits(params, h, cfg: TransformerConfig, fetch=None, mp=None):
+    """Masked logits; with ``mp`` (tensor-parallel) this rank's vocab
+    columns of them, from its columns of ``head``."""
     fetch = fetch or rules_lib.ambient_fetch()
     h = L.rms_norm(h, fetch(params["final_ln"], "final_ln"), cfg.norm_eps)
+    v0, vn = (0, cfg.vocab) if mp is None else mp.span(cfg.vocab)
+    if mp is not None:
+        h = mp.copy(h)
     logits = torch.einsum("bsd,dv->bsv", h,
                           fetch(params["head"], "head").to(cfg.dtype))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     vmask = torch.where(
-        torch.arange(cfg.vocab, device=h.device) < cfg.vocab_real,
+        torch.arange(v0, v0 + vn, device=h.device) < cfg.vocab_real,
         0.0, NEG_INF)
     return logits + vmask.to(logits.dtype)
+
+
+def _embed(params, tokens, cfg: TransformerConfig, fetch, mp=None):
+    """Token embeddings; with ``mp`` this rank's vocab rows give the
+    tokens it owns (zero for the rest) and ``reduce`` sums them: one
+    nonzero term each, so the result is exact."""
+    emb = fetch(params["embed"], "embed").to(cfg.dtype)
+    if mp is None:
+        return emb[tokens.long()]
+    v0, vn = mp.span(cfg.vocab)
+    local = tokens.long() - v0
+    own = (local >= 0) & (local < vn)
+    rows = emb[local.clamp(0, max(vn - 1, 0))]
+    return mp.reduce(torch.where(own[..., None], rows, torch.zeros_like(rows)))
 
 
 def _layer_body(h, lp, positions, cfg: TransformerConfig):
@@ -478,7 +583,8 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
     # backward pass reads through the same one, under the same ambient
     # mesh (the MoE layer's groups).
     fetch, mesh = rules_lib.ambient_fetch(), rules_lib.ambient_mesh()
-    h = fetch(params["embed"], "embed").to(cfg.dtype)[tokens.long()]
+    mp = rules_lib.ambient_model_parallel()
+    h = _embed(params, tokens, cfg, fetch, mp)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     # With remat each layer keeps only its input for the backward pass and
     # runs again there (only while autograd records), its params read again.
@@ -487,7 +593,7 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
         body, h, use_reentrant=False) if remat else body(h))
 
     def self_layer(h, i):
-        with rules_lib.use_mesh(mesh):
+        with rules_lib.use_mesh(mesh), rules_lib.use_model_parallel(mp):
             lp = fetch(_layer(params, i), "layers")
             return _layer_body(h, lp, positions, cfg)
 
@@ -508,7 +614,7 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
             h, xk, xv = run(lambda h, g=g: cross_layer(h, g), h)
             xks.append(xk)
             xvs.append(xv)
-    logits = _logits(params, h, cfg, fetch)
+    logits = _logits(params, h, cfg, fetch, mp)
     if not return_cache:
         return logits, aux
 
@@ -613,15 +719,25 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
 
 # --------------------------------------------------------------- loss ------
 
-def sharded_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def sharded_ce(logits: torch.Tensor, targets: torch.Tensor, mp=None,
+               offset: int = 0) -> torch.Tensor:
     """Mean next-token cross-entropy, written as the JAX package writes it
-    (a max-shifted logsumexp and a masked pick of the target logit)."""
+    (a max-shifted logsumexp and a masked pick of the target logit). With
+    ``mp`` the logits are this rank's vocab columns from ``offset`` on: the
+    max (detached) is taken over the ranks, and the sum of ``exp`` and the
+    picked logit are each summed over them (``reduce``)."""
     logits32 = logits.float()
     m = logits32.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits32 - m), dim=-1)) + m[..., 0]
-    iota = torch.arange(logits.shape[-1], device=logits.device)
+    if mp is not None:
+        m = mp.max(m)
+    sum_exp = torch.sum(torch.exp(logits32 - m), dim=-1)
+    iota = torch.arange(offset, offset + logits.shape[-1],
+                        device=logits.device)
     picked = torch.sum(torch.where(iota == targets[..., None], logits32,
                                    torch.zeros_like(logits32)), dim=-1)
+    if mp is not None:
+        sum_exp, picked = mp.reduce(sum_exp), mp.reduce(picked)
+    lse = torch.log(sum_exp) + m[..., 0]
     return (lse - picked).mean()
 
 
@@ -632,4 +748,6 @@ def loss_fn(params, batch, cfg: TransformerConfig):
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, inputs, cfg,
                           cross_feats=batch.get("cross_feats"))
-    return sharded_ce(logits, targets) + aux
+    mp = rules_lib.ambient_model_parallel()
+    offset = 0 if mp is None else mp.span(cfg.vocab)[0]
+    return sharded_ce(logits, targets, mp, offset) + aux

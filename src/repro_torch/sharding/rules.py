@@ -381,6 +381,36 @@ def ambient_fetch():
     return _FETCH[-1] if _FETCH and _FETCH[-1] is not None else _own
 
 
+_MODEL_PARALLEL: list = []
+
+
+class use_model_parallel:
+    """``with use_model_parallel(mp):`` tells the model that its params are
+    this rank's model-axis shards and that it computes on them
+    tensor-parallel: ``mp`` (``engine/placement.py::ModelParallel``) holds
+    the model group, this rank's index ``rank`` on it, its extent ``m``,
+    the spans of each sharded dim and the two collectives (``copy``,
+    ``reduce``). Installed by the engine's loss; ``use_model_parallel(None)``
+    computes on whole params, as outside a mesh."""
+
+    def __init__(self, mp):
+        self.mp = mp
+
+    def __enter__(self):
+        _MODEL_PARALLEL.append(self.mp)
+        return self.mp
+
+    def __exit__(self, *exc):
+        _MODEL_PARALLEL.pop()
+        return False
+
+
+def ambient_model_parallel():
+    """The context ``use_model_parallel`` installed, or None (whole
+    params). Model code takes it once a forward pass, as the fetch."""
+    return _MODEL_PARALLEL[-1] if _MODEL_PARALLEL else None
+
+
 def _redistribute(x, spec, keep=()):
     """Redistribute a DTensor to ``spec`` on its own mesh; mesh dims that
     now shard a tensor dim listed in ``keep`` stay as they are. A plain

@@ -263,3 +263,110 @@ def tree_unpack(vec: torch.Tensor, spec: PackSpec, dtype=None) -> Pytree:
         pieces.append(piece.to(dtype if dtype is not None else leaf_dtype))
         off += size
     return tree_unflatten(spec.treedef, pieces)
+
+
+class ShardRow:
+    """One rank's packed view of its shards as a part of one process's
+    packed row of the whole tree.
+
+    ``shapes`` are the whole leaves' shapes in leaf order; per leaf,
+    ``dims`` names the dim this rank holds a chunk of (None: it holds the
+    leaf whole, as every rank does) and ``spans`` that chunk's ``(start,
+    length)``. The rank's packed view concatenates its chunks in the same
+    leaf order, so an element's place in either row follows from the
+    leaf's flat offset and the chunk (``locate``). A leaf every rank holds
+    whole is counted by the rank with ``owns_whole`` alone, so summing the
+    ranks' parts counts each element of the whole row once."""
+
+    def __init__(self, shapes, dims, spans, owns_whole: bool):
+        self.shapes = [tuple(s) for s in shapes]
+        self.dims, self.spans = list(dims), list(spans)
+        self.owns_whole = owns_whole
+        self.local_shapes = []
+        for shape, d, span in zip(self.shapes, self.dims, self.spans):
+            local = list(shape)
+            if d is not None:
+                local[d] = span[1]
+            self.local_shapes.append(tuple(local))
+        self.sizes = [math.prod(s) for s in self.shapes]
+        self.local_sizes = [math.prod(s) for s in self.local_shapes]
+        self.offsets = _offsets(self.sizes)
+        self.local_offsets = _offsets(self.local_sizes)
+        self.total = sum(self.sizes)
+        self.local_total = sum(self.local_sizes)
+        self._samples = {}
+
+    def _whole_leaves(self) -> list:
+        """``(local offset, size)`` of the leaves held whole."""
+        return [(off, size) for off, size, d in zip(
+            self.local_offsets, self.local_sizes, self.dims) if d is None]
+
+    def locate(self, positions):
+        """Whole-row positions (a sorted int numpy array) -> ``(mine,
+        local)``: which of them this rank counts and their indices in its
+        packed view."""
+        import numpy as np
+        positions = np.asarray(positions, dtype=np.int64)
+        mine = np.zeros(positions.shape, dtype=bool)
+        local = np.zeros(positions.shape, dtype=np.int64)
+        for shape, lshape, d, span, off, size, loff in zip(
+                self.shapes, self.local_shapes, self.dims, self.spans,
+                self.offsets, self.sizes, self.local_offsets):
+            at = np.nonzero((positions >= off) & (positions < off + size))[0]
+            if not at.size:
+                continue
+            within = positions[at] - off
+            if d is None:
+                if self.owns_whole:
+                    mine[at], local[at] = True, loff + within
+                continue
+            coords = list(np.unravel_index(within, shape))
+            keep = (coords[d] >= span[0]) & (coords[d] < span[0] + span[1])
+            coords = [c[keep] for c in coords]
+            coords[d] = coords[d] - span[0]
+            mine[at[keep]] = True
+            local[at[keep]] = loff + np.ravel_multi_index(coords, lshape)
+        return mine, local
+
+    def sample(self, stride: int, device) -> tuple:
+        """The whole row's strided sample (positions ``0, stride, ...``)
+        as ``(slots, local)`` index tensors on ``device``: the sample slots
+        this rank fills and where it reads them in its packed view."""
+        key = (stride, str(device))
+        if key not in self._samples:
+            import numpy as np
+            pos = np.arange(0, self.total, stride)
+            mine, local = self.locate(pos)
+            self._samples[key] = (
+                torch.as_tensor(np.nonzero(mine)[0], device=device),
+                torch.as_tensor(local[mine], device=device))
+        return self._samples[key]
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[..., :local_total]`` (a packed ``[..., D]`` view of
+        magnitudes) with the elements this rank does not count at -1."""
+        x = x[..., :self.local_total]
+        whole = self._whole_leaves()
+        if self.owns_whole or not whole:
+            return x
+        x = x.clone()
+        for off, size in whole:
+            x[..., off:off + size] = -1.0
+        return x
+
+    def owned_nnz(self, x: torch.Tensor) -> torch.Tensor:
+        """Nonzero elements this rank counts in a packed ``[..., D]`` view
+        (an fp32 device scalar, as ``sparsity_of`` counts)."""
+        nnz = (x != 0).float().sum()
+        if not self.owns_whole:
+            for off, size in self._whole_leaves():
+                nnz = nnz - (x[..., off:off + size] != 0).float().sum()
+        return nnz
+
+
+def _offsets(sizes) -> list:
+    out, off = [], 0
+    for s in sizes:
+        out.append(off)
+        off += s
+    return out

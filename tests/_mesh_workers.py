@@ -134,15 +134,15 @@ def lm_case(name: str, mesh=None):
     stream = synthetic.token_lm_stream(3, eng_vocab(arch), LM_SEQ, LM_BATCH)
     with rules_lib.use_mesh(LM_MESH if mesh is None else None):
         state = eng.init(0)
+        init = _whole(eng.params(state))
         losses = []
         for _ in range(LM_STEPS):
             state, m = eng.step(state, {"tokens": next(stream)})
             losses.append(float(m["loss"]))
-    params = eng.params(state)
-    params = tm.tree_map(lambda x: x.full_tensor() if hasattr(
-        x, "full_tensor") else x.clone(), params)
-    return {"params": params, "losses": losses,
-            "kernels": eng.meta["kernels"]}
+    return {"params": _whole(eng.params(state)), "init": init,
+            "losses": losses,
+            "kernels": eng.meta["kernels"],
+            "model_compute": eng.meta.get("model_compute")}
 
 
 # The FSDP archs (params, optimizer state and the aggregate ring sharded
@@ -182,6 +182,59 @@ def fsdp_split(name: str) -> bool:
     kw = FSDP_CASES[name][1]
     return kw["mode"] == "sync" or (kw["mode"] == "stale-psum"
                                     and not kw.get("per_worker_delays"))
+
+
+def params_gap(got, ref, init, far: float = 1e-4) -> tuple:
+    """How far the params ``got`` lie from ``ref``: the largest element's
+    distance, the whole tree's L2 distance relative to how far training
+    moved ``ref`` from ``init``, and the fraction of elements farther than
+    ``far``."""
+    worst = num = den = 0.0
+    n_far = n = 0
+    for g, r, r0 in zip(tm.tree_leaves(got), tm.tree_leaves(ref),
+                        tm.tree_leaves(init)):
+        assert g.shape == r.shape
+        gap = (g - r).abs()
+        worst = max(worst, float(gap.max()))
+        num += float((gap.double() ** 2).sum())
+        den += float(((r - r0).double() ** 2).sum())
+        n_far += int((gap > far).sum())
+        n += gap.numel()
+    return worst, (num / den) ** 0.5, n_far / n
+
+
+def leaf_gaps(got, ref, init, far: float = 1e-4) -> list:
+    """``params_gap`` leaf by leaf: for each leaf its L2 distance from
+    ``ref`` relative to how far training moved that leaf, and the fraction
+    of its elements farther than ``far``."""
+    out = []
+    for g, r, r0 in zip(tm.tree_leaves(got), tm.tree_leaves(ref),
+                        tm.tree_leaves(init)):
+        assert g.shape == r.shape
+        gap = (g - r).abs().double()
+        moved = float(((r - r0).double() ** 2).sum()) ** 0.5
+        out.append((float((gap ** 2).sum()) ** 0.5 / max(moved, 1e-30),
+                    int((gap > far).sum()) / gap.numel()))
+    return out
+
+
+# ``adam_close``'s limits on every leaf: its relative L2 distance and its
+# share of elements farther than lr / 10. The largest readings over every
+# fp32 Adam case of ``test_torch_tp.py`` and ``test_torch_mesh_engine.py``
+# on the CPU were 0.0121 (reduced deepseek-7b stale-psum at 2x2) and
+# 6.1e-5 (one element of a 16,384); the limits are ten times those.
+LEAF_LIMITS = (0.12, 6.1e-4)
+
+
+def adam_close(gaps: list, lr: float = 1e-3) -> bool:
+    """Whether ``leaf_gaps`` (with ``far = lr / 10``) are what an fp32 Adam
+    run whose gradients part from one process's at roundoff shows, leaf by
+    leaf: Adam normalises a near-zero gradient element, so roundoff can
+    flip its step, and such elements are few in every leaf
+    (``LEAF_LIMITS``). A leaf whose gradient is wrong (a missing sum over
+    the ranks) flips a large share of its elements' steps."""
+    return all(rel <= LEAF_LIMITS[0] and share <= LEAF_LIMITS[1]
+               for rel, share in gaps)
 
 
 def _whole(tree):
@@ -410,6 +463,22 @@ def serve_restore_case(mesh, ckpt_dir: str) -> dict:
                 tm.tree_leaves(odd)))}
 
 
+def model_axis_run(mesh, **kw) -> dict:
+    """One stale-psum step of reduced deepseek-7b on ``mesh`` with ``kw``
+    (compression or the packed kernels over its model axis): the ring's
+    delivery and the step's sparsity."""
+    from repro_torch.configs.base import InputShape
+    shape = InputShape("mesh_lm", LM_SEQ, LM_BATCH, "train")
+    eng = planlib.make_train_engine("deepseek-7b", shape, mesh, reduced=True,
+                                    num_workers=2, stale_s=2, device="cpu",
+                                    **kw)
+    stream = synthetic.token_lm_stream(3, eng_vocab("deepseek-7b"), LM_SEQ,
+                                       LM_BATCH)
+    _, m = eng.step(eng.init(0), {"tokens": next(stream)})
+    return {"delivery": eng.meta["kernels"]["delivery"],
+            "sparsity": float(m.get("sparsity", 0.0))}
+
+
 def _raised(build) -> str:
     try:
         build()
@@ -454,12 +523,14 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
             mesh22 = make_host_mesh(2, 2, device="cpu")
             out["restore"] = restore_case(mesh22, out_dir, ("model",))
             out["constraint"] = constraint_case(mesh22)
+            out["model-runs"] = {}
             for what, kw in (("model-compress", dict(compress="topk:0.1")),
                              ("model-kernels", dict(kernels="on"))):
                 out["raises"][what] = _raised(lambda: build_engine(
                     tmlp.loss_fn, topt.sgd(0.1),
                     EngineConfig(mode="stale-psum", s=2, num_workers=2, **kw),
                     mesh=mesh22, device="cpu"))
+                out["model-runs"][what] = model_axis_run(mesh22, **kw)
             for name in LM_CASES:
                 out[name] = lm_case(name, mesh22)
         serve_meshes = {"2x2": (2, 2)} if world == 4 else {"2x1": (2, 1),
@@ -473,6 +544,275 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
             if model > 1:
                 got["restore"] = serve_restore_case(smesh, sub)
             out["serve"][label] = got
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# -- tensor-parallel compute on the model axis (``test_torch_tp.py``) ---------
+
+# JAX attention mode (or the MoE experts) -> reduced arch; each runs with
+# ``tp = 2``, so the modes are those of the full configs at tp = 16, and
+# with remat on, so every layer's collectives run again in the backward.
+TP_ARCHS = {"head": "deepseek-7b", "mixed": "h2o-danube-1.8b",
+            "contraction": "qwen3-14b", "moe": "qwen2-moe-a2.7b"}
+TP_OVERRIDES = {"tp": 2, "remat": True}
+TP_SEQ, TP_BATCH, TP_P, TP_STEPS = 16, 4, 2, 3
+TP_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+TP_MODES = ("simulate", "stale-psum", "ssp", "sync")
+# A config whose packed row fits EXACT_TOPK_MAX (the exact threshold).
+TP_TINY = dict(TP_OVERRIDES, num_layers=1, d_model=32, num_heads=2,
+               num_kv_heads=2, head_dim=8, d_ff=64, vocab=64, vocab_real=60)
+
+
+def tp_api(arch: str, **extra):
+    from repro_torch import configs as cfglib
+    return cfglib.get(arch).api(reduced=True,
+                                overrides={**TP_OVERRIDES, **extra})
+
+
+def tp_tokens(vocab: int, seed: int = 3):
+    return torch.as_tensor(next(synthetic.token_lm_stream(
+        seed, vocab, TP_SEQ, TP_BATCH)))
+
+
+def _model_whole(place, tree) -> list:
+    """Each leaf of a tree of this rank's model shards made whole over the
+    model group (c10d ``all_gather``)."""
+    import torch.distributed as dist
+    from repro_torch.engine.placement import all_gather_dim
+    out = []
+    for x, (_, md), shape in zip(tm.tree_leaves(tree), place._dims,
+                                 place.full_shapes):
+        if md is not None:
+            x = all_gather_dim(dist, x.contiguous(), md, shape[md], place.m,
+                               place.model_axis.group)
+        out.append(x.detach().clone())
+    return out
+
+
+def moe_drops_overrides() -> dict:
+    """The reduced qwen2-moe's MoE settings with capacity drops (capacity
+    factor 0.5) and the aux loss dominant (weight 10)."""
+    import dataclasses
+    moe = tp_api("qwen2-moe-a2.7b").cfg.moe
+    return {"moe": dataclasses.replace(moe, capacity_factor=0.5,
+                                       aux_weight=10.0)}
+
+
+def tp_grad_case(mode: str, mesh=None, plant: bool = False,
+                 **extra) -> dict:
+    """The loss and every leaf's gradient of one batch through the
+    engine's loss: one process on whole params, or this rank's model
+    shards on the tensor-parallel route (the gradients gathered whole).
+    Also how often the loss gathered a model-sharded leaf: the model
+    axis's gathers and ``placement.full`` calls. ``plant``: "reduce" made
+    the identity (each rank keeps its partial sums); ``extra``: config
+    overrides."""
+    from repro_torch.engine import api as api_lib
+    from repro_torch.engine import placement as pl
+    arch = TP_ARCHS[mode]
+    api = tp_api(arch, **extra)
+    params = api.init(0, device="cpu")[0]
+    batch = {"tokens": tp_tokens(api.vocab_real)[None]}
+    if mesh is None:
+        leaves, treedef = tm.tree_flatten(params)
+        leaves = [x.requires_grad_(True) for x in leaves]
+        loss = api.loss(tm.tree_unflatten(treedef, leaves),
+                        {"tokens": batch["tokens"][0]})
+        return {"loss": loss.detach(), "grads": [
+            g.detach() for g in torch.autograd.grad(loss, leaves)]}
+    eng = build_engine(api, topt.sgd(0.1), EngineConfig(mode="sync"),
+                       mesh=mesh, arch=arch, device="cpu")
+    place = eng.placement
+    if plant:
+        place.model_parallel.reduce = lambda x: x
+    place.set_full_shapes(params)
+    shards = place.shard_params(params)
+    leaves, treedef = tm.tree_flatten(shards)
+    leaves = [x.unsqueeze(0).requires_grad_(True) for x in leaves]
+    calls = []
+    real_full = place.full
+    place.full = lambda *a, **k: calls.append(1) or real_full(*a, **k)
+    place.model_axis.record = []
+    loss = api_lib._mesh_loss(api_lib._stacked_loss(api.loss), place, mesh,
+                              False)(tm.tree_unflatten(treedef, leaves),
+                                     batch)[0]
+    grads = torch.autograd.grad(loss, leaves)
+    traffic, place.model_axis.record = place.model_axis.record, None
+    return {"loss": loss.detach(),
+            "grads": _model_whole(place, [g[0] for g in grads]),
+            "full_calls": len(calls), "traffic": traffic,
+            "model_compute": eng.meta["model_compute"]}
+
+
+def tp_engine_case(mode: str, mesh=None, label: str = "1x2",
+                   arch: str = "deepseek-7b", **kw) -> dict:
+    """Reduced ``arch`` at tp = 2 through ``make_train_engine`` with
+    kernels on (P = 2, Adam unless ``optimizer_name``): each step's loss
+    and grad_norm (and sparsity), the whole params at the end, the
+    engine's routes, and on a mesh the model axis's traffic and
+    ``placement.full`` calls over one more step. Without a mesh it runs
+    under ``use_mesh`` of the label's shape (the MoE's groups)."""
+    from repro_torch.configs.base import InputShape
+    data, model = TP_MESHES[label]
+    shape = InputShape("mesh_tp", TP_SEQ, TP_BATCH, "train")
+    p = kw.pop("num_workers", TP_P)
+    kw.setdefault("kernels", "on")
+    eng = planlib.make_train_engine(
+        arch, shape, mesh, reduced=True, overrides=TP_OVERRIDES,
+        num_workers=p, mode=mode, stale_s=0 if mode == "sync" else 2,
+        device="cpu", **kw)
+    stream = synthetic.token_lm_stream(5, eng_vocab(arch), TP_SEQ, TP_BATCH)
+
+    def batch():
+        tokens = torch.as_tensor(next(stream))
+        if mode == "simulate":
+            tokens = tokens.reshape(p, TP_BATCH // p, -1)
+        return {"tokens": tokens}
+
+    out = {"losses": [], "grad_norms": [], "sparsity": [],
+           "kernels": eng.meta["kernels"],
+           "model_compute": eng.meta.get("model_compute")}
+    ambient = rules_lib.AbstractMesh(("data", "model"), (data, model))
+    with rules_lib.use_mesh(ambient if mesh is None else None):
+        state = eng.init(0)
+        out["init"] = _whole(eng.params(state))
+        for _ in range(TP_STEPS):
+            state, m = eng.step(state, batch())
+            out["losses"].append(float(m["loss"]))
+            for key, into in (("grad_norm", "grad_norms"),
+                              ("sparsity", "sparsity")):
+                if key in m:
+                    out[into].append(float(m[key]))
+        out["params"] = _whole(eng.params(state))
+        if mesh is not None:
+            place = eng.placement
+            calls = []
+            real_full = place.full
+            place.full = lambda *a, **k: calls.append(1) or real_full(*a, **k)
+            place.model_axis.record = []
+            eng.step(state, batch())
+            out["traffic"], place.model_axis.record = (
+                place.model_axis.record, None)
+            out["full_calls"] = len(calls)
+    return out
+
+
+TP_ENGINE_CASES = {mode: dict(mode=mode) for mode in TP_MODES}
+TP_ENGINE_CASES.update({
+    "stale-psum-sgd-topk": dict(mode="stale-psum", compress="topk:0.05",
+                                optimizer_name="sgd"),
+    "stale-psum-adam-topk": dict(mode="stale-psum", compress="topk:0.05"),
+    "sync-sgd-topk": dict(mode="sync", compress="topk:0.05",
+                          optimizer_name="sgd"),
+})
+
+
+# Reduced deepseek-67b at tp = 2 (mixed attention) in sync at 2x2: FSDP's
+# per-layer data-axis gathers beside the tensor-parallel model axis.
+TP_FSDP = dict(mode="sync", arch="deepseek-67b", num_workers=4,
+               kernels="auto")
+
+
+def tp_threshold_case(mesh, label: str) -> dict:
+    """The top-k threshold and sparsity of the whole packed row from each
+    rank's packed shards, against the one-process functions on the whole
+    accumulator (which every rank holds here): two ``[2, D]`` rows of a
+    drawn accumulator, at a packed row above ``EXACT_TOPK_MAX`` (reduced
+    deepseek-7b, the strided sample) and below it (``TP_TINY``)."""
+    from repro_torch.compensate import sparsify as sp
+    from repro_torch.engine import placement as pl
+    from repro_torch.kernels import dispatch
+    out = {}
+    for name, extra in (("sampled", {}), ("exact", TP_TINY)):
+        api = tp_api("deepseek-7b", **extra)
+        specs = planlib.params_specs(api, mesh, "deepseek-7b")
+        place = pl.MeshPlacement(mesh, TP_P, specs)
+        params = api.init(0, device="cpu")[0]
+        place.set_full_shapes(params)
+        gen = torch.Generator().manual_seed(11)
+        acc = tm.tree_map(lambda x: torch.randn(
+            (2,) + tuple(x.shape), generator=gen), params)
+        whole = tm.tree_pack(acc, lead_ndim=1, pad_to=dispatch.PACK_ALIGN)
+        total = tm.pack_spec(params).total
+        shards = [x if md is None else x.narrow(md + 1, *pl.chunk_span(
+            shape[md], place.m, place.model_axis.rank))
+            for x, (_, md), shape in zip(tm.tree_leaves(acc), place._dims,
+                                         place.full_shapes)]
+        local = tm.tree_pack(shards, lead_ndim=1, pad_to=dispatch.PACK_ALIGN)
+        got = {}
+        for amount in (0.01, 0.3, 7.0):
+            k = sp.topk_count(amount, total)
+            want = sp.topk_threshold(whole.abs(), k, total)
+            thr = place.row_threshold(local.abs(), k)
+            sent_whole = whole * (whole.abs() >= want[:, None])
+            sent = local * (local.abs() >= thr[:, None])
+            got[amount] = (thr, want, place.row_sparsity(sent),
+                           sp.sparsity_of(sent_whole, total))
+        out[name] = {"total": total, "got": got}
+    return out
+
+
+def tp_route_case(mesh) -> dict:
+    """``meta["model_compute"]`` (and its fallback) of engines on ``mesh``:
+    the tensor-parallel route needs a decoder-only transformer whose every
+    model-sharded dim the extent divides."""
+    from repro_torch.configs.base import InputShape
+    shape = InputShape("mesh_tp", TP_SEQ, TP_BATCH, "train")
+    out = {}
+    for arch, overrides in (("deepseek-7b", None),
+                            ("h2o-danube-1.8b", None),
+                            ("h2o-danube-1.8b", {"tp": 2}),
+                            ("whisper-base", None),
+                            ("llama-3.2-vision-11b", None),
+                            ("mamba2-1.3b", None),
+                            ("zamba2-7b", None)):
+        eng = planlib.make_train_engine(arch, shape, mesh, reduced=True,
+                                        overrides=overrides, stale_s=2,
+                                        device="cpu")
+        out[arch, bool(overrides)] = (eng.meta["model_compute"],
+                                      eng.meta.get("model_compute_fallback"))
+    return out
+
+
+def tp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Spawn target of ``test_torch_tp.py``: the tensor-parallel cases of
+    this world size (2: the 1x2 mesh, 4: 2x2)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        label = "1x2" if world == 2 else "2x2"
+        mesh = make_host_mesh(*TP_MESHES[label], device="cpu")
+        out = {"engine": {name: tp_engine_case(mesh=mesh, label=label, **kw)
+                          for name, kw in TP_ENGINE_CASES.items()},
+               "threshold": tp_threshold_case(mesh, label)}
+        if world == 2:
+            out["grads"] = {mode: tp_grad_case(mode, mesh)
+                            for mode in TP_ARCHS}
+            out["planted"] = tp_grad_case("head", mesh, plant=True)
+            out["moe_drops"] = tp_grad_case("moe", mesh,
+                                            **moe_drops_overrides())
+            out["routes"] = tp_route_case(mesh)
+        else:
+            out["engine"]["moe-stale-psum"] = tp_engine_case(
+                "stale-psum", mesh, label, arch="qwen2-moe-a2.7b")
+            from torch.distributed.device_mesh import init_device_mesh
+            pods = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=(
+                "pod", "data", "model"))
+            out["raises"] = {
+                "pod": _raised(lambda: build_engine(
+                    tmlp.loss_fn, topt.sgd(0.1),
+                    EngineConfig(mode="sync", num_workers=4), mesh=pods,
+                    device="cpu")),
+                "fsdp-compress": _raised(lambda: planlib.make_train_engine(
+                    "deepseek-67b", "train_4k", mesh, stale_s=2,
+                    reduced=True, overrides={"tp": 2}, compress="topk:0.1",
+                    device="cpu"))}
+            out["fsdp"] = tp_engine_case(**TP_FSDP, mesh=mesh, label=label)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -714,3 +714,34 @@ def test_hybrid_forward_and_decode_on_card_match_cpu(cuda_device):
             torch.testing.assert_close(got.cpu(), want, **SSM_CARD_TOL)
     for a, b in zip(tm.tree_leaves(gcache), tm.tree_leaves(wcache)):
         torch.testing.assert_close(a.cpu(), b, **SSM_CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+def test_contract_f32_on_card_matches_fp32_product(cuda_device, n):
+    """``layers.contract_f32`` of bf16 operands on the card (the tensor
+    cores' fp32 result, its own backward) against both operands cast to
+    fp32 first: forward and both gradients, within the fp32
+    accumulation's reordering."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(3, 64, 4, 32, generator=gen, device=cuda_device)
+    w = torch.randn(4, 32, 48, generator=gen, device=cuda_device)
+    if n == 1:
+        a, w = a.reshape(3, 64, 128), w.reshape(128, 48)
+    a, w = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    g = torch.randn(3, 64, 48, generator=gen, device=cuda_device).to(
+        torch.bfloat16).float()
+    got, want = [], []
+    for fn, into in ((lambda x, y: L.contract_f32(x, y, n), got),
+                     (lambda x, y: torch.tensordot(x.float(), y.float(), n),
+                      want)):
+        x, y = (v.clone().requires_grad_(True) for v in (a, w))
+        out = fn(x, y)
+        out.backward(g)
+        into += [out.detach(), x.grad.float(), y.grad.float()]
+    assert got[0].dtype == torch.float32
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    # The gradients round to bf16 once, from sums in another order.
+    for u, v in zip(got[1:], want[1:]):
+        torch.testing.assert_close(u, v, rtol=2 ** -7, atol=1e-2)

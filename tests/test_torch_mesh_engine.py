@@ -7,16 +7,16 @@ parent runs the same cases with no mesh. What the tolerance is, and why:
 
 * **Bitwise** wherever the mesh gathers a crossing's rows and reduces them
   in the one-process order: simulate's dispatch (every source into every
-  destination), the per-worker rings of stale-psum and ssp (the delayed
-  aggregate), and the 2x2 runs of those modes, whose model axis only
-  gathers whole params for the loss.
+  destination) and the per-worker rings of stale-psum and ssp (the delayed
+  aggregate). The 2x2 LM runs compute tensor-parallel on the model axis
+  (``test_torch_tp.py``), so they are held to the sync limits below.
 * **fp32 roundoff** where an all-reduce averages the gradients of a split
   batch (sync, the aggregate ring): each rank's backward sums its half of
   the batch, and the mean of two halves is not one backward's sum over
-  the whole batch. MLP params within 1e-6, losses within 1e-6 relative;
-  the 2x2 deepseek-7b sync run, whose Adam steps turn roundoff in
-  near-zero gradient elements into steps of up to ``lr``, within 2e-4 in
-  params and 1e-5 relative in loss.
+  the whole batch. MLP params within 1e-6, losses within 1e-6 relative.
+  The 2x2 LM runs, whose Adam steps turn roundoff in near-zero gradient
+  elements into steps of up to ``lr``, within ``adam_close`` leaf by leaf;
+  their losses within 1e-6 relative at step 1 and 1e-4 after.
 
 The FSDP archs (reduced deepseek-67b and kimi-k2, momentum) run in the
 same worlds at 2x1, 4x1 and 2x2: params, momentum and the aggregate ring
@@ -125,16 +125,29 @@ def test_2x2_lm_equals_one_process(worlds, case):
     """Reduced deepseek-7b and qwen2-moe-a2.7b on a 2x2 mesh: params on the
     model axis by the rules, the worker axis over data, against one process
     under ``use_mesh`` of the same shape (so the MoE groups its tokens the
-    same way). Kernels are ``auto``, which the model axis vetoes."""
+    same way). Kernels are ``auto``, which the model axis vetoes. Every
+    model dim of both divides by 2, so they compute tensor-parallel, and
+    the row-parallel sums add in another order than one process's einsums:
+    params within Adam's roundoff limits leaf by leaf
+    (``_mesh_workers.adam_close``: in each leaf a few elements whose
+    gradient sign roundoff decides part by up to two Adam steps a step),
+    the first loss within 1e-6 relative and the later ones,
+    which read those params, within 1e-4 (1.6e-5 measured)."""
     ref = W.lm_case(case)
     sync = "sync" in case
     for rank_out in worlds[4]:
         got = rank_out[case]
         assert got["kernels"]["delivery"] == ("none" if sync else "tree")
-        if sync:
-            _same(got, ref, exact=False, atol=2e-4, rtol=1e-5)
-        else:
-            _same(got, ref, exact=True)
+        assert got["model_compute"] == "tensor-parallel"
+        # Step 1 reads the same params; later steps read params that
+        # Adam's flipped elements moved.
+        assert abs(got["losses"][0] - ref["losses"][0]) <= 1e-6 * abs(
+            ref["losses"][0])
+        for g, r in zip(got["losses"][1:], ref["losses"][1:]):
+            assert abs(g - r) <= 1e-4 * abs(r)
+        gaps = W.leaf_gaps(got["params"], ref["params"], ref["init"],
+                           far=1e-4)
+        assert W.adam_close(gaps), gaps
 
 
 def test_restore_places_each_leaf(worlds):
@@ -178,13 +191,18 @@ def test_plan_on_a_device_mesh(worlds):
 
 
 def test_what_a_mesh_does_not_run_names_its_item(worlds):
+    """Only compression over an FSDP arch's data shards raises (A.20);
+    compression and the packed kernels over a model axis build and run."""
     for out in worlds[2] + worlds[4]:
-        for what, msg in out["raises"].items():
-            assert "ROADMAP A.1" in msg or "ROADMAP A.20" in msg, (what, msg)
         assert "ROADMAP A.20" in out["raises"]["fsdp-compress"]
     assert set(worlds[2][0]["raises"]) == {"fsdp-compress"}
     assert set(worlds[4][0]["raises"]) == {"fsdp-compress", "model-compress",
                                            "model-kernels"}
+    for out in worlds[4]:
+        for what in ("model-compress", "model-kernels"):
+            assert out["raises"][what] == "did not raise", what
+        assert out["model-runs"]["model-compress"]["sparsity"] > 0.5
+        assert out["model-runs"]["model-kernels"]["delivery"] == "packed"
 
 
 def _cli_rows_under_torchrun(arch: str) -> None:
