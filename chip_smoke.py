@@ -139,15 +139,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    params, 8 requests over 8
    slots, paged route) booted from a snapshot through ``restore_params``
    and refreshed to a second snapshot mid-serve, mesh-less (the
-   reference: tokens, staleness stamps, ``paged_attention`` launches), on
-   a 1x1 ``DeviceMesh`` over a one-rank ``nccl`` group (bitwise, equal
-   launches) and in two processes on the one card over ``gloo`` at 1x2
+   reference: tokens, each token's logits, staleness stamps,
+   ``paged_attention`` launches), from both snapshots nudged one ulp
+   (the witness, fed the reference's tokens), on a 1x1 ``DeviceMesh``
+   over a one-rank ``nccl`` group (bitwise, equal launches) and in two
+   processes on the one card over ``gloo`` at 1x2
    (``--serve-mesh-rank``: "auto" resolves to the gather route there;
-   ``paged="on"`` overrides it; the model axis shards the restored params
-   and the placement gathers them once a load; each rank bitwise as the
-   mesh-less run), then the same ranks with the gather planted (each
-   rank's other half zeros), which must part; ms a decode step, the
-   gathers' host wall time and each leg's peak memory;
+   ``paged="on"`` overrides it), which serve their model-axis shards
+   tensor-parallel (a rank's heads through ``paged_attention``; no
+   gather at boot or refresh): unrecorded, its tokens the reference's up
+   to a near-tie, and fed the reference's tokens, each token's logits
+   within 2x the witness's gap and its picks the reference's past the
+   near-ties; then the same ranks with "reduce" dropped (planted), which
+   must part past that limit; a rank's served and pool GB, ms a decode
+   step (unrecorded), the restores' host wall time and each leg's peak
+   memory; then whisper-base at full width and depth, which the model
+   axis cannot compute tensor-parallel, mesh-less and on the same ranks
+   on the gathered route (each load made whole by an ``all_gather``), booted and
+   refreshed the same way, bit for bit the mesh-less run, and booted with
+   a gather that delivers nothing (planted), whose tokens must part;
 14. the FSDP archs on a mesh (``fsdp_mesh_path``): deepseek-67b at full
    width cut to 1 layer (2.37 B bf16 params, momentum) in two processes on
    the one card over ``gloo`` (``--fsdp-mesh-rank``): rank 0 first trains
@@ -183,10 +193,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    an arch), which must part; one step on the gathered route
    (``placement.full``), bit for bit the reference's step 1, whose step-1
    gradient's peak (forward and backward) each rank's must fall below; ms
-   a step, the gloo share, a step's model-axis bytes; then kernels 1-4
-   held against their plain versions and timed at a rank's packed width
-   of the danube legs, and a rank's row-parallel products timed with fp32
-   and bf16 partial sums.
+   a step, the gloo share, a step's model-axis bytes; after the qwen3 and
+   the MoE SGD legs, 8 greedy requests served from the leg's initial
+   params by the script as one process, its witness (both before the
+   ranks start) and both ranks on their shards, unrecorded and fed the
+   one process's tokens, held as phase 13 holds its 1x2 serve;
+   then kernels 1-4 held against their plain versions and timed at a
+   rank's packed width of the danube legs, a rank's row-parallel products
+   timed with fp32 and bf16 partial sums, and ``paged_attention`` held
+   and timed at a rank's heads (danube 16/4, the MoE 8/8, qwen3 40/8).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
@@ -198,13 +213,18 @@ kernels' timings, with the ``repro_torch`` package under ``SRC`` (see
 ptxas lines, checks, timings at the DNN and LM widths and D sweep (see
 ``coherence_times``). ``--fsdp-only`` and ``--tp-only [WORD ...]`` run
 phase 14 or 15 alone (with words, only the legs of phase 15 whose label
-holds one).
+holds one); ``--mesh-only [--tree DIR] [PHASE ...]`` the mesh phases 12-15
+(or those named) with their laps, of this tree or of the checkout DIR
+(``mesh_only``). The mesh phases' rank programs run in two rank processes
+the script starts as it starts (``RankPool``).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2243,6 +2263,145 @@ def paged_split_sweep(dev) -> None:
           f"ms: {sweep}")
 
 
+# -- teacher-forced serving ------------------------------------------------------
+#
+# Two servers whose logits part at roundoff (a tensor-parallel serve beside
+# one process, or one process beside its one-ulp witness) sample the same
+# tokens until a near-tie, and then serve different streams whose logits
+# cannot be compared. ``Forcing``, a context manager around ``Server.run``,
+# records for every request the logits of each token it samples (index 0:
+# the prefill's; index j: decode step j) over the real vocab, the top-2
+# margin of the scores its pick takes the argmax of (``plan.pick_scores``:
+# the logits when greedy, the Gumbel-max scores at a temperature) and the
+# server's own pick. Given ``tokens`` ({rid: served tokens} of a reference
+# run) it replaces every pick by the reference's, so each step's input is
+# the reference's token, whatever this server picked: its logits are then
+# comparable with the reference's at every step (``logit_gap``), and its
+# own picks show where the two streams would part (``parting``). The
+# schedule (joins, evictions, refreshes) follows the request budgets and
+# the clock, not the tokens, so a forced run meets the same steps as its
+# reference. A recorded run copies each step's logits to the host, so its
+# decode times are not the server's: time an unrecorded run. The mesh
+# tests use these too (``tests/_mesh_workers.py``).
+
+
+class Forcing:
+    """Record (and with ``tokens``, force) ``server``'s picks while the
+    context is open, by standing in for ``engine/plan.py::_pick`` and the
+    server's ``_sample_first``. ``record()`` gives ``{"logits": {rid:
+    [n, V] fp32 on the host}, "margins": {rid: [float]}, "picks": {rid:
+    [int]}}``."""
+
+    def __init__(self, server, tokens=None):
+        self.server, self.tokens = server, tokens
+        self.vocab = server.api.vocab_real
+        self.rows, self.margins, self.picks = {}, {}, {}
+
+    def _note(self, logits, scores) -> tuple:
+        """``(rows, margins, picks)`` on the host of a block of logits
+        ``[S, V]`` and the scores a pick takes the argmax of, in one copy
+        each (one device sync a step, whatever the slots)."""
+        import torch
+        top2 = torch.topk(scores[:, :self.vocab], 2, dim=-1).values
+        return (logits[:, :self.vocab].detach().to("cpu", torch.float32,
+                                                   copy=True),
+                (top2[:, 0] - top2[:, 1]).tolist(),
+                torch.argmax(scores, dim=-1).tolist())
+
+    def _keep(self, rid: int, at: int, row, margin: float, own: int) -> int:
+        """Record token ``at`` of ``rid``; returns the token to serve."""
+        if at != len(self.picks.setdefault(rid, [])):
+            raise ValueError(f"request {rid}: token {at} recorded out of "
+                             f"order")
+        self.rows.setdefault(rid, []).append(row)
+        self.margins.setdefault(rid, []).append(margin)
+        self.picks[rid].append(own)
+        return own if self.tokens is None else int(self.tokens[rid][at])
+
+    def __enter__(self):
+        import torch
+        from repro_torch.engine import plan as planlib
+        server = self.server
+        self._planlib, self._pick = planlib, planlib._pick
+
+        def pick(logits, tokens, mask, gen, temp):
+            rows, margins, owns = self._note(
+                logits, planlib.pick_scores(logits, gen, temp))
+            nxt = tokens.tolist()
+            for i in torch.nonzero(mask).flatten().tolist():
+                st = server.batcher.slots[i]
+                nxt[i] = self._keep(st.request.rid, len(st.tokens), rows[i],
+                                    margins[i], owns[i])
+            return torch.as_tensor(nxt, dtype=tokens.dtype,
+                                   device=tokens.device)
+
+        def first(logits, rid):
+            rows, margins, owns = self._note(
+                logits[0, -1:].float(), server.first_scores(logits, rid)[None])
+            return self._keep(rid, 0, rows[0], margins[0], owns[0])
+        planlib._pick = pick
+        server._sample_first = first
+        return self
+
+    def __exit__(self, *exc):
+        self._planlib._pick = self._pick
+        del self.server._sample_first
+        return False
+
+    def record(self) -> dict:
+        import torch
+        return {"logits": {rid: torch.stack(rows)
+                           for rid, rows in self.rows.items()},
+                "margins": dict(self.margins), "picks": dict(self.picks)}
+
+
+def logit_gap(got: dict, ref: dict, keep=None) -> dict:
+    """The largest ``|got - ref|`` over every token both records hold
+    (with ``keep``, {rid: [bool a token]}, those it marks), the largest
+    ``|ref|`` logit there and their ratio ``rel``."""
+    import torch
+    worst = scale = 0.0
+    for rid, want in ref["logits"].items():
+        have = got["logits"][rid]
+        n = min(len(have), len(want))
+        rows = (torch.ones(n, dtype=torch.bool) if keep is None
+                else torch.as_tensor(keep[rid][:n], dtype=torch.bool))
+        if not rows.any():
+            continue
+        worst = max(worst, float((have[:n][rows] - want[:n][rows]).abs()
+                                 .max()))
+        scale = max(scale, float(want[:n][rows].abs().max()))
+    return {"max_abs": worst, "scale": scale,
+            "rel": worst / scale if scale else float("inf")}
+
+
+def parting(picks: dict, ref: dict, margin: float) -> dict:
+    """Where ``picks`` ({rid: tokens}: a forced run's own picks, or a free
+    run's served tokens) part from the reference record's: for each
+    request its first near-tie (the first token whose reference top-2
+    margin is below ``margin``, or None) and the tokens before it that
+    differ (``parted``: they must not). A forced run's every step has the
+    reference's inputs, so ``flips`` lists each token, before or after a
+    near-tie, whose reference margin is at least ``margin`` and whose pick
+    differs (for a forced run, none may)."""
+    ties, parted, flips = {}, {}, {}
+    for rid, want in ref["picks"].items():
+        margins = ref["margins"][rid]
+        tie = next((j for j, m in enumerate(margins) if m < margin), None)
+        ties[rid] = tie
+        upto = len(want) if tie is None else tie
+        bad = [j for j, (a, b) in enumerate(zip(picks[rid][:upto],
+                                                 want[:upto])) if a != b]
+        if bad or len(picks[rid]) < upto:
+            parted[rid] = bad or [len(picks[rid])]
+        flipped = [j for j, (a, b, m) in enumerate(zip(picks[rid], want,
+                                                        margins))
+                   if a != b and m >= margin]
+        if flipped:
+            flips[rid] = flipped
+    return {"ties": ties, "parted": parted, "flips": flips}
+
+
 def serve_requests(vocab: int, n: int = SERVE_REQUESTS,
                    new_tokens=SERVE_NEW_TOKENS, prompt_len=None,
                    features=None):
@@ -2308,9 +2467,9 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False,
     ``arch`` on a fresh Server (after a short warm-up serve on another),
     with SERVE changed by ``serve_kw``. Returns the server, the report, the
     launch counters of the measured run and, with ``record``, per request
-    the (top-2 margin, logits) of each decode step."""
+    the (top-2 margin, logits) of each decode step (``Forcing``'s
+    record, the prefill's token left out)."""
     import torch
-    from repro_torch.engine import plan as planlib
     from repro_torch.serving import Server, ServingConfig
 
     cfg = ServingConfig(arch=arch, reduced=False, paged=paged,
@@ -2324,27 +2483,18 @@ def serve_run(dev, params, *, paged: str, overrides=None, record=False,
     warm.run(warm_reqs)
     del warm
     server = Server(cfg, params=params, device=dev)
-    steps = {}
-    pick = planlib._pick
-    if record:
-        def recording_pick(logits, tokens, mask, gen, temp):
-            top2 = torch.topk(logits, 2, dim=-1).values.cpu()
-            lg = logits.cpu()
-            for i, st in enumerate(server.batcher.slots):
-                if st is not None:
-                    steps.setdefault(st.request.rid, []).append(
-                        (float(top2[i, 0] - top2[i, 1]), lg[i]))
-            return pick(logits, tokens, mask, gen, temp)
-        planlib._pick = recording_pick
-    try:
-        torch.cuda.synchronize()
-        reqs = serve_requests(vocab, n, new_tokens, prompt_len=cfg.prompt_len,
-                              features=features)
-        reset_counters()
+    torch.cuda.synchronize()
+    reqs = serve_requests(vocab, n, new_tokens, prompt_len=cfg.prompt_len,
+                          features=features)
+    reset_counters()
+    with Forcing(server) if record else contextlib.nullcontext() as rec:
         report = server.run(reqs)
-        launches = counters()
-    finally:
-        planlib._pick = pick
+    launches = counters()
+    steps = {}
+    if record:
+        got = rec.record()
+        steps = {rid: list(zip(got["margins"][rid][1:], rows[1:]))
+                 for rid, rows in got["logits"].items()}
     return server, report, launches, steps
 
 
@@ -4280,6 +4430,202 @@ def add_cross_rows(kernels: list, cross: dict) -> None:
                 for arch in CROSS_TIMING}
 
 
+# -- the rank processes of the mesh phases -------------------------------------------
+
+# Phases 12-15 each run a rank program in two processes on the one card
+# over gloo (``--mesh-rank``, ``--serve-mesh-rank``, ``--fsdp-mesh-rank``,
+# ``--tp-mesh-rank``). A fresh process pays ~7 s for ``import torch`` and
+# ~3.5 s more for ``torch.distributed.tensor`` on the H100 machine's host,
+# so the script starts POOL_RANKS rank processes once (``--rank-worker``),
+# as it starts: they import what the rank programs use while the first
+# phases run (touching no CUDA until their first job), then run the
+# phases' rank programs one job at a time, each as a process of its own
+# would. A job that fails to end in time, or a process that dies, retires
+# the pool; the next phase starts another.
+POOL_RANKS = 2
+_POOL: list = []
+
+
+def rank_program(argv: list) -> int:
+    """Run the rank program ``argv`` (``[FLAG, R, WORLD, PORT, ...]``) in
+    this process."""
+    global MESH_SERVE_LAYERS
+    flag, args = argv[0], argv[1:]
+    ints = list(map(int, args[:3]))
+    if flag == "--mesh-rank":
+        return mesh_rank(*ints, *args[3:5])
+    if flag == "--serve-mesh-rank":
+        if args[5:6]:
+            MESH_SERVE_LAYERS = int(args[5])        # the parent's depth
+        return serve_mesh_rank(*ints, *args[3:5])
+    if flag == "--fsdp-mesh-rank":
+        return fsdp_mesh_rank(*ints, *args[3:5])
+    if flag == "--tp-mesh-rank":
+        return tp_mesh_rank(*ints, *args[3:])
+    raise ValueError(f"no rank program {flag}")
+
+
+def rank_worker(rank: int, pool_dir: str) -> int:
+    """``--rank-worker R DIR``: process R of the rank pool. Imports what
+    the rank programs use, then runs job k = 0, 1, ... as ``DIR/job<k>
+    .json`` appears (``{"argvs": [argv a rank], "logs": [path or null a
+    rank]}``, ``{"argvs": null}`` to stop; with a log, the job's output
+    goes there) and writes ``DIR/done<k>_<R>.json`` (``{"rc": ...}``).
+    Every job starts from the torch settings the process started with."""
+    import traceback
+    import torch
+    import torch.distributed.tensor  # noqa: F401 (the imports, ahead)
+    import repro_torch.engine.placement  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401
+    import repro_torch.serving  # noqa: F401
+    settings = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cuda.matmul.allow_tf32)
+    parent = os.getppid()
+    for k in itertools.count():
+        path = os.path.join(pool_dir, f"job{k}.json")
+        while not os.path.exists(path):
+            if os.getppid() != parent:
+                return 1                    # the script is gone
+            time.sleep(0.02)
+        with open(path) as f:
+            job = json.load(f)
+        if job["argvs"] is None:
+            return 0
+        log, saved = job["logs"][rank], None
+        if log:
+            saved = (os.dup(1), os.dup(2))
+            fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+            os.dup2(fd, 1)
+            os.dup2(fd, 2)
+            os.close(fd)
+        try:
+            rc = rank_program(job["argvs"][rank])
+        except BaseException:           # noqa: BLE001 (reported as rc 1)
+            traceback.print_exc()
+            rc = 1
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            if saved:
+                for fd, old in ((1, saved[0]), (2, saved[1])):
+                    os.dup2(old, fd)
+                    os.close(old)
+            torch.use_deterministic_algorithms(settings[0],
+                                               warn_only=settings[1])
+            torch.backends.cuda.matmul.allow_tf32 = settings[2]
+            if torch.cuda.is_initialized():
+                release_memory()
+        _write_json(os.path.join(pool_dir, f"done{k}_{rank}.json"),
+                    {"rc": rc})
+
+
+def _write_json(path: str, obj) -> None:
+    """``obj`` to ``path`` in one rename, so a reader sees all or none."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+class RankPool:
+    """POOL_RANKS ``--rank-worker`` processes and their job directory."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+        self.jobs = 0
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        sys.stdout.flush()
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             str(r), self.dir], env=env) for r in range(POOL_RANKS)]
+
+    def alive(self) -> bool:
+        return all(p.poll() is None for p in self.procs)
+
+    def run(self, argvs: list, timeout: float, capture: bool) -> list:
+        """Rank r runs ``argvs[r]``: ``[(returncode, log)]`` a rank (the
+        log "" unless ``capture``; the returncode None where the job did
+        not end within ``timeout`` seconds or the process died, and the
+        pool is then stopped)."""
+        if len(argvs) != len(self.procs):
+            raise ValueError(f"{len(argvs)} ranks on a pool of "
+                             f"{len(self.procs)}")
+        k, self.jobs = self.jobs, self.jobs + 1
+        logs = [os.path.join(self.dir, f"log{k}_{r}.txt") if capture
+                else None for r in range(len(argvs))]
+        sys.stdout.flush()
+        _write_json(os.path.join(self.dir, f"job{k}.json"),
+                    {"argvs": argvs, "logs": logs})
+        rcs = [None] * len(argvs)
+        deadline = time.monotonic() + timeout
+        while None in rcs and time.monotonic() < deadline:
+            for r, rc in enumerate(rcs):
+                done = os.path.join(self.dir, f"done{k}_{r}.json")
+                if rc is None and os.path.exists(done):
+                    with open(done) as f:
+                        rcs[r] = json.load(f)["rc"]
+            if None in rcs and not self.alive():
+                break
+            time.sleep(0.02)
+        if None in rcs:
+            self.stop(kill=True)
+        texts = []
+        for log in logs:
+            texts.append("")
+            if log and os.path.exists(log):
+                with open(log) as f:
+                    texts[-1] = f.read()
+        return list(zip(rcs, texts))
+
+    def stop(self, kill: bool = False) -> None:
+        """Ask the workers to stop (``kill``: kill them), kill any left,
+        and drop the pool."""
+        _write_json(os.path.join(self.dir, f"job{self.jobs}.json"),
+                    {"argvs": None})
+        for p in self.procs:
+            if not kill:
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    pass
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if self in _POOL:
+            _POOL.remove(self)
+
+
+def rank_pool() -> RankPool:
+    """The running pool, started here if there is none or it retired."""
+    if _POOL and not _POOL[0].alive():
+        _POOL[0].stop(kill=True)
+    if not _POOL:
+        _POOL.append(RankPool())
+    return _POOL[0]
+
+
+def stop_rank_pool() -> None:
+    for pool in list(_POOL):
+        pool.stop()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(flag: str, world: int, *args: str, timeout: float,
+              capture: bool = False) -> list:
+    """``FLAG R WORLD PORT *args`` on every rank R of the pool, over a
+    free port: ``[(returncode, log)]`` a rank (``RankPool.run``)."""
+    port = free_port()
+    return rank_pool().run([[flag, str(r), str(world), str(port), *args]
+                            for r in range(world)], timeout, capture)
+
+
 # -- phase 12: the mesh path ------------------------------------------------------
 
 # The DNN legs over a DeviceMesh: (name, mode, optimizer, compensation
@@ -4510,7 +4856,6 @@ def mesh_path(dev) -> dict:
     launch counts; (b) two ranks on the one card over ``gloo`` at data = 2,
     each rank's launch counts checked, against the one-process run as the
     CPU tests hold it (MESH_LEGS)."""
-    import socket
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import backend_for, make_host_mesh
@@ -4526,11 +4871,6 @@ def mesh_path(dev) -> dict:
     table, data = mesh_inputs()
     params0 = mlp.init(0, mlp.MLPConfig(depth=DEPTH), device=dev)
     failures, out = [], {}
-
-    def free_port() -> int:
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            return sock.getsockname()[1]
 
     plain = {leg[0]: mesh_run(dev, leg, params0, data, table)
              for leg in MESH_LEGS}
@@ -4568,31 +4908,17 @@ def mesh_path(dev) -> dict:
 
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-             str(r), str(MESH_RANKS), str(port), tmp, dev.type], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(MESH_RANKS)]
-        try:
-            logs = [p.communicate(timeout=240)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        done = run_ranks("--mesh-rank", MESH_RANKS, tmp, dev.type,
+                         timeout=240, capture=True)
         ranks = []
-        for r, (p, log) in enumerate(zip(procs, logs)):
+        for r, (rc, log) in enumerate(done):
             path = os.path.join(tmp, f"rank{r}.pt")
             ranks.append(torch.load(path, weights_only=False)
                          if os.path.exists(path) else {})
-            if p.returncode != 0:
+            if rc != 0:
                 tail = log.strip().splitlines()[-12:]
-                print(f"mesh rank {r} exited {p.returncode}:\n  "
-                      + "\n  ".join(tail))
-                failures.append(f"two-rank gloo leg: rank {r} exited "
-                                f"{p.returncode}")
+                print(f"mesh rank {r} exited {rc}:\n  " + "\n  ".join(tail))
+                failures.append(f"two-rank gloo leg: rank {r} exited {rc}")
     for leg in MESH_LEGS:
         name, exact, per_step = leg[0], leg[4], leg[5]
         ref = plain[name]
@@ -4667,64 +4993,102 @@ def add_mesh_rows(kernels: list, mesh: dict) -> None:
 # prompts of 128, bf16 compute over fp32 params, paged route "on") at
 # snapshot 1, one warm-up request of MESH_SERVE["warm_tokens"] tokens (its
 # decode steps put the server's step count past 0), then MESH_SERVE["n"]
-# requests with a
-# refresher polling every MESH_SERVE["every"] decode steps of a directory
-# that also holds snapshot 2: the swap lands mid-serve, at decode step
-# ``every``. Snapshot k is the arch's init from seed k. Legs: mesh-less
-# (the reference), handed snapshot 1's params as the publisher made them;
-# on a 1x1 mesh over a one-rank nccl group, handed them too, with a
-# refresher that never swaps (its tokens before the reference's swap are
-# the ones compared: a refresh restore there would prove nothing the two
-# ranks do not); two gloo ranks on the one card at 1x2, which boot through
-# ``restore_params`` (each rank reads its shards of the model axis, the
-# placement gathers them) and refresh; then on those ranks the boot's
-# shards made whole by a gather that delivers nothing (each rank keeps the
-# other rank's half of every model-sharded leaf as zeros), whose snapshot-1
-# tokens must part from the reference's.
+# requests with a refresher polling every MESH_SERVE["every"] decode steps
+# of a directory that also holds snapshot 2: the swap lands mid-serve, at
+# decode step ``every``. Snapshot k is the arch's init from seed k.
+# Legs: mesh-less (the reference), handed snapshot 1's params as the
+# publisher made them, its picks recorded (``Forcing``); its one-ulp
+# witness, handed both snapshots nudged one ulp up and fed the reference's
+# tokens (teacher-forced), whose gap sets the limits below; on a 1x1 mesh
+# over a one-rank nccl group, handed snapshot 1 too, with a refresher that
+# never swaps (its tokens before the reference's swap are the ones
+# compared: a refresh restore there would prove nothing the two ranks do
+# not); two gloo ranks on the one card at 1x2, which boot through
+# ``restore_params`` (each rank reads its shards of the model axis), serve
+# those shards tensor-parallel (mixed attention: a rank's 16 q heads and
+# the 4 kv heads they read, its page pool holding those 4) and swap in
+# snapshot 2's shards mid-serve: once unrecorded (the readings: ms a decode
+# step, tokens equal up to a near-tie) and once teacher-forced with the
+# reference's tokens (the logits); then on those ranks the boot's shards
+# with the model axis's ``reduce`` dropped (each rank keeps its partial
+# sums), whose logits on the snapshot-1 tokens must part past the limit.
+# Last, on the same ranks, the gathered route, which a family the model
+# axis cannot compute tensor-parallel takes (GATHERED_SERVE): booted and
+# refreshed through ``restore_params`` like the danube, each load made
+# whole by the placement's ``all_gather``, its tokens and stamps bit for
+# bit its mesh-less run's; then booted again with a gather that delivers
+# nothing (``NoGather``), whose snapshot-1 tokens must part.
 MESH_SERVE = dict(n=8, new_tokens=(16, 32), warm_tokens=3, every=8)
 MESH_SERVE_RANKS = 2
 # The danube's depth in this phase: 24 (full) until the FSDP mesh phase
 # joined, then 6 of 24 to fit the run (every width kept).
 MESH_SERVE_LAYERS = 6
+# The gathered route's serve: whisper-base at full width and depth
+# (phase 11's serve: prompts of 64 beside each request's own frames) on
+# the paged route ("on": the model axis's veto overridden, so the ranks
+# take the mesh-less run's route), 8 requests of 8-12 new tokens, the swap
+# at decode step 4.
+GATHERED_SERVE = dict(arch=WHISPER_ARCH, n=8, new_tokens=(8, 12), every=4,
+                      paged="on", serve_kw=WHISPER_SERVE["serve_kw"])
+# A tensor-parallel serve's limits, from its one-ulp witness as the
+# training legs take theirs (WITNESS_FACTOR): its teacher-forced logits
+# within WITNESS_FACTOR times the witness's largest gap, both relative to
+# the reference's largest |logit|, never below SERVE_FLOOR nor above
+# SERVE_CEILING however far the witness parts; its own picks the
+# reference's up to the first near-tie, a reference top-2 margin below
+# WITNESS_FACTOR times the witness's largest gap in logits (that gap
+# capped at SERVE_CEILING of the largest |logit|), and, the run being
+# teacher-forced, at every later step whose margin is not a near-tie.
+# bf16 logits of size ~4 take steps of 2^-6, so many steps are near-ties.
+SERVE_FLOOR, SERVE_CEILING = 1e-5, 0.05
 
 
-def mesh_serve_arch() -> str:
-    """The served arch of phase 13: the danube cut to MESH_SERVE_LAYERS
-    (registered in this process, as each rank process registers it)."""
-    return cut_arch(SERVE_ARCH, MESH_SERVE_LAYERS)
+def tp_serve_spec() -> dict:
+    """Phase 13's tensor-parallel serve: the danube cut to
+    MESH_SERVE_LAYERS (registered in this process, as each rank process
+    registers it), on the paged route."""
+    return dict(arch=cut_arch(SERVE_ARCH, MESH_SERVE_LAYERS), paged="on",
+                n=MESH_SERVE["n"], new_tokens=MESH_SERVE["new_tokens"],
+                every=MESH_SERVE["every"], serve_kw={})
 
 
-def publish_snapshots(dev, tmp: str):
-    """Snapshots 2 and 1 of the cut danube in ``tmp/live``, snapshot 1
-    also in ``tmp/boot`` (a hard link): a boot restores the latest of
-    ``boot``, the refresher polls ``live``. Returns the directories and
-    snapshot 1's params."""
-    import torch
+def gathered_serve_spec() -> dict:
+    """Phase 13's gathered serve (GATHERED_SERVE)."""
+    return dict(GATHERED_SERVE)
+
+
+def serve_dirs(tmp: str, spec: dict) -> dict:
+    """Where a spec's snapshots live under ``tmp``: a boot restores the
+    latest of ``boot``, the refresher polls ``live``."""
+    return {k: os.path.join(tmp, spec["arch"], k) for k in ("boot", "live")}
+
+
+def publish_snapshots(dev, tmp: str, spec: dict):
+    """Snapshots 2 and 1 of the spec's arch in ``live``, snapshot 1 also
+    in ``boot`` (a hard link; ``serve_dirs``). Returns the directories and
+    both snapshots' params."""
     from repro_torch import configs as cfglib
     from repro_torch.checkpoint import checkpoint as ckpt
-    api = cfglib.get(mesh_serve_arch()).api(reduced=False)
-    dirs = {"boot": os.path.join(tmp, "boot"),
-            "live": os.path.join(tmp, "live")}
+    api = cfglib.get(spec["arch"]).api(reduced=False)
+    dirs = serve_dirs(tmp, spec)
     os.makedirs(dirs["boot"], exist_ok=True)
     t0 = time.perf_counter()
+    params = {}
     for step in (2, 1):
-        params, _ = api.init(step, device=dev)
-        ckpt.save(ckpt.step_path(dirs["live"], step), params, step=step,
-                  extra={"published_at": time.time()})
-        if step == 2:
-            del params
-            torch.cuda.empty_cache()
+        params[step], _ = api.init(step, device=dev)
+        ckpt.save(ckpt.step_path(dirs["live"], step), params[step],
+                  step=step, extra={"published_at": time.time()})
     for suffix in (".npz", ".meta.json"):
         os.link(os.path.join(dirs["live"], "step_1" + suffix),
                 os.path.join(dirs["boot"], "step_1" + suffix))
-    print(f"serve mesh phase: two snapshots of {mesh_serve_arch()} written "
+    print(f"serve mesh phase: two snapshots of {spec['arch']} written "
           f"in {time.perf_counter() - t0:.1f} s")
-    return dirs, params
+    return dirs, params[1], params[2]
 
 
 class NoGather:
     """``torch.distributed``, but ``all_gather`` delivers nothing: every
-    part but the caller's own stays zeros (the planted fault)."""
+    part but the caller's own stays zeros (the planted gather fault)."""
 
     def __getattr__(self, name):
         import torch.distributed as dist
@@ -4737,110 +5101,143 @@ class NoGather:
             part.copy_(x) if i == me else part.zero_()
 
 
-def mesh_server(dev, mesh=None, params=None):
+def mesh_server(dev, spec: dict, mesh=None, params=None):
     from repro_torch.serving import Server, ServingConfig
-    return Server(ServingConfig(arch=mesh_serve_arch(), reduced=False,
-                                paged="on", **SERVE), params=params,
-                  device=dev, mesh=mesh)
+    return Server(ServingConfig(arch=spec["arch"], reduced=False,
+                                paged=spec["paged"],
+                                **{**SERVE, **spec["serve_kw"]}),
+                  params=params, device=dev, mesh=mesh)
 
 
-def mesh_serve_stream(server, dev, refresh_dir=None, boot=1,
-                      every=MESH_SERVE["every"]) -> tuple:
-    """The warm-up request, then MESH_SERVE's requests (a refresher on
+def tree_gb(tree) -> float:
+    from repro_torch import treemath as tm
+    return sum(x.numel() * x.element_size()
+               for x in tm.tree_leaves(tree)) / 1e9
+
+
+def mesh_serve_stream(server, dev, spec: dict, refresh_dir=None, boot=1,
+                      every=None, force=None, load=None,
+                      record=True) -> tuple:
+    """The warm-up request, then the spec's requests (a refresher on
     ``refresh_dir`` from step ``boot``, polling every ``every`` decode
-    steps; 0 never swaps): the served run's report, its launch counters,
-    decode steps and host seconds, and the refresh load's host seconds."""
+    steps, the spec's unless named, 0 never swaps; ``load`` in place of
+    its snapshot read), with ``record`` under ``Forcing`` (``force``: the
+    tokens it feeds): the served run's report, its launch counters, decode
+    steps and host seconds, the refresh load's host seconds, and the
+    ``Forcing`` record (None unrecorded)."""
     import torch
-    vocab = server.api.vocab_real
+    vocab, prompt = server.api.vocab_real, server.cfg.prompt_len
+    feats = cross_features(server.api) or None
     server.run(serve_requests(vocab, 1, new_tokens=(
-        MESH_SERVE["warm_tokens"],) * 2))
+        MESH_SERVE["warm_tokens"],) * 2, prompt_len=prompt, features=feats))
     laps = {}
     if refresh_dir is not None:
         refresher = server.make_refresher(
-            refresh_dir, every_steps=every, base_step=boot)
-        load = refresher.load
+            refresh_dir, every_steps=spec["every"] if every is None
+            else every, base_step=boot)
+        read = load or refresher.load
 
         def timed_load(step):
             t = time.perf_counter()
-            got = load(step)
+            got = read(step)
             torch.cuda.synchronize(dev)
             laps["refresh_load_s"] = time.perf_counter() - t
             return got
         refresher.load = timed_load
-    reqs = serve_requests(vocab, MESH_SERVE["n"], MESH_SERVE["new_tokens"])
+    reqs = serve_requests(vocab, spec["n"], spec["new_tokens"],
+                          prompt_len=prompt, features=feats)
     torch.cuda.synchronize(dev)
     before = server.decode_steps            # the warm-up's (a running count)
     reset_counters()
     t0 = time.perf_counter()
-    rep = server.run(reqs)
+    with (Forcing(server, force) if record
+          else contextlib.nullcontext()) as rec:
+        rep = server.run(reqs)
     laps["run_s"] = time.perf_counter() - t0
-    return rep, counters(), rep.decode_steps - before, laps
+    return (rep, counters(), rep.decode_steps - before, laps,
+            rec.record() if record else None)
 
 
-def mesh_serve_leg(dev, dirs: dict, mesh=None, params=None,
-                   keep_boot=None, every=MESH_SERVE["every"]) -> dict:
+def mesh_serve_leg(dev, dirs: dict, spec: dict, mesh=None, params=None,
+                   keep_boot=None, every=None, force=None, load=None,
+                   record=True, plant=None) -> dict:
     """One leg: a Server (on ``mesh``) at snapshot 1 (``params`` where
     given, else booted from ``dirs["boot"]`` through ``restore_params``)
-    serves the stream with a refresher on ``dirs["live"]`` polling every
-    ``every`` decode steps (0: it never swaps). Returns the
-    served tokens and staleness stamps, the launch counters of the served
-    run, ms a decode step, the host wall time of each gather (the boot's,
-    then the refresh's; none without a mesh), the swap's step and the peak
-    device memory of the leg. ``keep_boot`` (a list) receives the boot's
-    shards."""
+    serves the spec's stream with a refresher on ``dirs["live"]``
+    (``mesh_serve_stream``; ``every`` 0: it never swaps), recorded and fed
+    ``force`` as ``record`` and ``force`` say. ``plant`` is called with
+    the server before the boot. Returns the served tokens and staleness
+    stamps, the record, the launch counters of the served run, ms a decode
+    step, the boot's and the refresh's read seconds, the swap's step, the
+    served params' and the page pool's GB, the model axis's route and
+    whole gathers and the peak device memory of the leg. ``keep_boot`` (a
+    list) receives the booted params."""
     import torch
     torch.cuda.reset_peak_memory_stats(dev)
     given = params is not None
-    server = mesh_server(dev, mesh, params)
+    server = mesh_server(dev, spec, mesh, params)
     del params
-    gathers, laps = [], {}
-    if server.placement is not None:
-        whole = server.placement.whole
-
-        def timed(shards):
-            if keep_boot is not None and not gathers:
-                keep_boot.append(shards)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            got = whole(shards)
-            torch.cuda.synchronize(dev)
-            gathers.append(time.perf_counter() - t0)
-            return got
-        server.placement.whole = timed
-    boot = 1
+    if plant is not None:
+        plant(server)
+    boot, laps = 1, {}
     if not given:
         t0 = time.perf_counter()
         boot = server.restore_params(dirs["boot"])
+        torch.cuda.synchronize(dev)
         laps["boot_s"] = time.perf_counter() - t0
-    rep, launches, steps, more = mesh_serve_stream(server, dev, dirs["live"],
-                                                   boot, every)
+        if keep_boot is not None:
+            keep_boot.append(server.params)
+    served_gb = tree_gb(server.params)
+    rep, launches, steps, more, rec = mesh_serve_stream(
+        server, dev, spec, dirs["live"], boot, every, force, load, record)
     laps.update(more)
     out = {"route": (server.paged_route, server._paged_why),
+           "model_compute": server.model_compute,
            "tokens": {r.rid: r.tokens for r in rep.completed},
            "stamps": {r.rid: r.staleness for r in rep.completed},
-           "report": rep, "launches": launches, "decode_steps": steps,
+           "record": rec, "report": rep, "launches": launches,
+           "decode_steps": steps,
            "ms_per_decode_step": 1e3 * rep.phase_s["decode"] / steps,
-           "tokens_per_s": rep.tokens_per_s, "gather_s": gathers,
+           "tokens_per_s": rep.tokens_per_s, "laps": laps,
+           "served_gb": served_gb,
+           "pool_gb": tree_gb(server.cache.pages),
+           "whole_gathers": (server.placement.whole_gathers
+                             if server.placement is not None else None),
            "boot": boot, "step": server.refresher.current_step,
-           "refreshes": rep.refreshes, "laps": laps,
+           "refreshes": rep.refreshes,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     del server
     torch.cuda.empty_cache()
     return out
 
 
-def planted_leg(dev, mesh, shards) -> dict:
-    """The boot's ``shards`` made whole by a gather that delivers nothing
-    (``NoGather``), served as the leg serves them but with no refresher:
-    its tokens."""
+def planted_leg(dev, spec: dict, mesh, shards, force) -> dict:
+    """The boot's ``shards`` served tensor-parallel with the model axis's
+    ``reduce`` dropped (each rank keeps its partial sums), as the leg
+    serves them but with no refresher, teacher-forced with ``force``: its
+    record."""
     import torch
-    server = mesh_server(dev, mesh)
+    server = mesh_server(dev, spec, mesh)
+    server.model_parallel.reduce = lambda x: x
+    server.params = shards
+    del shards
+    record = mesh_serve_stream(server, dev, spec, force=force)[4]
+    del server
+    torch.cuda.empty_cache()
+    return {"record": record}
+
+
+def planted_gather_leg(dev, spec: dict, mesh, dirs: dict) -> dict:
+    """The gathered route booted from ``dirs["boot"]`` with a gather that
+    delivers nothing (``NoGather``), served as the leg serves but with no
+    refresher and unrecorded: its tokens."""
+    import torch
+    server = mesh_server(dev, spec, mesh)
     collectives = server.placement.dist
     server.placement.dist = NoGather()
-    server.params = server.placement.whole(shards)
+    server.restore_params(dirs["boot"])
     server.placement.dist = collectives
-    del shards
-    rep = mesh_serve_stream(server, dev)[0]
+    rep = mesh_serve_stream(server, dev, spec, record=False)[0]
     del server
     torch.cuda.empty_cache()
     return {"tokens": {r.rid: r.tokens for r in rep.completed}}
@@ -4848,10 +5245,13 @@ def planted_leg(dev, mesh, shards) -> dict:
 
 def serve_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                     device: str = "cuda") -> int:
-    """``--serve-mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of the
-    1 x WORLD serve on the one card over ``gloo``. Resolves the route under
-    "auto" on the mesh, runs the leg and the planted leg on the snapshots
-    under DIR, and saves them as ``DIR/rank<R>.pt``."""
+    """``--serve-mesh-rank R WORLD PORT DIR [DEVICE [LAYERS]]``: one rank
+    of the 1 x WORLD serves on the one card over ``gloo``. Resolves the
+    danube's route under "auto" on the mesh, then runs, on the snapshots
+    under DIR, its leg unrecorded, its leg teacher-forced with the
+    reference's tokens (``DIR/forced.pt``), the planted leg, the gathered
+    route's leg and its planted gather, saving them as ``DIR/rank<R>.pt``
+    as it goes."""
     import torch
     import torch.distributed as dist
     from repro_torch import configs as cfglib
@@ -4867,23 +5267,32 @@ def serve_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         build.library()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
-    dirs = {"boot": os.path.join(out_dir, "boot"),
-            "live": os.path.join(out_dir, "live")}
+    tp, gathered = tp_serve_spec(), gathered_serve_spec()
+    dirs, gdirs = serve_dirs(out_dir, tp), serve_dirs(out_dir, gathered)
+    force = torch.load(os.path.join(out_dir, "forced.pt"))
     out = {}
     path = os.path.join(out_dir, f"rank{rank}.pt")
     try:
         mesh = make_host_mesh(1, world, device=dev.type)
-        api = cfglib.get(mesh_serve_arch()).api(reduced=False)
+        api = cfglib.get(tp["arch"]).api(reduced=False)
         layout = build_layout(api, SERVE["max_seq"], SERVE["page_tokens"],
                               device=dev)
         out["auto"] = planlib.resolve_serve_paged(
-            api, layout, mesh_serve_arch(), mesh, "auto")
+            api, layout, tp["arch"], mesh, "auto")
         boot = []
-        for leg in ("leg", "planted"):
+        legs = (("leg", lambda: mesh_serve_leg(dev, dirs, tp, mesh,
+                                               record=False)),
+                ("forced", lambda: mesh_serve_leg(
+                    dev, dirs, tp, mesh, keep_boot=boot, force=force)),
+                ("planted", lambda: planted_leg(dev, tp, mesh, boot.pop(),
+                                                force)),
+                ("gathered", lambda: mesh_serve_leg(
+                    dev, gdirs, gathered, mesh, record=False)),
+                ("gathered planted", lambda: planted_gather_leg(
+                    dev, gathered, mesh, gdirs)))
+        for leg, run in legs:
             try:
-                out[leg] = (mesh_serve_leg(dev, dirs, mesh, keep_boot=boot)
-                            if leg == "leg" else
-                            planted_leg(dev, mesh, boot.pop()))
+                out[leg] = run()
             except Exception as e:      # noqa: BLE001 (reported, then raised)
                 out[leg] = {"error": f"{type(e).__name__}: {e}"}
                 raise
@@ -4894,12 +5303,14 @@ def serve_mesh_rank(rank: int, world: int, port: int, out_dir: str,
     return 0
 
 
-def same_serve(a: dict, b: dict, keep=None) -> bool:
-    """Equal tokens and staleness stamps: steps behind equal, and the age
-    present at the same tokens (its value is a wall-clock reading).
-    ``keep`` ({rid: [bool a token]}) compares only the tokens it marks."""
+def same_serve(a: dict, b: dict, keep=None, tokens=True) -> bool:
+    """Equal tokens (unless ``tokens`` is false) and staleness stamps:
+    steps behind equal, and the age present at the same tokens (its value
+    is a wall-clock reading). ``keep`` ({rid: [bool a token]}) compares
+    only the tokens it marks."""
     def served(x):
-        return {rid: [(t, s, age is None) for i, (t, (s, age)) in
+        return {rid: [(t if tokens else None, s, age is None)
+                      for i, (t, (s, age)) in
                       enumerate(zip(x["tokens"][rid], x["stamps"][rid]))
                       if keep is None or keep[rid][i]]
                 for rid in x["tokens"]}
@@ -4914,13 +5325,61 @@ def snapshot1_tokens(ref: dict) -> dict:
             for rid, st in ref["stamps"].items()}
 
 
+def witness_limits(ref: dict, wit: dict) -> dict:
+    """A tensor-parallel serve's limits from the one-ulp witness's record
+    (``wit``) against the reference's (``ref``): ``rel``, the logits'
+    largest gap relative to the reference's largest |logit|, and
+    ``margin``, the near-tie below which a pick may part (module comment
+    at SERVE_FLOOR)."""
+    gap = logit_gap(wit, ref)
+    return {"witness": gap,
+            "rel": min(max(WITNESS_FACTOR * gap["rel"], SERVE_FLOOR),
+                       SERVE_CEILING),
+            "margin": WITNESS_FACTOR * min(gap["max_abs"],
+                                           SERVE_CEILING * gap["scale"])}
+
+
+def held_forced(label: str, got: dict, ref: dict, limits: dict,
+                failures: list) -> dict:
+    """Hold a teacher-forced record against the reference's within
+    ``limits`` (``witness_limits``): the logits' gap, and the picks up to
+    each request's first near-tie. Prints both; returns the readings."""
+    gap = logit_gap(got, ref)
+    part = parting(got["picks"], ref, limits["margin"])
+    ties = {rid: j for rid, j in part["ties"].items() if j is not None}
+    clear = sum(m >= limits["margin"] for ms in ref["margins"].values()
+                for m in ms)
+    total = sum(map(len, ref["margins"].values()))
+    print(f"{label}: teacher-forced logits part {gap['max_abs']!r} "
+          f"({gap['rel']!r} of the largest |logit| {gap['scale']!r}; limit "
+          f"{limits['rel']!r}, witness {limits['witness']['rel']!r}); own "
+          f"picks part from the reference's before a near-tie (margin < "
+          f"{limits['margin']!r}) in {len(part['parted'])} requests "
+          f"{part['parted']}; {len(ties)} of {len(part['ties'])} requests "
+          f"reach a near-tie, first at tokens {ties}; picks flipped at "
+          f"{part['flips']} of the {clear} of {total} tokens past the "
+          f"margin")
+    if gap["rel"] > limits["rel"]:
+        failures.append(f"{label}: logits part {gap['rel']!r} of the "
+                        f"largest, over {limits['rel']!r}")
+    if part["parted"] or part["flips"]:
+        failures.append(f"{label}: picks part before a near-tie "
+                        f"{part['parted']} or flip past the margin "
+                        f"{part['flips']}")
+    return {"logit_gap": gap, "parted": part["parted"], "near_ties": ties,
+            "flips": part["flips"], "clear_tokens": clear,
+            "tokens": total}
+
+
 def serve_mesh_path(dev) -> dict:
     """Phase 13: the full-width danube (MESH_SERVE_LAYERS deep) served
-    mesh-less, on a 1x1 nccl mesh and on two gloo ranks at 1x2 (with the
-    planted gather), each booted from snapshot 1 and refreshed to
-    snapshot 2 mid-serve (MESH_SERVE)."""
+    mesh-less, from one-ulp-nudged params (the witness), on a 1x1 nccl
+    mesh and on two gloo ranks at 1x2 tensor-parallel (unrecorded,
+    teacher-forced, and with the planted dropped ``reduce``), each booted
+    from snapshot 1 and refreshed to snapshot 2 mid-serve (MESH_SERVE);
+    then GATHERED_SERVE mesh-less and on the two ranks on the gathered
+    route (with the planted ``NoGather``)."""
     import gc
-    import socket
     import torch
     import torch.distributed as dist
     from repro_torch import configs as cfglib
@@ -4931,47 +5390,65 @@ def serve_mesh_path(dev) -> dict:
     t0 = time.perf_counter()
     failures, out = [], {}
 
-    def free_port() -> int:
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            return sock.getsockname()[1]
-
     def row(leg: dict) -> dict:
         return {k: leg[k] for k in (
-            "decode_steps", "ms_per_decode_step", "tokens_per_s", "gather_s",
-            "laps", "boot", "step", "refreshes", "peak_mem_gb", "route")} | {
+            "decode_steps", "ms_per_decode_step", "tokens_per_s", "laps",
+            "served_gb", "pool_gb", "whole_gathers", "boot", "step",
+            "refreshes", "peak_mem_gb", "route", "model_compute")} | {
             "launches": leg["launches"]["paged_attention"]}
 
+    def swapped(label: str, leg: dict) -> None:
+        if (leg["boot"], leg["step"], leg["refreshes"]) != (1, 2, 1):
+            failures.append(f"{label}: boot {leg['boot']}, step "
+                            f"{leg['step']}, refreshes {leg['refreshes']}; "
+                            "expected one swap from 1 to 2")
+
+    tp, gathered = tp_serve_spec(), gathered_serve_spec()
+    api = cfglib.get(tp["arch"]).api(reduced=False)
+    whole_gb = tree_gb(api.init(0, device="meta")[0])
     with tempfile.TemporaryDirectory() as tmp:
-        dirs, params1 = publish_snapshots(dev, tmp)
-        ref = mesh_serve_leg(dev, dirs, params=params1)
-        want = cfglib.get(mesh_serve_arch()).api(
-            reduced=False).cfg.num_layers * ref["decode_steps"]
+        dirs, params1, params2 = publish_snapshots(dev, tmp, tp)
+        ref = mesh_serve_leg(dev, dirs, tp, params=params1)
+        want = api.cfg.num_layers * ref["decode_steps"]
         others = {k: n for k, n in ref["launches"].items()
                   if k != "paged_attention" and n}
-        print(f"serve mesh-less: {json.dumps(row(ref))}")
+        print(f"serve mesh-less (recorded): {json.dumps(row(ref))}")
         if ref["launches"]["paged_attention"] != want or others:
             failures.append(f"mesh-less: launches {ref['launches']}, "
                             f"expected paged_attention={want} only")
-        if (ref["boot"], ref["step"], ref["refreshes"]) != (1, 2, 1):
-            failures.append(f"mesh-less: boot {ref['boot']}, step "
-                            f"{ref['step']}, refreshes {ref['refreshes']}; "
-                            "expected one swap from 1 to 2")
+        swapped("mesh-less", ref)
         out["mesh-less"] = row(ref)
+        torch.save(ref["tokens"], os.path.join(tmp, "forced.pt"))
+
+        t_w = time.perf_counter()
+        wit = mesh_serve_leg(
+            dev, dirs, tp, params=nudged(params1), force=ref["tokens"],
+            load=lambda step: (nudged(params2),
+                               {"published_at": time.time()}))
+        del params2
+        limits = witness_limits(ref["record"], wit["record"])
+        print(f"serve witness (both snapshots one ulp up, teacher-forced): "
+              f"logits part {json.dumps(limits['witness'])}; limits: "
+              f"{limits['rel']!r} of the largest |logit|, near-tie margin "
+              f"{limits['margin']!r}; {time.perf_counter() - t_w:.1f} s")
+        out["witness"] = dict(row(wit), **{k: limits[k] for k in (
+            "witness", "rel", "margin")})
 
         backend = backend_for(dev)
         dist.init_process_group(backend, init_method=f"tcp://localhost:"
                                 f"{free_port()}", rank=0, world_size=1)
         try:
-            one = mesh_serve_leg(dev, dirs, make_host_mesh(
-                1, 1, device=dev.type), params=params1, every=0)
+            one = mesh_serve_leg(dev, dirs, tp, make_host_mesh(
+                1, 1, device=dev.type), params=params1, every=0,
+                record=False)
         finally:
             dist.destroy_process_group()
         del params1
         pre = snapshot1_tokens(ref)
         ok = same_serve(one, ref, keep=pre)
-        print(f"serve mesh 1x1 {backend}: the {sum(map(sum, pre.values()))} "
-              f"snapshot-1 tokens bitwise {ok}; {json.dumps(row(one))}")
+        print(f"serve mesh 1x1 {backend} (unrecorded): the "
+              f"{sum(map(sum, pre.values()))} snapshot-1 tokens bitwise "
+              f"{ok}; {json.dumps(row(one))}")
         if not ok:
             failures.append("1x1: snapshot-1 tokens or stamps differ from "
                             "mesh-less")
@@ -4982,74 +5459,137 @@ def serve_mesh_path(dev) -> dict:
             failures.append(f"1x1: launches {one['launches']} vs "
                             f"{ref['launches']}")
         out[f"1x1 {backend}"] = dict(row(one), bitwise=ok)
-        print(f"serve mesh phase: mesh-less and 1x1 legs took "
+
+        gdirs, gparams1, _ = publish_snapshots(dev, tmp, gathered)
+        gref = mesh_serve_leg(dev, gdirs, gathered, params=gparams1,
+                              record=False)
+        del gparams1
+        gwhole_gb = tree_gb(cfglib.get(gathered["arch"]).api(
+            reduced=False).init(0, device="meta")[0])
+        print(f"serve {gathered['arch']} mesh-less: {json.dumps(row(gref))}")
+        swapped(f"{gathered['arch']} mesh-less", gref)
+        out[f"{gathered['arch']} mesh-less"] = row(gref)
+        print(f"serve mesh phase: the one-process legs took "
               f"{time.perf_counter() - t0:.1f} s")
 
         t1 = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--serve-mesh-rank",
-             str(r), str(MESH_SERVE_RANKS), str(port), tmp, dev.type,
-             str(MESH_SERVE_LAYERS)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(MESH_SERVE_RANKS)]
-        try:
-            logs = [p.communicate(timeout=300)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        done = run_ranks("--serve-mesh-rank", MESH_SERVE_RANKS, tmp,
+                         dev.type, str(MESH_SERVE_LAYERS), timeout=300,
+                         capture=True)
         ranks = []
-        for r, (p, log) in enumerate(zip(procs, logs)):
+        for r, (rc, log) in enumerate(done):
             path = os.path.join(tmp, f"rank{r}.pt")
             ranks.append(torch.load(path, weights_only=False)
                          if os.path.exists(path) else {})
-            if p.returncode != 0:
+            if rc != 0:
                 tail = log.strip().splitlines()[-12:]
-                print(f"serve mesh rank {r} exited {p.returncode}:\n  "
+                print(f"serve mesh rank {r} exited {rc}:\n  "
                       + "\n  ".join(tail))
-                failures.append(f"two-rank serve: rank {r} exited "
-                                f"{p.returncode}")
+                failures.append(f"two-rank serve: rank {r} exited {rc}")
     for r, got in enumerate(ranks):
         auto = got.get("auto")
         if auto != ("gather", f"model axis extent {MESH_SERVE_RANKS}"):
             failures.append(f"1x2 rank {r}: auto resolved to {auto}")
-        leg, planted = got.get("leg"), got.get("planted")
-        if leg is None or "error" in leg:
-            failures.append(f"1x2 rank {r}: {leg['error'] if leg else 'none'}")
+        legs = {k: got.get(k) for k in ("leg", "forced", "planted",
+                                         "gathered", "gathered planted")}
+        bad = {k: (v or {}).get("error", "none") for k, v in legs.items()
+               if v is None or "error" in v}
+        if bad:
+            failures.append(f"1x2 rank {r}: {bad}")
             continue
-        ok = same_serve(leg, ref)
-        print(f"serve mesh 1x2 gloo rank {r}: auto {auto}; bitwise {ok}; "
-              f"{json.dumps(row(leg))}")
+        leg, forced = legs["leg"], legs["forced"]
+        part = parting(leg["tokens"], ref["record"], limits["margin"])
+        ties = {rid: j for rid, j in part["ties"].items() if j is not None}
+        stamps = same_serve(leg, ref, tokens=False)
+        print(f"serve mesh 1x2 gloo rank {r} (unrecorded): auto {auto}; "
+              f"served tokens part from the reference's before a near-tie "
+              f"(margin < {limits['margin']!r}) in {len(part['parted'])} "
+              f"requests {part['parted']}, {len(ties)} of "
+              f"{len(part['ties'])} requests reach a near-tie, first at "
+              f"tokens {ties}; stamps the reference's {stamps}; served "
+              f"params {leg['served_gb']:.3f} GB against the gathered "
+              f"route's {whole_gb:.3f} GB; {json.dumps(row(leg))}")
+        if part["parted"]:
+            failures.append(f"1x2 rank {r}: tokens part before a near-tie "
+                            f"{part['parted']}")
+        if not stamps:
+            failures.append(f"1x2 rank {r}: stamps differ from mesh-less")
+        for name, x in (("leg", leg), ("forced", forced)):
+            if x["model_compute"] != ("tensor-parallel", ""):
+                failures.append(f"1x2 rank {r} {name}: model axis "
+                                f"{x['model_compute']}")
+            if x["whole_gathers"]:
+                failures.append(f"1x2 rank {r} {name}: {x['whole_gathers']}"
+                                " model-axis gathers of whole params")
+            if x["launches"] != ref["launches"]:
+                failures.append(f"1x2 rank {r} {name}: launches "
+                                f"{x['launches']} vs {ref['launches']}")
+            swapped(f"1x2 rank {r} {name}", x)
+            if x["report"] != ranks[0]["leg" if name == "leg" else
+                                       "forced"]["report"]:
+                failures.append(f"1x2 rank {r} {name}: its report is not "
+                                "rank 0's")
+        held = held_forced(f"serve mesh 1x2 gloo rank {r} (teacher-forced)",
+                           forced["record"], ref["record"], limits, failures)
+        if not same_serve(forced, ref):
+            failures.append(f"1x2 rank {r}: forced tokens or stamps differ "
+                            "from mesh-less")
+        first = ranks[0]["forced"]["record"]["logits"]
+        if not all(torch.equal(x, first[rid])
+                   for rid, x in forced["record"]["logits"].items()):
+            failures.append(f"1x2 rank {r}: its logits are not rank 0's")
+        out[f"1x2 gloo rank {r}"] = dict(
+            row(leg), auto=auto, whole_gb=whole_gb,
+            unrecorded={"parted": part["parted"], "near_ties": ties},
+            forced=row(forced), **held)
+        gap = logit_gap(legs["planted"]["record"], ref["record"], keep=pre)
+        print(f"serve mesh 1x2 gloo rank {r} (planted fault, reduce "
+              f"dropped): logits on the snapshot-1 tokens part "
+              f"{gap['rel']!r} of the largest (limit {limits['rel']!r})")
+        if not gap["rel"] > limits["rel"]:
+            failures.append(f"1x2 planted rank {r}: parts only "
+                            f"{gap['rel']!r}")
+        out[f"1x2 planted rank {r}"] = {"logit_gap": gap}
+
+        g, gp = legs["gathered"], legs["gathered planted"]
+        ok = same_serve(g, gref)
+        print(f"serve {gathered['arch']} mesh 1x2 gloo rank {r}: "
+              f"{g['model_compute']}; tokens and stamps bitwise the "
+              f"mesh-less run's {ok}; served params {g['served_gb']:.3f} GB "
+              f"(whole {gwhole_gb:.3f}); {g['whole_gathers']} model-axis "
+              f"gathers; {json.dumps(row(g))}")
         if not ok:
-            failures.append(f"1x2 rank {r}: tokens or stamps differ from "
-                            "mesh-less")
-        if leg["launches"] != ref["launches"]:
-            failures.append(f"1x2 rank {r}: launches {leg['launches']} vs "
-                            f"{ref['launches']}")
-        if len(leg["gather_s"]) != 2:
-            failures.append(f"1x2 rank {r}: {len(leg['gather_s'])} gathers, "
-                            "expected the boot's and the refresh's")
-        if leg["report"] != ranks[0].get("leg", {}).get("report"):
-            failures.append(f"1x2 rank {r}: its report is not rank 0's")
-        out[f"1x2 gloo rank {r}"] = dict(row(leg), auto=auto, bitwise=ok)
-        if planted is None or "error" in planted:
-            failures.append(f"1x2 planted rank {r}: "
-                            f"{planted['error'] if planted else 'none'}")
-            continue
-        parted = sum(a != b and early for rid in ref["tokens"]
-                     for a, b, early in zip(planted["tokens"][rid],
-                                            ref["tokens"][rid], pre[rid]))
-        print(f"serve mesh 1x2 gloo rank {r} (planted fault): {parted} of "
-              f"the {sum(map(sum, pre.values()))} snapshot-1 tokens part "
-              "from the mesh-less run's")
+            failures.append(f"1x2 gathered rank {r}: tokens or stamps "
+                            "differ from mesh-less")
+        if g["model_compute"][0] != "gathered" or not g["whole_gathers"]:
+            failures.append(f"1x2 gathered rank {r}: {g['model_compute']}, "
+                            f"{g['whole_gathers']} whole gathers")
+        if abs(g["served_gb"] - gwhole_gb) > 1e-9:
+            failures.append(f"1x2 gathered rank {r}: serves "
+                            f"{g['served_gb']} GB, not the whole "
+                            f"{gwhole_gb}")
+        if g["launches"] != gref["launches"]:
+            failures.append(f"1x2 gathered rank {r}: launches "
+                            f"{g['launches']} vs {gref['launches']}")
+        swapped(f"1x2 gathered rank {r}", g)
+        if g["report"] != ranks[0]["gathered"]["report"]:
+            failures.append(f"1x2 gathered rank {r}: its report is not "
+                            "rank 0's")
+        gpre = snapshot1_tokens(gref)
+        parted = sum(a != b and early for rid in gref["tokens"]
+                     for a, b, early in zip(gp["tokens"][rid],
+                                            gref["tokens"][rid], gpre[rid]))
+        print(f"serve {gathered['arch']} mesh 1x2 gloo rank {r} (planted "
+              f"fault, a gather that delivers nothing): {parted} of the "
+              f"{sum(map(sum, gpre.values()))} snapshot-1 tokens part from "
+              f"the mesh-less run's")
         if not parted:
-            failures.append(f"1x2 planted rank {r}: no token parts")
-        out[f"1x2 planted rank {r}"] = {"parted_tokens": parted}
+            failures.append(f"1x2 gathered planted rank {r}: no token "
+                            "parts")
+        out[f"1x2 gathered rank {r}"] = dict(row(g), bitwise=ok,
+                                             planted_parted=parted)
     print(f"serve mesh phase: two-rank legs took "
           f"{time.perf_counter() - t1:.1f} s; the phase "
           f"{time.perf_counter() - t0:.1f} s")
@@ -5060,12 +5600,12 @@ def serve_mesh_path(dev) -> dict:
 
 def add_serve_mesh_rows(kernels: list, serve_mesh: dict) -> None:
     """Beside paged_attention, its launches on every leg of phase 13 (the
-    planted fault's run is not one)."""
+    witness's and the planted fault's runs are not main-path runs)."""
     for entry in kernels:
         if entry["name"] == "paged_attention":
             entry["launches_serve_mesh"] = {
                 leg: row["launches"] for leg, row in serve_mesh.items()
-                if "launches" in row}
+                if "launches" in row and leg != "witness"}
 
 
 # -- phase 14: the FSDP archs trained on a mesh ------------------------------------
@@ -5565,38 +6105,22 @@ def fsdp_mesh_path(dev) -> dict:
     (``memory_check``), and each rank's stale-psum peak below the
     one-process peak. The ranks print their progress as they go."""
     import gc
-    import socket
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     failures, out = [], {}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        sys.stdout.flush()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--fsdp-mesh-rank",
-             str(r), str(FSDP_RANKS), str(port), tmp, dev.type], env=env)
-            for r in range(FSDP_RANKS)]
-        try:
-            for p in procs:
-                p.wait(timeout=600)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        done = run_ranks("--fsdp-mesh-rank", FSDP_RANKS, tmp, dev.type,
+                         timeout=600)
         ranks = []
-        for r, p in enumerate(procs):
+        for r, (rc, _) in enumerate(done):
             path = os.path.join(tmp, f"rank{r}.pt")
             ranks.append(torch.load(path, weights_only=False)
                          if os.path.exists(path) else {})
-            if p.returncode != 0 or "error" in ranks[-1]:
-                failures.append(f"fsdp mesh rank {r} exited {p.returncode}: "
+            if rc != 0 or "error" in ranks[-1]:
+                failures.append(f"fsdp mesh rank {r} exited {rc}: "
                                 f"{ranks[-1].get('error')}")
     zero = expect(1)
     ref = ranks[0].get("reference", {})
@@ -5844,11 +6368,11 @@ TP_LEGS = (
          launches=dict(sparsify_topk=1, stale_accum=1)),
     dict(label="qwen3 sync sgd", arch="qwen3-14b", layers=1, steps=2,
          mode="sync", opt="sgd", kw={}, launches={}, planted=True,
-         on_card=True),
+         on_card=True, serve=True),
     dict(label="moe stale-psum sgd", arch="qwen2-moe-a2.7b", layers=1,
          steps=2, mode="stale-psum", opt="sgd",
          kw=dict(per_worker_delays=False), launches=dict(stale_accum=1),
-         planted=True, on_card=True),
+         planted=True, on_card=True, serve=True),
     # The MoE under Adam: its 1x2 loss parts 2.5e-3 from one process at
     # step 2, 2.8x its witness's, though its step-1 params lie closer than
     # the witness's in every leaf (PERF.md section 7). Held in params, in
@@ -5864,6 +6388,27 @@ TP_LEGS = (
 # The planted step must part from the reference's step 1 by more than this
 # (in loss and in the step's params, relative to their move).
 TP_PLANTED = dict(loss=LM_CEILING["loss"], rel=LM_CEILING["rel"])
+# The legs marked ``serve`` (qwen3-14b, contraction: whole heads on every
+# rank; the MoE, head mode: 8 of 16 heads a rank, 32 of 64 experts) then
+# serve TP_SERVE_REQUESTS greedy requests (SERVE, paged route) from the
+# leg's initial params: the script as one process and from them nudged
+# one ulp up (the witness), before the ranks start; then after the leg
+# both ranks on their shards at 1x2, unrecorded and teacher-forced with
+# the one process's tokens, held to the witness's limits as phase 13
+# holds its 1x2 serve (``witness_limits``).
+TP_SERVE_REQUESTS, TP_SERVE_NEW_TOKENS = 8, (16, 32)
+# paged_attention at a rank's heads on the tensor-parallel serves (phase
+# 13's danube: 16 q over 4 kv heads; the MoE 8 / 8; qwen3 40 / 8, whole
+# heads), held against its plain version and timed on a rank's pool at
+# the arch's full depth (as SERVE_TIMING: 28 pages held, position 176).
+TP_PAGED_GRID = (
+    ("tp danube", (16, 4, 80), 8, 512, 24, 23, (4096, 16, 0)),
+    ("tp qwen2-moe", (8, 8, 128), 8, 512, 24, 11, (0, 16)),
+    ("tp qwen3", (40, 8, 128), 8, 512, 40, 39, (0, 16)),
+)
+TP_TIMING = {name: dict(heads=heads, t=t, tokens=tokens, layers=layers,
+                        held=28, pos=176)
+             for name, heads, t, tokens, layers, _, _ in TP_PAGED_GRID}
 
 
 def tp_engine(dev, leg, mesh=None):
@@ -6217,6 +6762,168 @@ def probe_losses(dev, leg, trees: dict) -> dict:
     return out
 
 
+def forced_serve(dev, arch: str, params, mesh=None, force=None,
+                 probe=None) -> dict:
+    """TP_SERVE_REQUESTS greedy requests of ``arch`` (SERVE, the paged
+    route) on ``mesh`` from whole ``params`` (None: the server's own init
+    from seed 0), after a one-request warm-up: once unrecorded (its served
+    tokens, launch counters and ms a decode step) and once under
+    ``Forcing`` (``force``: the tokens it feeds), its record; the served
+    params' and the pool's GB, the model axis's route and whole gathers,
+    and ``probe(server)``'s reading where given."""
+    import torch
+    from repro_torch.serving import Server, ServingConfig
+    server = Server(ServingConfig(arch=arch, reduced=False, paged="on",
+                                  **SERVE), params=params, device=dev,
+                    mesh=mesh)
+    del params
+    vocab = server.api.vocab_real
+    server.run(serve_requests(vocab, 1, new_tokens=(2, 2)))
+    torch.cuda.synchronize(dev)
+    before = server.decode_steps
+    reset_counters()
+    rep = server.run(serve_requests(vocab, TP_SERVE_REQUESTS,
+                                    TP_SERVE_NEW_TOKENS))
+    steps = rep.decode_steps - before
+    out = {"launches": counters(),
+           "tokens": {r.rid: r.tokens for r in rep.completed},
+           "decode_steps": steps,
+           "ms_per_decode_step": 1e3 * rep.phase_s["decode"] / steps,
+           "served_gb": tree_gb(server.params),
+           "pool_gb": tree_gb(server.cache.pages),
+           "model_compute": server.model_compute,
+           "whole_gathers": (server.placement.whole_gathers
+                             if server.placement is not None else None),
+           "probe": None if probe is None else probe(server)}
+    with Forcing(server, force) as rec:
+        server.run(serve_requests(vocab, TP_SERVE_REQUESTS,
+                                  TP_SERVE_NEW_TOKENS))
+    out["record"] = rec.record()
+    del server
+    release_memory()
+    return out
+
+
+def tp_serve_reference(dev, leg) -> dict:
+    """A ``serve`` leg's one-process reference (``forced_serve`` of its
+    cut arch from the seeded init, the leg's initial params) and its
+    witness (those params nudged one ulp up, teacher-forced): the
+    reference's readings and record, the limits (``witness_limits``) and
+    the seconds both took."""
+    from repro_torch import configs as cfglib
+    arch = cut_arch(leg["arch"], leg["layers"])
+    t0 = time.perf_counter()
+    p0 = cfglib.get(arch).api().init(0, device=dev)[0]
+    ref = forced_serve(dev, arch, p0)
+    wit = forced_serve(dev, arch, nudged(p0), force=ref["record"]["picks"])
+    del p0
+    limits = witness_limits(ref["record"], wit["record"])
+    del wit
+    release_memory()
+    return dict(ref, limits={k: limits[k] for k in ("witness", "rel",
+                                                   "margin")},
+                reference_s=time.perf_counter() - t0)
+
+
+def serve_record_path(out_dir: str, label: str) -> str:
+    return os.path.join(out_dir, f"serve_record_{label.replace(' ', '_')}.pt")
+
+
+def tp_serve_leg(dev, leg, mesh, rank: int, p0, force: dict, out_dir: str,
+                 say=print) -> dict:
+    """A ``serve`` leg's serve on the ranks: each serves its shards of the
+    server's own seeded init at 1x2 (rank 0 checks they are its shards of
+    the leg's initial params ``p0``), unrecorded and then teacher-forced
+    with the one-process reference's tokens ``force`` (``forced_serve``).
+    Rank 0 saves its record (``serve_record_path``); every rank returns
+    its readings and its logits' checksum."""
+    import torch
+    from repro_torch import treemath as tm
+    arch = cut_arch(leg["arch"], leg["layers"])
+
+    def shards_of_p0(server):
+        if rank != 0:
+            return None
+        want = server.placement.from_whole(
+            tm.tree_map(lambda x: x.to(dev), p0))
+        return all(torch.equal(a, b) for a, b in zip(
+            tm.tree_leaves(server.params), tm.tree_leaves(want)))
+
+    t1 = time.perf_counter()
+    tp = forced_serve(dev, arch, None, mesh, force=force,
+                      probe=shards_of_p0)
+    record = tp.pop("record")
+    out = {"tp": tp, "tp_s": time.perf_counter() - t1,
+           "checksum": float(sum(x.double().sum()
+                                 for x in record["logits"].values()))}
+    if rank == 0:
+        torch.save(record, serve_record_path(out_dir, leg["label"]))
+    say(f"{leg['label']} serve: 1x2 {out['tp_s']:.1f} s")
+    return out
+
+
+def check_tp_serve(label: str, ref: dict, legs: list, record,
+                   failures: list) -> dict:
+    """Phase 15's serve of one leg: ``ref`` (``tp_serve_reference``) and
+    each rank's ``tp_serve_leg``, rank 0's teacher-forced ``record`` held
+    to the witness's limits (``held_forced``), each rank's unrecorded
+    tokens equal to the reference's up to a near-tie, and every rank's
+    route (no model-axis gather), launches (a layer a decode step) and
+    logits (their checksum) the same; prints and returns the readings."""
+    serves = [leg.get("serve") for leg in legs]
+    if not all(serves) or record is None:
+        failures.append(f"{label} serve: no result")
+        return {}
+    first = serves[0]
+    limits = ref["limits"]
+    layers = next(leg for leg in TP_LEGS if leg["label"] == label)["layers"]
+    want = expect(ref["decode_steps"], paged_attention=layers)
+    keys = ("decode_steps", "ms_per_decode_step", "served_gb", "pool_gb",
+            "model_compute", "whole_gathers")
+    held = held_forced(f"tp {label} serve 1x2 rank 0 (teacher-forced)",
+                       record, ref["record"], limits, failures)
+    row = {"one process": {k: ref[k] for k in keys}, **limits, **held,
+           "reference_s": ref["reference_s"], "tp_s": first["tp_s"]}
+    if not first["tp"]["probe"]:
+        failures.append(f"{label} serve: rank 0's shards are not those of "
+                        "the leg's initial params")
+    if ref["launches"] != want:
+        failures.append(f"{label} serve one process: launches "
+                        f"{ref['launches']} != {want}")
+    for r, serve in enumerate(serves):
+        got = serve["tp"]
+        part = parting(got["tokens"], ref["record"], limits["margin"])
+        print(f"tp {label} serve rank {r} (unrecorded): "
+              f"{got['model_compute']}; served tokens part from the "
+              f"reference's before a near-tie in {len(part['parted'])} "
+              f"requests {part['parted']}; served params "
+              f"{got['served_gb']:.3f} GB against one process's "
+              f"{ref['served_gb']:.3f}; pool {got['pool_gb']:.3f} GB (one "
+              f"process {ref['pool_gb']:.3f}); "
+              f"{got['ms_per_decode_step']:.2f} ms a decode step (one "
+              f"process {ref['ms_per_decode_step']:.2f}); launches "
+              f"{got['launches']['paged_attention']} over "
+              f"{got['decode_steps']} decode steps")
+        row[f"rank {r}"] = {k: got[k] for k in keys} | {
+            "launches": got["launches"]["paged_attention"],
+            "parted": part["parted"]}
+        if part["parted"]:
+            failures.append(f"{label} serve rank {r}: tokens part before a "
+                            f"near-tie {part['parted']}")
+        if got["model_compute"] != ("tensor-parallel", "") or \
+                got["whole_gathers"]:
+            failures.append(f"{label} serve rank {r}: "
+                            f"{got['model_compute']}, whole gathers "
+                            f"{got['whole_gathers']}")
+        if got["launches"] != want:
+            failures.append(f"{label} serve rank {r}: launches "
+                            f"{got['launches']} != {want}")
+        if serve["checksum"] != first["checksum"]:
+            failures.append(f"{label} serve rank {r}: its logits are not "
+                            "rank 0's")
+    return row
+
+
 def tp_legs(only=()) -> tuple:
     """The TP_LEGS whose label holds one of the words ``only`` (all of
     them without words)."""
@@ -6272,6 +6979,9 @@ def tp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
 
     try:
         mesh = make_host_mesh(1, world, device=dev.type)
+        path_refs = os.path.join(out_dir, "serve_refs.pt")
+        serve_refs = (torch.load(path_refs) if os.path.exists(path_refs)
+                      else {})
         for leg in tp_legs(only):
             label = leg["label"]
             row = out[label] = {}
@@ -6317,7 +7027,13 @@ def tp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                                          after=after, say=say))
             row["gathered"] = reading(run) | {"stats": got}
             row["mesh_s"] = time.perf_counter() - t1
-            del run, ref, p0, kept, after, got
+            del run, ref, kept, after, got
+            release_memory()
+            if leg.get("serve"):
+                row["serve"] = tp_serve_leg(dev, leg, mesh, rank, p0,
+                                            serve_refs[label], out_dir,
+                                            say=say)
+            del p0
             release_memory()
             torch.save(out, path)
     except Exception as e:      # noqa: BLE001 (reported, then raised)
@@ -6340,40 +7056,38 @@ def tp_mesh_path(dev, only=()) -> dict:
     products timed (``tp_product_timings``). The ranks print their
     progress as they go."""
     import gc
-    import socket
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     failures, out = [], {}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        sys.stdout.flush()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tp-mesh-rank",
-             str(r), str(TP_RANKS), str(port), tmp, dev.type, *only],
-            env=env)
-            for r in range(TP_RANKS)]
-        try:
-            for p in procs:
-                p.wait(timeout=600)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        # The serves' one-process references and witnesses first, in this
+        # process: the ranks are fed their tokens.
+        refs = {leg["label"]: tp_serve_reference(dev, leg)
+                for leg in tp_legs(only) if leg.get("serve")}
+        for label, ref in refs.items():
+            print(f"tp {label} serve: reference and witness "
+                  f"{ref['reference_s']:.1f} s")
+        torch.save({label: ref["record"]["picks"]
+                    for label, ref in refs.items()},
+                   os.path.join(tmp, "serve_refs.pt"))
+        done = run_ranks("--tp-mesh-rank", TP_RANKS, tmp, dev.type, *only,
+                         timeout=600)
         ranks = []
-        for r, p in enumerate(procs):
+        for r, (rc, _) in enumerate(done):
             path = os.path.join(tmp, f"rank{r}.pt")
             ranks.append(torch.load(path, weights_only=False)
                          if os.path.exists(path) else {})
-            if p.returncode != 0 or "error" in ranks[-1]:
-                failures.append(f"tp mesh rank {r} exited {p.returncode}: "
+            if rc != 0 or "error" in ranks[-1]:
+                failures.append(f"tp mesh rank {r} exited {rc}: "
                                 f"{ranks[-1].get('error')}")
+        records = {}
+        for label in refs:
+            path = serve_record_path(tmp, label)
+            records[label] = (torch.load(path, weights_only=False)
+                              if os.path.exists(path) else None)
     for spec in tp_legs(only):
         label, steps = spec["label"], spec["steps"]
         legs = [got.get(label, {}) for got in ranks]
@@ -6520,6 +7234,9 @@ def tp_mesh_path(dev, only=()) -> dict:
                             f"the reference's bit for bit ({gstats})")
         print(f"tp {label}: reference {legs[0]['reference_s']:.1f} s, mesh "
               f"legs {legs[0]['mesh_s']:.1f} s")
+        if spec.get("serve"):
+            row["serve"] = check_tp_serve(label, refs[label], legs,
+                                          records[label], failures)
         out[label] = row
     first = TP_LEGS[0]["label"]
     width = max((got[first]["tp"]["width"] for got in ranks if first in got),
@@ -6528,19 +7245,46 @@ def tp_mesh_path(dev, only=()) -> dict:
         out["kernels"] = lm_kernels(dev, width, TP_LEG["workers"],
                                     tag="tp", coherence=False)
         out["products"] = tp_product_timings(dev)
+    if not only:
+        out["paged_errs"] = paged_kernel_checks(dev, TP_PAGED_GRID)
+        out["paged_timings"] = {}
+        for name, case in TP_TIMING.items():
+            out["paged_timings"].update(paged_timings(
+                dev, case, name=f"paged_attention {name}"))
     print(f"tp mesh phase: {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError("tp mesh phase: " + "; ".join(failures))
     return out
 
 
-def add_tp_rows(kernels: list, tp: dict) -> None:
+def add_tp_rows(kernels: list, tp: dict, serve_mesh: dict) -> None:
     """Beside each of kernels 1-4, its times at a rank's packed width of
     phase 15's danube legs and its launches on rank 0's tensor-parallel
-    run of every leg."""
+    run of every leg; beside paged_attention, its times and errors at a
+    rank's heads (TP_PAGED_GRID) and its launches on rank 0's
+    tensor-parallel serves (phase 13's and phase 15's)."""
     timings, errs = tp["kernels"]["timings"], tp["kernels"]["errs"]
     for entry in kernels:
         name = entry["name"]
+        if name == "paged_attention":
+            entry["tp_heads"] = {
+                cut: dict({k: tp["paged_timings"][f"paged_attention {cut}"][k]
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "bf16_wrapper_ms")},
+                          heads=TP_TIMING[cut]["heads"],
+                          max_abs_err=tp["paged_errs"]["by_shape"][cut][
+                              "fp32"],
+                          max_abs_err_bf16=tp["paged_errs"]["by_shape"][cut][
+                              "bf16"])
+                for cut in TP_TIMING}
+            entry["launches_serve_tp"] = {
+                "tp danube (phase 13, rank 0)":
+                    serve_mesh["1x2 gloo rank 0"]["launches"]} | {
+                f"{label} (phase 15, rank 0)": row["serve"]["rank 0"][
+                    "launches"]
+                for label, row in tp.items()
+                if isinstance(row, dict) and "serve" in row}
         key = {"fused_update": "fused_update.plain"}.get(name, name)
         if f"{key} tp" not in timings:
             continue
@@ -6732,6 +7476,67 @@ def tp_only(only=()) -> int:
     return 0
 
 
+# The mesh phases by number: (the lap's name, the phase's function).
+MESH_PHASES = {"12": ("mesh path", "mesh_path"),
+               "13": ("serve mesh path", "serve_mesh_path"),
+               "14": ("fsdp mesh path", "fsdp_mesh_path"),
+               "15": ("tp mesh path", "tp_mesh_path")}
+
+
+def mesh_only(args: list) -> int:
+    """``--mesh-only [--tree DIR] [PHASE ...]``: the mesh phases (12-15,
+    or those named) alone, after the kernels' build, each with its lap,
+    then one JSON line ``{"tree", "laps", "failures"}``. With ``--tree
+    DIR`` they are DIR's phases (a checkout of another commit unpacked
+    into an ignored directory, e.g. the parent's), run by DIR's
+    ``chip_smoke.py`` on DIR's ``src/`` in a process of their own, so
+    two commits' phases can be timed in one call."""
+    if args[:1] == ["--tree"]:
+        return subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--mesh-only-in",
+             os.path.abspath(args[1]), *args[2:]]).returncode
+    return mesh_phases(sys.modules[__name__], ROOT, args)
+
+
+def mesh_phases(mod, tree: str, phases: list) -> int:
+    """``mesh_only``'s run of the module ``mod`` (a tree's
+    ``chip_smoke``)."""
+    dev = mod.card_setup()
+    if dev is None:
+        return 2
+    if hasattr(mod, "rank_pool"):
+        mod.rank_pool()         # warming up during the build, as in main
+    from repro_torch.kernels import build
+    build.build()
+    build.library()
+    laps, failures = {}, {}
+    try:
+        for n in phases or list(MESH_PHASES):
+            name, fn = MESH_PHASES[n]
+            t0 = time.perf_counter()
+            try:
+                getattr(mod, fn)(dev)
+            except AssertionError as e:
+                failures[n] = str(e)[:4000]
+            laps[n] = time.perf_counter() - t0
+            print(f"phase {name}: {laps[n]:.1f} s", flush=True)
+    finally:
+        if hasattr(mod, "stop_rank_pool"):
+            mod.stop_rank_pool()
+    print(json.dumps({"tree": tree, "laps": laps, "failures": failures}))
+    return 1 if failures else 0
+
+
+def mesh_only_in(tree: str, phases: list) -> int:
+    """``--mesh-only-in DIR [PHASE ...]``: ``mesh_only``'s process for
+    DIR, which imports DIR's ``chip_smoke`` (and through it DIR's
+    ``src/``) before anything of the port."""
+    import importlib
+    sys.path.insert(0, tree)
+    sys.modules.pop("chip_smoke", None)
+    return mesh_phases(importlib.import_module("chip_smoke"), tree, phases)
+
+
 def fsdp_only() -> int:
     """``--fsdp-only``: phase 14 alone (it launches no kernel, so nothing
     is built)."""
@@ -6836,6 +7641,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
+    rank_pool()             # the mesh phases' rank processes, warming up
 
     card = card_line()
     print(card)
@@ -6948,6 +7754,7 @@ def main() -> int:
     # kernels 1-4 at a rank's packed width.
     tp_mesh = tp_mesh_path(dev)
     lap("tp mesh path")
+    stop_rank_pool()        # before the last lines: nothing prints after
 
     kernels = kernel_entries(timings, runs, ring, {**errs, **ring_errs})
     add_paper_launches(kernels, paper)
@@ -6959,7 +7766,7 @@ def main() -> int:
     add_cross_rows(kernels, cross)
     add_mesh_rows(kernels, mesh)
     add_serve_mesh_rows(kernels, serve_mesh)
-    add_tp_rows(kernels, tp_mesh)
+    add_tp_rows(kernels, tp_mesh, serve_mesh)
     steps_line = {f"{algo}_{k}": runs[algo, k]["ms_per_step"]
                   for algo, k in runs}
     steps_line.update({f"{name} {k}": run["ms_per_step"]
@@ -7007,20 +7814,18 @@ if __name__ == "__main__":
         sys.exit(attention_times(sys.argv[2]))
     if sys.argv[1:2] == ["--coherence-times"]:
         sys.exit(coherence_times(sys.argv[2]))
-    if sys.argv[1:2] == ["--mesh-rank"]:
-        sys.exit(mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
-    if sys.argv[1:2] == ["--serve-mesh-rank"]:
-        if sys.argv[7:8]:
-            MESH_SERVE_LAYERS = int(sys.argv[7])     # the parent's depth
-        sys.exit(serve_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
-    if sys.argv[1:2] == ["--fsdp-mesh-rank"]:
-        sys.exit(fsdp_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:7]))
-    if sys.argv[1:2] == ["--fsdp-only"]:
-        sys.exit(fsdp_only())
-    if sys.argv[1:2] == ["--tp-mesh-rank"]:
-        sys.exit(tp_mesh_rank(*map(int, sys.argv[2:5]), *sys.argv[5:]))
-    if sys.argv[1:2] == ["--tp-only"]:
-        sys.exit(tp_only(sys.argv[2:]))
-    if sys.argv[1:2] == ["--time-cuts"]:
-        sys.exit(time_cuts(sys.argv[2:]))
-    sys.exit(main())
+    if sys.argv[1:2] in (["--mesh-rank"], ["--serve-mesh-rank"],
+                         ["--fsdp-mesh-rank"], ["--tp-mesh-rank"]):
+        sys.exit(rank_program(sys.argv[1:]))
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(int(sys.argv[2]), sys.argv[3]))
+    modes = {"--fsdp-only": lambda: fsdp_only(),
+             "--tp-only": lambda: tp_only(sys.argv[2:]),
+             "--mesh-only": lambda: mesh_only(sys.argv[2:]),
+             "--mesh-only-in": lambda: mesh_only_in(sys.argv[2],
+                                                    sys.argv[3:]),
+             "--time-cuts": lambda: time_cuts(sys.argv[2:])}
+    try:
+        sys.exit(modes.get(sys.argv[1] if sys.argv[1:] else "", main)())
+    finally:
+        stop_rank_pool()

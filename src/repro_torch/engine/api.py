@@ -454,11 +454,9 @@ def build_engine(loss_fn, optimizer: Optional[optlib.Optimizer],
         placement = placement_lib.MeshPlacement(
             mesh, cfg.num_workers, specs, fsdp=fsdp, rules=rules)
         if placement.m > 1:
-            tp, why = placement_lib.tensor_parallel_verdict(api, specs,
-                                                            placement.m)
-            model_compute = ("tensor-parallel", "") if tp else ("gathered",
-                                                                why)
-            if tp:
+            model_compute = placement_lib.model_compute(api, specs,
+                                                        placement.m)
+            if model_compute[0] == "tensor-parallel":
                 placement.model_parallel = placement_lib.ModelParallel(
                     placement.model_axis)
         per_worker = mode in ("simulate", "ssp") or (

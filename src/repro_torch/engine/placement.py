@@ -54,13 +54,16 @@ Index-heavy ring code (``_ring_dispatch``, ``_gather``) never runs as
 DTensor ops: ``aten.index`` refuses a DTensor beside a plain index tensor.
 
 A :class:`ServePlacement` is one rank's share of a serve (``serving/
-server.py``): the params are stored as the serve plan's shards and made
-whole once a load or refresh, every slot lives on every rank, and rank 0
-takes the host decisions every rank applies.
+server.py``): the params are stored as the serve plan's shards, every slot
+lives on every rank, and rank 0 takes the host decisions every rank
+applies. On a model axis where ``tensor_parallel_verdict`` holds the
+server computes on the shards, as the engine's loss does (``ModelParallel``
+over the model group); anywhere else it makes them whole once a load or
+refresh.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -266,6 +269,15 @@ def tensor_parallel_verdict(api, specs, m: int) -> tuple:
                 return False, (f"a dim of {x.shape[d]} in a leaf of shape "
                                f"{tuple(x.shape)} does not divide by {m}")
     return True, ""
+
+
+def model_compute(api, specs, m: int) -> tuple:
+    """``(route, why)`` of a model axis of extent ``m`` > 1:
+    ``("tensor-parallel", "")`` where ``tensor_parallel_verdict`` holds,
+    else ``("gathered", why)`` (the engine's, the serve plan's and the
+    serve placement's ``model_compute``)."""
+    ok, why = tensor_parallel_verdict(api, specs, m)
+    return ("tensor-parallel", "") if ok else ("gathered", why)
 
 
 def whole_dtensor(x):
@@ -696,6 +708,14 @@ class MeshPlacement:
         return 1.0 - nnz[0] / (rows * row.total)
 
 
+class _Block(rules_lib.NamedSharding):
+    """A ``NamedSharding`` whose placed leaf stays this rank's plain
+    block (``ServePlacement.blocks``)."""
+
+    def wrap(self, block: torch.Tensor, shape):
+        return block.contiguous()
+
+
 class ServePlacement:
     """One rank's share of a serve on a ``DeviceMesh`` that spans the
     process group, by the serve plan's params specs (``plan_serve_step``'s
@@ -703,21 +723,35 @@ class ServePlacement:
     ``embed`` on data).
 
     * ``shard(params)``: this rank's shards (``NamedSharding.place``, the
-      form ``restore(shardings=)`` returns, reading only those blocks).
-    * ``whole(shards)``: whole params for the steps, by an ``all_gather``
-      over each mesh axis a spec names (c10d's, not ``DTensor.full_tensor``,
-      whose functional collective segfaults over gloo on CUDA tensors with
-      torch 2.11; PERF.md). The server calls it once a load or
-      refresh, so its decode and prefill steps call no collective; the cost
-      is memory, since every rank holds the whole served copy beside its
-      shards (serving on the shards is what is left of A.18).
+      form ``restore(shardings=)`` returns, reading only those blocks);
+      ``blocks()``, the placements the server restores with, keeps each a
+      plain tensor.
+    * ``serve(shards)``: the params the server's steps read, once a load
+      or refresh. Where the model axis computes tensor-parallel
+      (``model_compute``, ``tensor_parallel_verdict`` on ``api``) they are
+      the shards themselves, as local tensors, and ``model_parallel`` (a
+      :class:`ModelParallel` over the model group) is the context the
+      server runs its steps under; an FSDP arch's data axis is still made
+      whole. Anywhere else (``"gathered"``, ``model_compute_fallback`` the
+      reason) they are ``whole(shards)``: every leaf made whole by an
+      ``all_gather`` over each mesh axis its spec names (c10d's, not
+      ``DTensor.full_tensor``, whose functional collective segfaults over
+      gloo on CUDA tensors with torch 2.11; PERF.md), so the steps call no
+      collective and every rank holds the whole served copy.
+      ``whole_gathers`` counts the model-axis gathers ``whole`` ran.
+    * ``from_whole(params)``: ``serve`` of params every rank holds whole,
+      with no collective; ``keep``, the initialiser's hook
+      (``models.layers.use_keep``, placed by ``rules``), cuts each value to
+      what ``serve`` keeps of it as it is drawn, so a rank that inits its
+      own params never holds them whole.
     * ``decide(values)``: rank 0's host decisions (a list of numbers; None
       goes as NaN and comes back as None), broadcast to every rank, and
       ``all_ok(flag)``: whether every rank's flag holds. Any decision a
       rank took alone could differ between ranks, and a refresh would then
-      call the gather on one rank and not on another."""
+      call a collective on one rank and not on another."""
 
-    def __init__(self, mesh, params_specs: Pytree, params_shapes: Pytree):
+    def __init__(self, mesh, params_specs: Pytree, params_shapes: Pytree,
+                 api=None, rules: Optional[dict] = None):
         import torch.distributed as dist
         self.dist = dist
         self.mesh = mesh
@@ -727,24 +761,73 @@ class ServePlacement:
                              f"{dist.get_world_size()}")
         self.specs = rules_lib.axes_leaves(params_specs)
         self.shapes = [tuple(x.shape) for x in tm.tree_leaves(params_shapes)]
+        self.treedef = tm.tree_structure(params_shapes)
+        self.rules = rules
         self.lead = int(mesh.mesh.flatten()[0])
         self.is_lead = dist.get_rank() == self.lead
         # Host decisions travel as CPU tensors over gloo, on the card's
         # device over nccl.
         self.host = torch.device("cpu" if dist.get_backend() == "gloo"
                                  else mesh.device_type)
+        self.whole_gathers = 0
+        self.model_compute, self.model_compute_fallback = None, ""
+        self.model_parallel = None
+        m = rules_lib.model_extent(mesh)
+        if m > 1:
+            self.model_compute, self.model_compute_fallback = model_compute(
+                api, params_specs, m)
+            if self.model_compute == "tensor-parallel":
+                self.model_parallel = ModelParallel(Axis(
+                    dist, "model", mesh["model"].get_group(), m,
+                    mesh.get_local_rank("model")))
 
     def shard(self, params: Pytree) -> Pytree:
         return map_specs(lambda x, spec, _shape: rules_lib.NamedSharding(
             self.mesh, spec).place(x), params, self.specs, self.shapes)
 
+    def blocks(self) -> Pytree:
+        """The server's own ``restore(shardings=)`` placements: each
+        leaf's block as ``NamedSharding`` reads it, kept a plain tensor
+        (``serve`` reads the blocks locally, so no leaf becomes a DTensor,
+        whose first use imports ~12 s of modules in a fresh process)."""
+        return tm.tree_unflatten(self.treedef, [
+            _Block(self.mesh, spec) for spec in self.specs])
+
     def whole(self, shards: Pytree) -> Pytree:
         return map_specs(self._whole, shards, self.specs, self.shapes)
 
-    def _whole(self, x, spec, shape):
+    def serve(self, shards: Pytree) -> Pytree:
+        if self.model_parallel is None:
+            return self.whole(shards)
+        return map_specs(lambda x, spec, shape: self._whole(
+            x, spec, shape, axes=("data",)), shards, self.specs, self.shapes)
+
+    def from_whole(self, params: Pytree) -> Pytree:
+        if self.model_parallel is None:
+            return params
+        return map_specs(lambda x, spec, _shape: self._model_block(x, spec),
+                         params, self.specs, self.shapes)
+
+    def keep(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
+        lead = x.dim() - len(axes)
+        spec = (None,) * lead + rules_lib.spec_for(axes, self.mesh, self.rules)
+        return self._model_block(x, spec)
+
+    def _model_block(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's ``torch.chunk`` part of the dim of ``x`` that
+        ``spec`` places on the model axis, owning its storage (``x`` on the
+        gathered route, or where no dim is)."""
+        dims = [d for d, part in enumerate(spec)
+                if "model" in rules_lib._names(part)]
+        if self.model_parallel is None or not dims:
+            return x
+        return x.narrow(dims[0], *self.model_parallel.span(
+            x.shape[dims[0]])).clone()
+
+    def _whole(self, x, spec, shape, axes=("model", "data")):
         local = x.to_local() if hasattr(x, "to_local") else x
         sizes = rules_lib.mesh_sizes(self.mesh)
-        for name in ("model", "data"):
+        for name in axes:
             dims = [d for d, part in enumerate(spec)
                     if name in rules_lib._names(part)]
             n = sizes.get(name, 1)
@@ -754,6 +837,7 @@ class ServePlacement:
                 continue
             local = all_gather_dim(self.dist, local, dims[0], shape[dims[0]],
                                    n, self.mesh.get_group(name))
+            self.whole_gathers += name == "model"
         return local
 
     def decide(self, values: list) -> list:

@@ -379,20 +379,26 @@ def _serve_specs(api, shape, mesh, arch, cache_fn):
 def plan_prefill(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
                  overrides: Optional[dict] = None,
                  reduced: bool = False) -> Plan:
-    """``plan(params, batch) -> (last-position logits [B,1,V], cache)``."""
+    """``plan(params, batch) -> (last-position logits [B,1,V], cache)``.
+    Under an ambient model-parallel context (the server's tensor-parallel
+    route) the logits are gathered whole (:func:`whole_logits`)."""
     arch, shape, api = _resolve(arch, shape, reduced, overrides)
     assert shape.kind == "prefill", shape.name
     meta = {"arch": arch.arch_id, "shape": shape.name, "kind": "prefill",
             "seq_len": shape.seq_len, "batch": shape.global_batch}
+
+    def prefill(params, batch):
+        logits, cache = api.prefill(params, batch)
+        return whole_logits(logits, api), cache
     if mesh is None:
-        return Plan(fn=api.prefill, meta=meta)
+        return Plan(fn=prefill, meta=meta)
     params_sh, params_struct, cache_sh, _, rules = _serve_specs(
         api, shape, mesh, arch,
         lambda dev: api.init_cache(shape.global_batch, shape.seq_len,
                                    device=dev))
     batch_struct, batch_sh = _batch_struct_and_shardings(api, shape, mesh,
                                                          rules)
-    return Plan(fn=api.prefill, meta=meta,
+    return Plan(fn=prefill, meta=meta,
                 args=(params_struct, batch_struct),
                 in_shardings=(params_sh, batch_sh),
                 out_shardings=(rules_lib.spec_for(("batch", None, None), mesh,
@@ -462,16 +468,34 @@ def resolve_serve_paged(api: ModelAPI, layout, arch=None, mesh=None,
     return "paged", ""
 
 
+def whole_logits(logits: torch.Tensor, api: ModelAPI) -> torch.Tensor:
+    """Logits over the whole vocab: under an ambient model-parallel
+    context a model step gives this rank's vocab columns, gathered here
+    over the model group (every rank then holds the same ``[..., V]``, so
+    it picks the same tokens); as they are without one."""
+    mp = rules_lib.ambient_model_parallel()
+    if mp is None:
+        return logits
+    return mp.gather(logits.contiguous(), logits.dim() - 1, api.cfg.vocab,
+                     "logits")
+
+
+def pick_scores(logits: torch.Tensor, gen, temp: float) -> torch.Tensor:
+    """What a pick takes its argmax over: the fp32 logits themselves at
+    ``temp <= 0`` (greedy), else the Gumbel-max scores of a categorical
+    draw (one block of uniforms from ``gen`` the logits' shape, so both
+    routes burn the same draws)."""
+    if temp <= 0:
+        return logits
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    return logits / temp - torch.log(-torch.log(u))
+
+
 def _pick(logits: torch.Tensor, tokens, mask, gen, temp: float):
-    """Next token per slot from fp32 logits [S, V]: greedy argmax at
-    ``temp <= 0``, else a categorical draw (Gumbel-max over one [S, V]
-    block of uniforms from ``gen``, so both routes burn the same draws).
-    Masked slots keep their token."""
-    if temp > 0:
-        u = torch.rand(logits.shape, generator=gen, device=logits.device)
-        logits = logits / temp - torch.log(-torch.log(u))
-    nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
-    return torch.where(mask, nxt, tokens)
+    """Next token per slot from fp32 logits [S, V] (``pick_scores``'
+    argmax). Masked slots keep their token."""
+    nxt = torch.argmax(pick_scores(logits, gen, temp), dim=-1)
+    return torch.where(mask, nxt.to(tokens.dtype), tokens)
 
 
 def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
@@ -498,8 +522,14 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
     With a mesh the plan carries the JAX planner's specs: params by
     ``rules_for_arch`` (the model axis on the param dims, FSDP archs'
     ``embed`` on data), every other argument and output replicated, so
-    every rank holds every slot (``engine/placement.py::ServePlacement``
-    holds a rank's shards and makes them whole for the step)."""
+    every rank holds every slot. ``meta["model_compute"]`` (on a model
+    axis above 1; ``engine/placement.py::model_compute``) says how the
+    step reads the params: ``"tensor-parallel"``, run under the server's
+    model-parallel context on this rank's shards, whose ``layout`` is then
+    the rank's (its pool holds the kv heads the rank attends with:
+    ``meta["pool_width"]`` floats a row), or ``"gathered"`` (whole params,
+    ``meta["model_compute_fallback"]`` the reason;
+    ``engine/placement.py::ServePlacement``)."""
     from repro_torch.kernels import dispatch
     arch, shape, api = _resolve(arch, shape, reduced, overrides)
     assert shape.kind == "decode", shape.name
@@ -516,7 +546,8 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
                                 tm.tree_map(lambda x: x[i], cache), p)
             logits.append(lg[0, -1].float())
             new_caches.append(nc)
-        nxt = _pick(torch.stack(logits), tokens, mask, gen, temp)
+        nxt = _pick(whole_logits(torch.stack(logits), api), tokens, mask,
+                    gen, temp)
         pages, resident = layout.scatter_token(
             pages, resident, tm.tree_stack(new_caches), tables, pos, mask)
         return nxt, pages, resident
@@ -527,7 +558,8 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
         kv = layout.paged_kv(pages, tables, pos)
         logits, new_cache = api.decode_paged(params, tokens[:, None], cache,
                                              pos, kv)
-        nxt = _pick(logits[:, -1].float(), tokens, mask, gen, temp)
+        nxt = _pick(whole_logits(logits[:, -1].float(), api), tokens, mask,
+                    gen, temp)
         pages, resident = layout.scatter_rows(
             pages, resident, new_cache, tables, pos, mask)
         return nxt, pages, resident
@@ -540,12 +572,21 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
               "cache_tokens": layout.tokens,
               "page_tokens": layout.page_tokens,
               "pages": num_pages, "resident_width": layout.res_width,
+              "pool_width": layout.width,
               "paged": route, "paged_why": route_why})
     if mesh is None:
         return plan
     rules = rules_lib.rules_for_arch(arch.arch_id, shape=shape, mesh=mesh)
     params_shapes, params_axes = captured_axes(
         lambda dev: api.init(0, device=dev))
+    params_sh = rules_lib.tree_specs(params_axes, mesh, rules)
+    if rules_lib.model_extent(mesh) > 1:
+        from repro_torch.engine.placement import model_compute
+        compute, why = model_compute(api, params_sh,
+                                     rules_lib.model_extent(mesh))
+        plan.meta["model_compute"] = compute
+        if why:
+            plan.meta["model_compute_fallback"] = why
 
     def meta(shp, dtype=torch.float32):
         return torch.empty(shp, dtype=dtype, device="meta")
@@ -560,8 +601,7 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
                  meta((slots, max(layout.pages_per_slot, 1)), torch.int32),
                  vec(torch.int32), vec(torch.int32), vec(torch.bool), None,
                  0.0)
-    plan.in_shardings = (rules_lib.tree_specs(params_axes, mesh, rules),
-                         rep, rep, rep, rep, rep, rep, rep, rep)
+    plan.in_shardings = (params_sh, rep, rep, rep, rep, rep, rep, rep, rep)
     plan.out_shardings = (rep, rep, rep)
     return plan
 

@@ -15,7 +15,9 @@ N`` keeps polling that directory every N decode steps and hot-swaps newer
 snapshots mid-stream, reporting the realized parameter staleness of the
 served tokens. ``--mesh DATAxMODEL`` other than ``1x1`` serves over the
 ranks of a ``torchrun`` launch (``serving/server.py``): every rank serves
-every request, and rank 0 alone prints.
+every request, and rank 0 alone prints. On a model axis above 1 it prints
+``model axis: tensor-parallel`` (the ranks serve their shards) or
+``model axis: gathered (why)`` (whole params on every rank).
 """
 from __future__ import annotations
 
@@ -74,6 +76,9 @@ def main(argv=None):
     api = server.api
     lead = server.mesh is None or torch.distributed.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
+    compute, why = server.model_compute
+    if compute is not None:
+        say(f"model axis: {compute}" + (f" ({why})" if why else ""))
 
     base_step = 0
     if args.params:

@@ -51,6 +51,11 @@ rank-partial product, ``reduce`` (all-reduce forward) closes one:
     ``vocab`` and ``sharded_ce`` vocab-parallel (max, sum of exp and the
     picked logit each summed over the ranks);
   * the MoE FFN over this rank's experts (``models/moe.py``).
+
+The serving plane runs prefill (``forward(return_cache=True)``) and both
+decode steps under the same context: a rank's cache holds the kv heads it
+attends with (:func:`rank_kv_heads`), and its logits are its vocab columns,
+which the serve step gathers whole.
 """
 from __future__ import annotations
 
@@ -240,10 +245,13 @@ def cache_len(cfg: TransformerConfig, seq_len: int) -> int:
 def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
                device=None):
     """Ring-buffer KV cache + per-row absolute positions (-1 = empty).
-    Returns (cache, axes)."""
+    Returns (cache, axes). Under an ambient model-parallel context the
+    k/v rings hold this rank's kv heads (:func:`rank_kv_heads`); the axes
+    name the whole cache's dims."""
     dev = device_lib.resolve(device)
     clen = cache_len(cfg, seq_len)
-    hkv, hd, nl = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    hd, nl = cfg.head_dim, cfg.num_layers
+    hkv = rank_kv_heads(cfg, rules_lib.ambient_model_parallel())
     if cfg.attn_mode == "head":
         kv_axes = ("layers", "cache_batch", None, "kv_heads", None)
     else:
@@ -261,7 +269,8 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
         # the serving plane keeps them in a slot's resident row.
         x_axes = ("layers", "cache_batch", None,
                   "kv_heads" if cfg.num_kv_heads % cfg.tp == 0 else None, None)
-        xshape = (cfg.num_cross_layers, batch, cfg.cross_tokens, hkv, hd)
+        xshape = (cfg.num_cross_layers, batch, cfg.cross_tokens,
+                  cfg.num_kv_heads, hd)
         for name in ("xk", "xv"):
             cache[name] = torch.zeros(xshape, dtype=cfg.dtype, device=dev)
             axes[name] = x_axes
@@ -380,10 +389,38 @@ def _row_parallel(a, w, n: int, mp, dt):
     return mp.reduce(L.contract_f32(a.to(dt), w.to(dt), n)).to(dt)
 
 
-def _self_attention_tp(p, x, positions, cfg: TransformerConfig, mp):
-    """Attention on this rank's shards of ``p`` (``cfg.attn_mode``'s
-    layout; module docstring). Returns this layer's output, whole on every
-    rank, and the k/v it attended with."""
+def _mixed_kv(cfg: TransformerConfig, mp) -> tuple:
+    """Mixed mode's kv heads for this rank's q heads: ``(k0, k1, kv_of_q)``,
+    the replicated ``wk``/``wv`` heads ``[k0, k1)`` its q heads read and,
+    where a group is split between ranks, one kv head a q head (indices
+    into ``[k0, k1)``), else None (whole groups: the grouped product)."""
+    q0, qn = mp.span(cfg.num_heads)
+    g = cfg.q_groups
+    k0, k1 = q0 // g, (q0 + qn - 1) // g + 1
+    kv_of_q = [(q0 + i) // g - k0 for i in range(qn)]
+    n = k1 - k0
+    if qn % n == 0 and kv_of_q == [i // (qn // n) for i in range(qn)]:
+        kv_of_q = None
+    return k0, k1, kv_of_q
+
+
+def rank_kv_heads(cfg: TransformerConfig, mp) -> int:
+    """The kv heads this rank attends with, and so holds in its cache,
+    under ``mp`` (all of them without): ``head`` its own, ``mixed`` those
+    its q heads read (one a q head where a group is split), ``contraction``
+    all (it attends on whole heads)."""
+    if mp is None or cfg.attn_mode == "contraction":
+        return cfg.num_kv_heads
+    if cfg.attn_mode == "head":
+        return mp.span(cfg.num_kv_heads)[1]
+    k0, k1, kv_of_q = _mixed_kv(cfg, mp)
+    return k1 - k0 if kv_of_q is None else len(kv_of_q)
+
+
+def _project_tp(p, x, cfg: TransformerConfig, mp):
+    """q, k, v from this rank's shards of ``p`` (``cfg.attn_mode``'s
+    layout; module docstring): its q heads and :func:`rank_kv_heads` kv
+    heads, whole heads in contraction mode."""
     dt = cfg.dtype
     xc = mp.copy(x)
     if cfg.attn_mode == "contraction":
@@ -394,10 +431,7 @@ def _self_attention_tp(p, x, positions, cfg: TransformerConfig, mp):
         if cfg.qk_norm:
             q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-        out, k = _attend_full(q, k, v, positions, cfg)
-        h0, hn = mp.span(cfg.head_dim)
-        return _row_parallel(mp.copy(out)[..., h0:h0 + hn], p["wo"], 2, mp,
-                             dt), (k, v)
+        return q, k, v
     # head: this rank's q and kv heads; mixed: its q heads and the kv heads
     # they use, from the replicated wk/wv. A replicated leaf read here
     # (mixed wk/wv, the qk norms) gets this rank's part of its gradient,
@@ -405,28 +439,43 @@ def _self_attention_tp(p, x, positions, cfg: TransformerConfig, mp):
     shards = {w: mp.copy(p[w]) for w in ("q_norm", "k_norm") if w in p}
     kv_of_q = None
     if cfg.attn_mode == "mixed":
-        q0, qn = mp.span(cfg.num_heads)
-        g = cfg.q_groups
-        k0, k1 = q0 // g, (q0 + qn - 1) // g + 1
+        k0, k1, kv_of_q = _mixed_kv(cfg, mp)
         shards.update({w: mp.copy(p[w])[:, k0:k1] for w in ("wk", "wv")})
-        kv_of_q = [(q0 + i) // g - k0 for i in range(qn)]
-        n = k1 - k0
-        if qn % n == 0 and kv_of_q == [i // (qn // n) for i in range(qn)]:
-            kv_of_q = None          # whole groups: the grouped product
     q, k, v = _project_qkv({**p, **shards}, xc, xc, cfg)
     if kv_of_q is not None:
         # A group split between ranks: one kv head a q head.
         idx = torch.tensor(kv_of_q, device=x.device)
         k, v = k[:, :, idx], v[:, :, idx]
+    return q, k, v
+
+
+def _out_tp(out, p, cfg: TransformerConfig, mp):
+    """The attention output ``[B, S, H, hd]`` (this rank's q heads; whole
+    heads in contraction mode, where its ``head_dim`` slice meets its
+    ``wo`` block) through the row-parallel ``wo``."""
+    if cfg.attn_mode == "contraction":
+        h0, hn = mp.span(cfg.head_dim)
+        out = mp.copy(out)[..., h0:h0 + hn]
+    return _row_parallel(out, p["wo"], 2, mp, cfg.dtype)
+
+
+def _self_attention_tp(p, x, positions, cfg: TransformerConfig, mp):
+    """Attention on this rank's shards of ``p``. Returns this layer's
+    output, whole on every rank, and the k/v it attended with."""
+    q, k, v = _project_tp(p, x, cfg, mp)
     out, k = _attend_full(q, k, v, positions, cfg)
-    return _row_parallel(out, p["wo"], 2, mp, dt), (k, v)
+    return _out_tp(out, p, cfg, mp), (k, v)
 
 
 def _self_attention_decode(p, x, cache_k, cache_v, slot_pos, pos: int,
                            cfg: TransformerConfig):
     """One-token decode: x [B,1,d]; ring cache [B,C,Hkv,hd]; ``pos`` the
-    absolute position (an int). Returns new copies of the cache rows."""
-    q, k, v = _project_qkv(p, x, x, cfg)
+    absolute position (an int). Returns new copies of the cache rows.
+    Tensor-parallel under an ambient model-parallel context: the cache
+    holds this rank's kv heads (:func:`rank_kv_heads`)."""
+    mp = rules_lib.ambient_model_parallel()
+    q, k, v = (_project_qkv(p, x, x, cfg) if mp is None
+               else _project_tp(p, x, cfg, mp))
     posv = torch.tensor([pos], device=x.device)
     cos, sin = L.rotary(cfg.rope_theta, posv, cfg.head_dim)
     q = L.apply_rotary(q, cos[None], sin[None])
@@ -442,6 +491,8 @@ def _self_attention_decode(p, x, cache_k, cache_v, slot_pos, pos: int,
     if cfg.swa_window:
         valid = valid & (spos > pos - cfg.swa_window)
     out = _attend(q, ck, cv, valid[None, None, :], cfg)
+    if mp is not None:
+        return _out_tp(out, p, cfg, mp), (ck, cv, spos)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cfg.dtype))
     return y, (ck, cv, spos)
 
@@ -638,9 +689,13 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
 def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
     """One-token decode. token [B,1] int; ``pos`` the shared absolute
     position (an int). The cross layers read the prefilled ``xk``/``xv``,
-    which pass through unchanged. Returns (logits [B,1,V], new_cache)."""
+    which pass through unchanged. Returns (logits [B,1,V], new_cache).
+    Under an ambient model-parallel context it computes on this rank's
+    shards, its cache holds this rank's kv heads and the logits are this
+    rank's vocab columns (``forward``'s)."""
     pos = int(pos)
-    h = params["embed"].to(cfg.dtype)[token.long()]
+    mp = rules_lib.ambient_model_parallel()
+    h = _embed(params, token, cfg, rules_lib.ambient_fetch(), mp)
     nk, nv, nspos = [], [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
@@ -660,7 +715,7 @@ def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
                                     cache["xk"][g], cache["xv"][g], cfg)
     new_cache = dict(cache, k=torch.stack(nk), v=torch.stack(nv),
                      slot_pos=torch.stack(nspos))
-    return _logits(params, h, cfg), new_cache
+    return _logits(params, h, cfg, mp=mp), new_cache
 
 
 def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
@@ -677,9 +732,13 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     CPU; both take the softmax in fp32, as the Pallas kernel does, whatever
     ``attn_softmax_dtype`` says). Returns (logits [S,1,V], the one-token
     cache update: k/v ``[S, L, 1, 1, Hkv, hd]`` and slot_pos ``[S, L, 1]``,
-    ready for the serve step's single-row page scatter)."""
+    ready for the serve step's single-row page scatter). Tensor-parallel
+    under an ambient model-parallel context, as :func:`decode_step`: the
+    kernel then runs on this rank's q heads against the kv heads its pool
+    holds."""
     s = token.shape[0]
-    h = params["embed"].to(cfg.dtype)[token.long()]
+    mp = rules_lib.ambient_model_parallel()
+    h = _embed(params, token, cfg, rules_lib.ambient_fetch(), mp)
     cos, sin = L.rotary(cfg.rope_theta, pos, cfg.head_dim)   # [S, hd/2]
     cos, sin = cos[:, None], sin[:, None]                    # [S, 1, hd/2]
     window = cfg.swa_window or 0
@@ -690,14 +749,16 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(lp["attn"], a_in, a_in, cfg)
+        q, k, v = (_project_qkv(lp["attn"], a_in, a_in, cfg) if mp is None
+                   else _project_tp(lp["attn"], a_in, cfg, mp))
         q = L.apply_rotary(q, cos, sin)
         k = L.apply_rotary(k, cos, sin)
         kc = k[:, 0].to(cfg.dtype)                            # [S, Hkv, hd]
         vc = v[:, 0].to(cfg.dtype)
-        out = kv.attend(i, q[:, 0], kc, vc, window=window)
-        h = h + torch.einsum("bshk,hkd->bsd", out[:, None],
-                             lp["attn"]["wo"].to(cfg.dtype))
+        out = kv.attend(i, q[:, 0], kc, vc, window=window)[:, None]
+        h = h + (torch.einsum("bshk,hkd->bsd", out,
+                              lp["attn"]["wo"].to(cfg.dtype)) if mp is None
+                 else _out_tp(out, lp["attn"], cfg, mp))
         f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + _ffn(lp, f_in, cfg)[0]
         ks.append(kc)
@@ -714,7 +775,7 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     }
     if cfg.num_cross_layers:
         new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
-    return _logits(params, h, cfg), new_cache
+    return _logits(params, h, cfg, mp=mp), new_cache
 
 
 # --------------------------------------------------------------- loss ------

@@ -24,6 +24,17 @@ Decode writes are cursor-addressed like the model's own ring cache: position
 ``p`` lives in row ``p % tokens``. The page tensor is updated IN PLACE by
 the serve step's scatters and by admissions (the JAX package donates it to
 its jitted step to the same effect).
+
+On the tensor-parallel serve (``serving/server.py``) each rank builds its
+layout from its own cache shapes, under the model-parallel context
+(``models/transformer.py::rank_kv_heads``), so its pool holds only the kv
+heads its q heads read: ``Hkv/m`` in head mode, the span of its groups in
+mixed mode, all of them in contraction mode, where a rank attends on
+whole heads. Page tables, positions, allocation and the null page are the
+same on every rank. The JAX package replicates the pool, because GSPMD
+plans it as one array; a rank-local pool is a placement of the same
+cache, not another feature, and it spares an all-gather of every new k/v
+row each step.
 """
 from __future__ import annotations
 
@@ -251,7 +262,9 @@ class PagedKV:
 
     def attend(self, layer: int, q, k_new, v_new, *, window: int = 0):
         """q [S,H,hd], k_new/v_new [S,Hkv,hd] (cache dtype) -> attention
-        output [S,H,hd], over the ``k`` and ``v`` cache leaves."""
+        output [S,H,hd], over the ``k`` and ``v`` cache leaves. On a
+        tensor-parallel rank H and Hkv are the rank's: its q heads and the
+        kv heads its pool holds."""
         views = {n: (off, shape) for n, off, shape in self.layout.leaf_views}
         k_off, k_shape = views["k"]
         v_off, v_shape = views["v"]

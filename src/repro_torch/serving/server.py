@@ -27,10 +27,17 @@ at ``temperature > 0`` draws from ``torch.Generator``s seeded from
 
 On a ``DeviceMesh`` (``cfg.mesh`` under ``torchrun``, or ``mesh=``) every
 rank runs the same loop over every slot, as the JAX plan replicates the
-pages, resident rows and tables. Params are restored as this rank's shards
-of the serve plan's placement and made whole once a load or refresh
-(``engine/placement.py::ServePlacement``), so the decode and prefill
-steps call no collective. The ranks stay in lockstep because rank 0 takes
+pages' tables, positions and tokens. Params are restored as this rank's
+shards of the serve plan's placement (``engine/placement.py::
+ServePlacement``). On a model axis where ``tensor_parallel_verdict`` holds
+(``model_compute`` ``"tensor-parallel"``: the decoder-only transformers,
+dense and MoE) the server serves those shards as they are: prefill and
+both decode routes run under the placement's model-parallel context
+(``models/transformer.py``), each rank's page pool holds the kv heads it
+attends with (``serving/cache.py``) and the logits are gathered whole
+before a token is picked. Elsewhere (``"gathered"``) the shards are made
+whole once a load or refresh, so the decode and prefill steps call no
+collective. The ranks stay in lockstep because rank 0 takes
 every host decision (the clock's ``now``, the snapshot step to load, the
 staleness stamps, the measured times) and every rank applies rank 0's:
 one host broadcast between decode steps, one a prefill call, an
@@ -57,6 +64,7 @@ from repro_torch.launch import mesh as meshlib
 from repro_torch.serving.batcher import ContinuousBatcher, SlotState
 from repro_torch.serving.cache import PagedDecodeCache, build_layout
 from repro_torch.serving.queue import AdmissionQueue, Clock, Request
+from repro_torch.models import layers
 from repro_torch.serving.snapshot import SnapshotRefresher
 from repro_torch.sharding import rules as rules_lib
 
@@ -112,6 +120,9 @@ class ServeReport:
     evicts: int
     refreshes: int
     prefill_calls: int = 0
+    # How a model axis above 1 read the params: "tensor-parallel" or
+    # "gathered" (None without one).
+    model_compute: Optional[str] = None
     # wall seconds by loop phase: admit (queue/pack/alloc, prefill excluded),
     # prefill (prefill calls, synchronised), decode (serve steps + sync).
     phase_s: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -161,7 +172,8 @@ class ServeReport:
             "latency_p99_s": (round(self._latency(99), 4)
                               if self.completed else None),
             "staleness": self.staleness_summary(),
-        }
+        } | ({} if self.model_compute is None
+             else {"model_compute": self.model_compute})
 
 
 def _sync(dev: torch.device) -> None:
@@ -192,11 +204,22 @@ class Server:
                 raise ValueError(
                     f"mesh on {self.mesh.device_type!r} devices, server on "
                     f"{self.device.type!r}: pass device= to match")
-        self.layout = build_layout(self.api, cfg.max_seq, cfg.page_tokens,
-                                   device=self.device)
-
         self._pshape = InputShape("serve_prefill", cfg.prompt_len, 1, "prefill")
         dshape = InputShape("serve_decode", cfg.max_seq, cfg.slots, "decode")
+        self.placement = None
+        if self.mesh is not None:
+            self.placement = placement_lib.ServePlacement(
+                self.mesh, planlib.params_specs(self.api, self.mesh,
+                                                self.arch, dshape),
+                self.api.init(0, device="meta")[0], api=self.api,
+                rules=rules_lib.rules_for_arch(self.arch, dshape, self.mesh))
+        # The tensor-parallel route's context (None: whole params); the
+        # cache layout is this rank's under it.
+        self.model_parallel = (None if self.placement is None
+                               else self.placement.model_parallel)
+        with self._on_shards():
+            self.layout = build_layout(self.api, cfg.max_seq,
+                                       cfg.page_tokens, device=self.device)
         self.paged_route, self._paged_why = planlib.resolve_serve_paged(
             self.api, self.layout, self.arch, self.mesh, cfg.paged)
         # The paged route masks null-page rows in the kernel, so requests
@@ -211,17 +234,20 @@ class Server:
             num_pages=self.cache.num_pages, overrides=cfg.overrides,
             reduced=cfg.reduced, paged=cfg.paged)
         self._prefill_plans = {}
-        self.placement = (None if self.mesh is None else
-                          placement_lib.ServePlacement(
-                              self.mesh, self.splan.in_shardings[0],
-                              self.splan.args[0]))
 
         if params is None:
-            params, _ = self.api.init(cfg.seed, device=self.device)
-        self.params = params
+            # On the tensor-parallel route each value is cut to this rank's
+            # shard as it is drawn: the rank never holds the whole params.
+            with layers.use_keep(None if self.model_parallel is None
+                                 else self.placement.keep):
+                self.params, _ = self.api.init(cfg.seed, device=self.device)
+        else:
+            self.params = (params if self.placement is None
+                           else self.placement.from_whole(params))
+        del params
         # What a restore reads the names and devices from: empty leaves, so
         # a refresher does not keep the boot params alive.
-        self._like = tm.tree_map(lambda x: x.new_empty(0), params)
+        self._like = tm.tree_map(lambda x: x.new_empty(0), self.params)
         self.refresher = refresher
         self.batcher = ContinuousBatcher(cfg.slots)
         self._gen = device_lib.generator(cfg.seed, self.device)
@@ -235,15 +261,28 @@ class Server:
         return {"paged": self.paged_route, "why": self._paged_why,
                 "decisions": dispatch.report()}
 
+    @property
+    def model_compute(self) -> tuple:
+        """``(route, why)`` of a model axis above 1: ``"tensor-parallel"``
+        or ``"gathered"`` with the reason; ``(None, "")`` without one."""
+        if self.placement is None:
+            return None, ""
+        return (self.placement.model_compute,
+                self.placement.model_compute_fallback)
+
+    def _on_shards(self):
+        """The context the steps run under: the placement's model-parallel
+        one on the tensor-parallel route (a no-op elsewhere)."""
+        return rules_lib.use_model_parallel(self.model_parallel)
+
     # -- params plumbing -----------------------------------------------------
 
     @property
-    def params_shardings(self) -> Optional[Pytree]:
-        """The serve plan's params placement as ``NamedSharding`` s (None
-        without a mesh)."""
-        if self.mesh is None:
-            return None
-        return rules_lib.named(self.splan.in_shardings[0], self.mesh)
+    def _blocks(self) -> Optional[Pytree]:
+        """What the server's own restores place each leaf by: this rank's
+        block of the serve plan's placement, as a plain tensor
+        (``ServePlacement.blocks``)."""
+        return None if self.placement is None else self.placement.blocks()
 
     @property
     def _lead(self) -> bool:
@@ -255,15 +294,18 @@ class Server:
         return values if self.placement is None else \
             self.placement.decide(values)
 
-    def _whole(self, params: Pytree) -> Pytree:
-        return params if self.placement is None else \
-            self.placement.whole(params)
+    def _served(self, shards: Pytree) -> Pytree:
+        """What the steps read of restored ``shards``: the shards on the
+        tensor-parallel route, else whole params (``ServePlacement.serve``).
+        """
+        return shards if self.placement is None else \
+            self.placement.serve(shards)
 
     def restore_params(self, ckpt_dir: str) -> int:
         """Serve from the latest committed snapshot in ``ckpt_dir`` (either
         package's format; leaves land on the served params' device, on a
-        mesh as this rank's shards, which are then made whole). Returns the
-        snapshot step."""
+        mesh as this rank's shards, served as ``_served`` says). Returns
+        the snapshot step."""
         from repro_torch.checkpoint import checkpoint as ckpt
         step, = self._decide([ckpt.latest_step(ckpt_dir) if self._lead
                               else None])
@@ -271,8 +313,8 @@ class Server:
             raise FileNotFoundError(f"no committed snapshot in {ckpt_dir}")
         shards, step, _ = ckpt.restore(ckpt.step_path(ckpt_dir, int(step)),
                                        like=self._like,
-                                       shardings=self.params_shardings)
-        self.params = self._whole(shards)
+                                       shardings=self._blocks)
+        self.params = self._served(shards)
         if self.refresher is not None:
             self.refresher.current_step = step
         return step
@@ -280,7 +322,7 @@ class Server:
     def make_refresher(self, ckpt_dir: str, every_steps: int = 1,
                        base_step: int = 0) -> SnapshotRefresher:
         self.refresher = SnapshotRefresher(
-            ckpt_dir, like=self._like, shardings=self.params_shardings,
+            ckpt_dir, like=self._like, shardings=self._blocks,
             every_steps=every_steps, base_step=base_step)
         return self.refresher
 
@@ -295,7 +337,7 @@ class Server:
             return                      # pruned under a rank; retry later
         shards, extra = got
         self.refresher.swap(step, extra)
-        self.params = self._whole(shards)
+        self.params = self._served(shards)
 
     def _between_steps(self, clock: Clock):
         """Rank 0's host decisions between decode steps, in one broadcast
@@ -360,14 +402,17 @@ class Server:
             batch[name] = torch.cat(rows, dim=0)
         return batch
 
+    def first_scores(self, logits: torch.Tensor, rid: int) -> torch.Tensor:
+        """What request ``rid``'s first token is the argmax of, from its
+        prefill logits: ``plan.pick_scores`` with a generator of its own."""
+        gen = (device_lib.generator((self.cfg.seed << 20) + rid + 1,
+                                    self.device)
+               if self.cfg.temperature > 0 else None)
+        return planlib.pick_scores(logits[0, -1].float(), gen,
+                                   self.cfg.temperature)
+
     def _sample_first(self, logits: torch.Tensor, rid: int) -> int:
-        row = logits[0, -1].float()
-        if self.cfg.temperature > 0:
-            gen = device_lib.generator((self.cfg.seed << 20) + rid + 1,
-                                       self.device)
-            u = torch.rand(row.shape, generator=gen, device=self.device)
-            row = row / self.cfg.temperature - torch.log(-torch.log(u))
-        return int(torch.argmax(row))
+        return int(torch.argmax(self.first_scores(logits, rid)))
 
     def _pages_for(self, r: Request, length: int) -> Optional[List[int]]:
         """Page slots ``r`` will touch (lazy/paged route); None = eager full
@@ -410,8 +455,9 @@ class Server:
                     now: float) -> None:
         t0 = time.monotonic()
         reqs = [r for _, r in group]
-        logits, pcache = self._get_prefill(length, len(reqs))(
-            self.params, self._prefill_inputs(reqs, length))
+        with self._on_shards():
+            logits, pcache = self._get_prefill(length, len(reqs))(
+                self.params, self._prefill_inputs(reqs, length))
         _sync(self.device)
         elapsed, stale = self._with_staleness(time.monotonic() - t0)
         self.prefill_calls += 1
@@ -491,8 +537,9 @@ class Server:
                 continue
 
             t_dec = time.monotonic()
-            next_tok, self.cache.pages, self.cache.resident = self.splan(
-                *self.step_inputs())
+            with self._on_shards():
+                next_tok, self.cache.pages, self.cache.resident = self.splan(
+                    *self.step_inputs())
             next_np = next_tok.cpu().numpy()          # sync for honest timing
             self.phase_s["decode"] += time.monotonic() - t_dec
             self.decode_steps += 1
@@ -522,7 +569,8 @@ class Server:
             wall_s=wall_s, decode_steps=self.decode_steps,
             joins=self.batcher.joins, evicts=self.batcher.evicts,
             refreshes=(self.refresher.refreshes if self.refresher else 0),
-            prefill_calls=self.prefill_calls, phase_s=dict(self.phase_s))
+            prefill_calls=self.prefill_calls, phase_s=dict(self.phase_s),
+            model_compute=self.model_compute[0])
 
     def _finish(self, slot: int, completed: List[ServedRequest], now: float,
                 reason: str) -> None:

@@ -72,7 +72,9 @@ class SnapshotRefresher:
 
     The server calls ``poll`` between decode steps (on a mesh, rank 0
     alone), then ``load`` and ``swap`` on every rank for the step polled.
-    A publish or a prune racing the read is tolerated.
+    A publish or a prune racing the read is tolerated. On a mesh ``load``
+    reads only this rank's blocks; on the tensor-parallel serve those
+    shards are what the server swaps in, with no gather.
     """
 
     def __init__(self, ckpt_dir: str, like: Pytree,

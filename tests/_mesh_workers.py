@@ -3,11 +3,13 @@
 Each spawned process joins a ``gloo`` group, runs every case of its world
 size on CPU tensors and saves what the parent compares (``rank<r>.pt``).
 The same case functions run in the parent with no mesh, as the one-process
-reference. Nothing here imports JAX.
+reference. The teacher-forced serve records come from ``chip_smoke.py``'s
+``Forcing``. Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import numpy as np
@@ -22,6 +24,9 @@ from repro_torch.engine import plan as planlib
 from repro_torch.models import mlp as tmlp
 from repro_torch.optim import optimizers as topt
 from repro_torch.sharding import rules as rules_lib
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 P, DIM, B_WORKER, STEPS, S = 4, 24, 6, 6, 3
 LM_STEPS, LM_BATCH, LM_SEQ = 3, 4, 16
@@ -376,15 +381,27 @@ SERVE_CASES = {
 REFRESH_EVERY = 4
 
 
-def _served(server, report) -> dict:
+def _served(server, report, record=None) -> dict:
     """What every rank and the one process must agree on: each request's
-    tokens and staleness stamps, the route, and the report's counts."""
+    tokens and staleness stamps, the route, and the report's counts; the
+    model axis's route and the ``Forcing`` record of the run (its logits,
+    margins and picks), which the tensor-parallel route is held by."""
     return {"route": (server.paged_route, server._paged_why),
             "tokens": {r.rid: r.tokens for r in report.completed},
             "stamps": {r.rid: r.staleness for r in report.completed},
             "counts": (report.decode_steps, report.joins, report.evicts,
                        report.refreshes, report.prefill_calls),
-            "report": report}
+            "report": report, "model_compute": server.model_compute,
+            "record": record}
+
+
+def _recorded_run(server, reqs) -> dict:
+    """``server.run(reqs)`` under ``Forcing`` (its picks recorded, not
+    forced): ``_served`` of it."""
+    from chip_smoke import Forcing
+    with Forcing(server) as rec:
+        report = server.run(reqs)
+    return _served(server, report, rec.record())
 
 
 def _serve_requests(server, gens=SERVE_GENS, seed=3):
@@ -401,7 +418,7 @@ def serve_case(name: str, mesh=None) -> dict:
     arch, kw = SERVE_CASES[name]
     server = Server(ServingConfig(arch=arch, **SERVE, **kw), device="cpu",
                     mesh=mesh)
-    return _served(server, server.run(_serve_requests(server)))
+    return _recorded_run(server, _serve_requests(server))
 
 
 def _publish(server, ckpt_dir: str, step: int) -> None:
@@ -425,7 +442,7 @@ def refresh_case(ckpt_dir: str, mesh=None) -> dict:
     server.run(_serve_requests(server, gens=(3,), seed=4))
     _publish(server, ckpt_dir, 2)
     server.make_refresher(ckpt_dir, every_steps=REFRESH_EVERY, base_step=boot)
-    out = _served(server, server.run(_serve_requests(server)))
+    out = _recorded_run(server, _serve_requests(server))
     out["boot"], out["step"] = boot, server.refresher.current_step
     return out
 
@@ -442,7 +459,8 @@ def serve_restore_case(mesh, ckpt_dir: str) -> dict:
     dist.barrier()
     path = ckpt.step_path(ckpt_dir, 5)
     shards, _, _ = ckpt.restore(path, like=server.params,
-                                shardings=server.params_shardings)
+                                shardings=rules_lib.named(
+                                    server.splan.in_shardings[0], server.mesh))
     saved, _, _ = ckpt.restore(path, like=server.params)
     specs = rules_lib.axes_leaves(server.splan.in_shardings[0])
     kinds = [(type(x).__name__, "model" in str(spec))
@@ -776,21 +794,226 @@ def tp_route_case(mesh) -> dict:
     return out
 
 
+# -- serving on the model axis's shards (``test_torch_tp.py``) ------------------
+
+# The serve cases of each mesh: (arch, route, temperature) over the four
+# layouts at 1x2, deepseek-7b (head) at 2x2; the routes pinned as the
+# serve cases above pin them.
+TP_SERVE_ROUTES = {"paged": "on", "gather": "off"}
+TP_SERVE_TEMPS = {"greedy": 0.0, "t0.7": 0.7}
+# The served families a model axis cannot compute tensor-parallel: the
+# state-space LM (resident route) and the encoder-decoder (cross layers).
+TP_SERVE_GATHERED = ("mamba2-1.3b", "whisper-base")
+# Each case's stream: three requests over the two slots (the third joins
+# after the first is evicted), shorter than SERVE_GENS to keep the grid's
+# time down.
+TP_SERVE_GENS = (3, 6, 3)
+
+
+def tp_serve_cases(label: str) -> list:
+    archs = TP_ARCHS.values() if label == "1x2" else ("deepseek-7b",)
+    return [(arch, route, temp) for arch in archs for route in TP_SERVE_ROUTES
+            for temp in TP_SERVE_TEMPS]
+
+
+def tp_server(arch: str, route: str, temp: str, mesh, overrides=None):
+    from repro_torch.serving import Server, ServingConfig
+    return Server(ServingConfig(
+        arch=arch, overrides=TP_OVERRIDES if overrides is None else overrides,
+        paged=TP_SERVE_ROUTES[route], temperature=TP_SERVE_TEMPS[temp],
+        **SERVE), device="cpu", mesh=mesh)
+
+
+def served_bytes(server) -> tuple:
+    """(bytes of the params the server serves, bytes of this rank's model
+    shards of them, whether each leaf has its shard's shape)."""
+    pl = server.placement
+    m, have = rules_lib.model_extent(server.mesh), 0
+    want, shapes_ok = 0, True
+    for x, spec, shape in zip(tm.tree_leaves(server.params), pl.specs,
+                              pl.shapes):
+        cut = list(shape)
+        for d, part in enumerate(spec):
+            if "model" in rules_lib._names(part):
+                cut[d] = pl.model_parallel.span(shape[d])[1] if m > 1 \
+                    else shape[d]
+        have += x.numel() * x.element_size()
+        want += int(np.prod(cut)) * x.element_size()
+        shapes_ok &= tuple(x.shape) == tuple(cut)
+    return have, want, shapes_ok
+
+
+def tp_serve_ref(arch: str, route: str, temp: str) -> dict:
+    """The TP_SERVE_GENS stream served by one process (no mesh), its picks
+    recorded (``chip_smoke.Forcing``): the record, the served tokens and
+    the pool width."""
+    from chip_smoke import Forcing
+    server = tp_server(arch, route, temp, None)
+    with Forcing(server) as rec:
+        report = server.run(_serve_requests(server, TP_SERVE_GENS))
+    return dict(rec.record(), pool_width=server.layout.width,
+                tokens={r.rid: r.tokens for r in report.completed})
+
+
+def tp_serve_case(arch: str, route: str, temp: str, mesh, ref: dict,
+                  plant: bool = False) -> dict:
+    """The TP_SERVE_GENS stream served on ``mesh``, teacher-forced with
+    the tokens of its one-process reference ``ref`` (``tp_serve_ref``):
+    both records, the mesh serve's model-axis route, pool widths, served
+    bytes and the placement's model-axis whole gathers. ``plant``:
+    "reduce" made the identity."""
+    from chip_smoke import Forcing
+    server = tp_server(arch, route, temp, mesh)
+    if plant:
+        server.model_parallel.reduce = lambda x: x
+    with Forcing(server, ref["tokens"]) as rec:
+        server.run(_serve_requests(server, TP_SERVE_GENS))
+    return {"ref": ref, "got": rec.record(),
+            "model_compute": server.model_compute,
+            "route": server.paged_route,
+            "pool_width": (server.layout.width, ref["pool_width"]),
+            "plan": {k: server.splan.meta.get(k) for k in (
+                "model_compute", "model_compute_fallback", "pool_width")},
+            "bytes": served_bytes(server),
+            "whole_gathers": server.placement.whole_gathers}
+
+
+def tp_serve_init_case(mesh) -> dict:
+    """Reduced deepseek-7b at tp = 2 inited by the server itself (no
+    params handed in): whether its params are bitwise its shards of the
+    one-process init, the bytes of the values the placement's ``keep``
+    kept and of the served params, and the init's largest live param
+    bytes (the values kept so far plus the one being drawn) against the
+    whole params'."""
+    from repro_torch.engine.placement import ServePlacement
+    live = {"kept": 0, "peak": 0}
+    keep = ServePlacement.keep
+
+    def counted(self, x, axes):
+        live["peak"] = max(live["peak"],
+                           live["kept"] + x.numel() * x.element_size())
+        out = keep(self, x, axes)
+        live["kept"] += out.numel() * out.element_size()
+        return out
+    ServePlacement.keep = counted
+    try:
+        server = tp_server("deepseek-7b", "paged", "greedy", mesh)
+    finally:
+        ServePlacement.keep = keep
+    whole = server.api.init(server.cfg.seed, device="cpu")[0]
+    want = server.placement.from_whole(whole)
+    return {"shards": all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(server.params), tm.tree_leaves(want))),
+            "kept": live["kept"], "peak": live["peak"],
+            "served": sum(x.numel() * x.element_size()
+                          for x in tm.tree_leaves(server.params)),
+            "whole": sum(x.numel() * x.element_size()
+                         for x in tm.tree_leaves(whole))}
+
+
+def tp_refresh_dirs(out_dir: str, rank: int) -> dict:
+    """Snapshot 1 of reduced deepseek-7b at tp = 2 in ``boot`` and
+    snapshots 1 and 2 in ``live``, written by each rank for itself."""
+    dirs = {k: os.path.join(out_dir, f"tp-refresh-{rank}-{k}")
+            for k in ("boot", "live")}
+    api = tp_api("deepseek-7b")
+    for step in (1, 2):
+        params, _ = api.init(step, device="cpu")
+        for k in ("boot", "live") if step == 1 else ("live",):
+            ckpt.save(ckpt.step_path(dirs[k], step), params, step=step,
+                      extra={"published_at": time.time()})
+    return dirs
+
+
+def tp_refresh_run(dirs: dict, mesh=None, force=None) -> tuple:
+    """Reduced deepseek-7b at tp = 2 on the paged route (on ``mesh``, else
+    one process), booted from snapshot 1 of ``boot``, a warm-up request,
+    then the SERVE_GENS stream with a refresher on ``live`` every
+    REFRESH_EVERY decode steps, teacher-forced with ``force`` where given:
+    its record, the decode step each swap landed on, the boot's and the
+    last step and the served tokens; and the server."""
+    from chip_smoke import Forcing
+    server = tp_server("deepseek-7b", "paged", "greedy", mesh)
+    boot = server.restore_params(dirs["boot"])
+    server.run(_serve_requests(server, gens=(3,), seed=4))
+    refresher = server.make_refresher(dirs["live"], REFRESH_EVERY, boot)
+    swaps, swap = [], refresher.swap
+    refresher.swap = lambda step, extra: (
+        swaps.append(server.decode_steps), swap(step, extra))
+    with Forcing(server, force) as rec:
+        report = server.run(_serve_requests(server))
+    return dict(rec.record(), swaps=swaps, boot=boot,
+                step=refresher.current_step, tokens={
+                    r.rid: r.tokens for r in report.completed}), server
+
+
+def tp_refresh_case(mesh, dirs: dict, ref: dict) -> dict:
+    """``tp_refresh_run`` on ``mesh`` teacher-forced with the one-process
+    run ``ref``'s tokens: both records, whether the mesh's served params
+    after the swap are bitwise its shards of snapshot 2, and the
+    placement's model-axis whole gathers."""
+    got, server = tp_refresh_run(dirs, mesh, ref["tokens"])
+    want = server.placement.from_whole(
+        tp_api("deepseek-7b").init(2, device="cpu")[0])
+    return {"ref": ref, "got": got,
+            "shards_of_2": all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(server.params), tm.tree_leaves(want))),
+            "whole_gathers": server.placement.whole_gathers}
+
+
+def tp_gathered_serve(arch: str, mesh=None) -> tuple:
+    """A family the model axis cannot compute tensor-parallel, served
+    greedy on the paged route (where it has one; "on" overrides the model
+    axis's veto) on ``mesh`` (else by one process): ``_served`` of it and
+    the server."""
+    from repro_torch.serving import Server, ServingConfig
+    server = Server(ServingConfig(arch=arch, paged="on", **SERVE),
+                    device="cpu", mesh=mesh)
+    return _served(server, server.run(_serve_requests(server))), server
+
+
+def tp_gathered_serve_case(arch: str, mesh, ref: dict) -> dict:
+    """``tp_gathered_serve`` on ``mesh`` beside its one-process ``ref``,
+    and whether the mesh serves whole params."""
+    got, server = tp_gathered_serve(arch, mesh)
+    return {"ref": ref, "got": got, "whole": all(
+        tuple(x.shape) == shape for x, shape in zip(
+            tm.tree_leaves(server.params), server.placement.shapes))}
+
+
 def tp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     """Spawn target of ``test_torch_tp.py``: the tensor-parallel cases of
     this world size (2: the 1x2 mesh, 4: 2x2)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     torch.set_num_threads(1)
+    label = "1x2" if world == 2 else "2x2"
+    # The serves' one-process references, before this rank joins the group
+    # (a Server in a process group serves on its mesh).
+    refs = {case: tp_serve_ref(*case) for case in tp_serve_cases(label)}
+    if world == 2:
+        dirs = tp_refresh_dirs(out_dir, rank)
+        refresh_ref = tp_refresh_run(dirs)[0]
+        gathered_refs = {arch: tp_gathered_serve(arch)[0]
+                         for arch in TP_SERVE_GATHERED}
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
-        label = "1x2" if world == 2 else "2x2"
         mesh = make_host_mesh(*TP_MESHES[label], device="cpu")
         out = {"engine": {name: tp_engine_case(mesh=mesh, label=label, **kw)
                           for name, kw in TP_ENGINE_CASES.items()},
-               "threshold": tp_threshold_case(mesh, label)}
+               "threshold": tp_threshold_case(mesh, label),
+               "serve": {case: tp_serve_case(*case, mesh, refs[case])
+                         for case in tp_serve_cases(label)}}
         if world == 2:
+            out["serve_planted"] = tp_serve_case(
+                "deepseek-7b", "paged", "greedy", mesh,
+                refs["deepseek-7b", "paged", "greedy"], plant=True)
+            out["serve_init"] = tp_serve_init_case(mesh)
+            out["serve_refresh"] = tp_refresh_case(mesh, dirs, refresh_ref)
+            out["serve_gathered"] = {
+                arch: tp_gathered_serve_case(arch, mesh, gathered_refs[arch])
+                for arch in TP_SERVE_GATHERED}
             out["grads"] = {mode: tp_grad_case(mode, mesh)
                             for mode in TP_ARCHS}
             out["planted"] = tp_grad_case("head", mesh, plant=True)

@@ -377,6 +377,28 @@ def _serve_ranks(worlds, label):
     return [out["serve"][label] for out in worlds[SERVE_MESHES[label]]]
 
 
+# The tensor-parallel serve's limits (``test_torch_tp.py`` holds it, teacher-
+# forced, against one process and JAX): logits within SERVE_RTOL of the
+# largest |logit|, tokens equal up to a near-tie (a one-process top-2
+# margin below NEAR_TIE).
+SERVE_RTOL, NEAR_TIE = 1e-5, 1e-4
+
+
+def _held_tensor_parallel(got: dict, ref: dict) -> None:
+    """A free-running tensor-parallel serve against one process: each
+    request's tokens equal up to its first near-tie, and the logits of
+    every token whose inputs were still the one process's (up to and
+    including the first that differs) within SERVE_RTOL."""
+    from chip_smoke import logit_gap, parting
+    assert not parting(got["tokens"], ref["record"], NEAR_TIE)["parted"]
+    upto = {rid: next((j + 1 for j, (a, b) in enumerate(
+        zip(toks, ref["tokens"][rid])) if a != b), len(toks))
+        for rid, toks in got["tokens"].items()}
+    cut = {"logits": {rid: x[:upto[rid]]
+                      for rid, x in got["record"]["logits"].items()}}
+    assert logit_gap(cut, ref["record"])["rel"] <= SERVE_RTOL
+
+
 @pytest.mark.parametrize("label", list(SERVE_MESHES))
 @pytest.mark.parametrize("case", list(W.SERVE_CASES) + ["refresh"])
 def test_mesh_serve_equals_one_process(worlds, serve_one_process, label,
@@ -384,16 +406,27 @@ def test_mesh_serve_equals_one_process(worlds, serve_one_process, label,
     """Reduced deepseek-7b on the paged and gather routes, greedy and at
     temperature 0.7, and reduced deepseek-67b (FSDP: ``embed`` on data,
     the gather route), served over a 2x1, 1x2 and 2x2 mesh: each rank's
-    tokens and staleness stamps are bitwise the one process's, with the
-    same counts, and every rank returns the same report (rank 0's
-    decisions, its clock and stamps included). ``refresh``: a snapshot
-    swapped in at decode step 4 of the served stream; the ranks load the
-    step rank 0 polled."""
+    tokens and staleness stamps are the one process's, with the same
+    counts, and every rank returns the same report (rank 0's decisions,
+    its clock and stamps included). Bitwise where the params are whole
+    (2x1, and deepseek-67b, whose one kv head the model axis cannot
+    split); deepseek-7b at 1x2 and 2x2 serves tensor-parallel on its
+    shards, whose logits part at fp32 roundoff: its tokens up to a
+    near-tie and its logits within SERVE_RTOL (``_held_tensor_parallel``).
+    ``refresh``: a snapshot swapped in at decode step 4 of the served
+    stream; the ranks load the step rank 0 polled."""
     ref = serve_one_process[case]
     ranks = _serve_ranks(worlds, label)
+    tensor_parallel = label != "2x1" and "67b" not in case
     for got in ranks:
         assert got[case]["route"] == ref["route"]
-        assert got[case]["tokens"] == ref["tokens"]
+        assert got[case]["model_compute"][0] == (
+            None if label == "2x1" else
+            "tensor-parallel" if tensor_parallel else "gathered")
+        if tensor_parallel:
+            _held_tensor_parallel(got[case], ref)
+        else:
+            assert got[case]["tokens"] == ref["tokens"]
         assert got[case]["counts"] == ref["counts"]
         steps = {rid: [b for b, _ in st] for rid, st in
                  got[case]["stamps"].items()}
@@ -439,11 +472,15 @@ def test_serve_restore_gives_model_shards(worlds, label):
 
 def test_serve_cli_under_torchrun_prints_the_one_process_rows():
     """``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2
-    --cpu``: "auto" resolves to the gather route (model axis extent 2), and
-    rank 0 alone prints the report and sample row of the in-process CLI on
-    the gather route."""
+    --cpu``: "auto" resolves to the gather route (model axis extent 2) and
+    the ranks serve reduced deepseek-7b tensor-parallel on their shards;
+    rank 0 alone prints the route, the report of the in-process CLI on the
+    gather route and its sample row (up to a near-tie of that run's, as
+    ``_held_tensor_parallel`` holds the tokens)."""
     import json
     from repro_torch.launch import serve
+    from repro_torch.serving import Server
+    from chip_smoke import Forcing, parting
     args = ["--arch", "deepseek-7b", "--reduced", "--cpu", "--greedy",
             "--batch", "2", "--prompt-len", "8", "--gen", "6"]
     env = _env()
@@ -454,9 +491,21 @@ def test_serve_cli_under_torchrun_prints_the_one_process_rows():
          "repro_torch.launch.serve", "--mesh", "1x2"] + args,
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    ref = serve.main(args + ["--paged", "off"])["report"]
+    records, run = [], Server.run
+
+    def recorded(self, reqs, **kw):
+        with Forcing(self) as rec:
+            report = run(self, reqs, **kw)
+        records.append(rec.record())
+        return report
+    Server.run = recorded
+    try:
+        ref = serve.main(args + ["--paged", "off"])["report"]
+    finally:
+        Server.run = run
     assert out.stdout.count("serve dispatch:") == 1   # rank 0 alone prints
     assert "paged=gather (model axis extent 2)" in out.stdout
+    assert out.stdout.count("model axis: tensor-parallel") == 1
     start = out.stdout.index("{")
     summary = json.loads(out.stdout[start:out.stdout.index("\n}", start) + 2])
     want = ref.summary()
@@ -464,4 +513,8 @@ def test_serve_cli_under_torchrun_prints_the_one_process_rows():
                 "evicts", "refreshes", "prefill_calls", "staleness"):
         assert summary[key] == want[key], key
     first = min(ref.completed, key=lambda r: r.rid)
-    assert f"sample row 0: {first.tokens[:24]}" in out.stdout
+    row = out.stdout.split("sample row 0: ")[1].splitlines()[0]
+    got = json.loads(row)
+    assert len(got) == len(first.tokens[:24])
+    only = {k: {first.rid: v[first.rid]} for k, v in records[0].items()}
+    assert not parting({first.rid: got}, only, NEAR_TIE)["parted"]

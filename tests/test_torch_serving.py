@@ -321,8 +321,10 @@ def test_snapshot_refresh_from_jax_checkpoints(params, tmp_path):
 class _CountedLead:
     """A one-rank stand-in for ``engine/placement.py::ServePlacement`` that
     counts the host broadcasts (``decide``); values come back as floats,
-    as a broadcast returns them."""
+    as a broadcast returns them. Its params are restored whole and served
+    as restored (no model axis)."""
     is_lead = True
+    model_compute, model_compute_fallback = None, ""
 
     def __init__(self):
         self.decides = 0
@@ -331,7 +333,10 @@ class _CountedLead:
         self.decides += 1
         return [None if v is None else float(v) for v in values]
 
-    def whole(self, shards):
+    def blocks(self):
+        return None
+
+    def serve(self, shards):
         return shards
 
     def all_ok(self, flag):

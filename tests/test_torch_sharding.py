@@ -352,6 +352,9 @@ def test_serve_plan_specs_match_jax(arch_id):
     assert tp.donate_argnums == jp.donate_argnums
     assert [tuple(x.shape) for x in tm_leaves(tp.args[1:7])] == \
         [tuple(x.shape) for x in jp.args[1:7]]
+    # The port's meta adds the page pool's row width (a tensor-parallel
+    # rank's is its own); the rest is JAX's.
+    assert tp.meta.pop("pool_width") == tlayout.width
     assert tp.meta == jp.meta
     jaxes = jax.tree.leaves(jparam_axes(japi), is_leaf=jplan._is_axes_leaf)
     for name in ("2x2", "16x16"):

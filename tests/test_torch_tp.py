@@ -24,6 +24,12 @@ Tolerances, and why:
   same params bit for bit.
 * **The top-k threshold** on a shared accumulator: bitwise the one-process
   threshold, below and above ``EXACT_TOPK_MAX``, and the sparsity bitwise.
+* **Serving on the shards** (``SERVE_RTOL``, ``NEAR_TIE``): each decode
+  step fed the one process's token (``chip_smoke.Forcing``), the logits
+  within 1e-5 of the largest |logit| of one process's and of JAX's
+  ``decode`` (fp32 roundoff of the row-parallel sums and the vocab
+  gather), the picks the one process's wherever its top-2 margin is not
+  below 1e-4.
 """
 import os
 import socket
@@ -39,6 +45,7 @@ import torch
 
 import _mesh_workers as W
 from repro import configs as jcfg
+from repro_torch import configs as cfglib
 from repro_torch import treemath as tm
 
 torch.set_num_threads(1)
@@ -316,3 +323,157 @@ def test_tp_train_cli_under_torchrun():
                 assert abs(got[key] - value) <= TRAJ_RTOL * abs(value), key
             else:
                 assert got[key] == value, key
+
+
+# -- serving on the model axis's shards ------------------------------------------
+
+# Teacher-forced logits (each step's input the one process's token) within
+# SERVE_RTOL of the largest |logit| of the one process's and of JAX's
+# ``decode``; tokens equal up to the first step whose one-process top-2
+# margin is below NEAR_TIE and, each step's input being the one process's,
+# at every later step whose margin is not below it. A dropped ``reduce``
+# must part past PLANTED_FACTOR times the limit.
+SERVE_RTOL, NEAR_TIE, PLANTED_FACTOR = 1e-5, 1e-4, 100
+SERVE_GRID = [(label, case) for label in W.TP_MESHES
+              for case in W.tp_serve_cases(label)]
+_JAX_LOGITS = {}
+
+
+def _jax_logits(arch: str, prompt, tokens) -> np.ndarray:
+    """JAX's ``decode`` of the reduced ``arch`` (tp = 2) on the served
+    params (seed 0), fed the prompt and then ``tokens``: the logits of
+    each token, ``[len(tokens), vocab_real]``."""
+    key = (arch, tuple(int(t) for t in prompt), tuple(tokens))
+    if arch not in _JAX_LOGITS:
+        japi = jcfg.get(arch).api(reduced=True, overrides=W.TP_OVERRIDES)
+        params = W.tp_api(arch).init(0, device="cpu")[0]
+        _JAX_LOGITS[arch] = (japi, jax.tree.map(
+            lambda x: jnp.asarray(x.numpy()), params), jax.jit(japi.decode))
+    if key not in _JAX_LOGITS:
+        japi, jp, step = _JAX_LOGITS[arch]
+        cache = japi.init_cache(1, W.SERVE["max_seq"])[0]
+        inputs = list(prompt) + list(tokens[:-1])
+        rows = []
+        for pos, tok in enumerate(inputs):
+            lg, cache = step(jp, jnp.asarray([[tok]], jnp.int32), cache,
+                             jnp.int32(pos))
+            if pos >= len(prompt) - 1:
+                rows.append(np.asarray(lg[0, -1, :japi.vocab_real]))
+        _JAX_LOGITS[key] = np.stack(rows)
+    return _JAX_LOGITS[key]
+
+
+def _pool_width(arch: str, m: int) -> int:
+    """A rank's page-pool row: k and v of every layer at the kv heads it
+    attends with (its own in head mode, else all: the reduced danube and
+    qwen3 have one), plus ``slot_pos``."""
+    cfg = W.tp_api(arch).cfg
+    hkv = cfg.num_kv_heads // (m if cfg.attn_mode == "head" else 1)
+    return cfg.num_layers * (2 * hkv * cfg.head_dim + 1)
+
+
+def _forced_held(got: dict, ref: dict, prompts=None, arch=None) -> dict:
+    """Hold a teacher-forced record against its one-process reference:
+    the logits gap within SERVE_RTOL (and against JAX's ``decode`` with
+    ``prompts``), the own picks equal up to each request's first near-tie.
+    Returns the gaps and the near-ties."""
+    from chip_smoke import logit_gap, parting
+    gap = logit_gap(got, ref)
+    assert gap["rel"] <= SERVE_RTOL, gap
+    jgap = 0.0
+    if prompts is not None:
+        for rid, rows in got["logits"].items():
+            want = _jax_logits(arch, prompts[rid], ref["tokens"][rid])
+            scale = float(np.abs(want).max())
+            jgap = max(jgap, float(np.abs(rows.numpy() - want).max()) / scale)
+        assert jgap <= SERVE_RTOL, jgap
+    part = parting(got["picks"], ref, NEAR_TIE)
+    assert not part["parted"] and not part["flips"], part
+    return {"rel": gap["rel"], "jax_rel": jgap, "ties": part["ties"]}
+
+
+@pytest.mark.parametrize("label,case", SERVE_GRID)
+def test_tp_serve_matches_one_process_and_jax(worlds, label, case):
+    """Reduced deepseek-7b (head), qwen2-moe (head, MoE), danube (mixed,
+    sliding window) and qwen3-14b (contraction) at tp = 2, served at 1x2
+    (deepseek-7b also at 2x2) on the paged and gather routes, greedy and
+    at temperature 0.7, on each rank's shards and teacher-forced with the
+    one process's tokens: each rank's whole logits within SERVE_RTOL of the
+    one process's and of JAX's ``decode`` on the same params, the same on
+    every rank, its own picks the one process's up to a near-tie. A rank
+    serves exactly its shards (no model-axis gather), from a pool of the
+    kv heads it attends with; the server and its plan say so."""
+    arch, route, temp = case
+    m = W.TP_MESHES[label][1]
+    ranks = [out["serve"][case] for out in worlds[label]]
+    server = W.tp_server(arch, route, temp, None)
+    prompts = {r.rid: r.prompt for r in W._serve_requests(
+        server, W.TP_SERVE_GENS)}
+    for got in ranks:
+        assert got["model_compute"] == ("tensor-parallel", "")
+        assert got["plan"] == {"model_compute": "tensor-parallel",
+                               "model_compute_fallback": None,
+                               "pool_width": got["pool_width"][0]}
+        assert got["route"] == ("paged" if route == "paged" else "gather")
+        assert got["pool_width"] == (_pool_width(arch, m),
+                                     _pool_width(arch, 1))
+        have, want, shapes_ok = got["bytes"]
+        assert shapes_ok and have == want
+        assert got["whole_gathers"] == 0
+        held = _forced_held(got["got"], got["ref"], prompts, arch)
+        for a, b in zip(got["got"]["logits"].values(),
+                        ranks[0]["got"]["logits"].values()):
+            assert torch.equal(a, b)
+    print(f"{label} {case}: {held}")
+
+
+def test_tp_serve_dropped_reduce_is_a_planted_fault(worlds):
+    """With "reduce" made the identity the served logits part from one
+    process's by more than PLANTED_FACTOR times the limit."""
+    from chip_smoke import logit_gap
+    for out in worlds["1x2"]:
+        got = out["serve_planted"]
+        assert logit_gap(got["got"], got["ref"])["rel"] > \
+            PLANTED_FACTOR * SERVE_RTOL
+
+
+def test_tp_serve_refresh_swaps_shards_on_the_same_step(worlds):
+    """Booted from snapshot 1 and refreshed to snapshot 2 mid-serve on the
+    tensor-parallel route: the swap lands on the one process's decode step
+    on every rank, the served params are then bitwise the rank's shards of
+    snapshot 2, no model-axis gather ran, and the forced logits hold."""
+    for out in worlds["1x2"]:
+        got = out["serve_refresh"]
+        assert got["ref"]["swaps"] == got["got"]["swaps"]
+        assert len(got["got"]["swaps"]) == 1
+        assert (got["got"]["boot"], got["got"]["step"]) == (1, 2)
+        assert got["shards_of_2"] and got["whole_gathers"] == 0
+        _forced_held(got["got"], got["ref"])
+
+
+def test_tp_serve_init_holds_only_shards(worlds):
+    """A rank that inits its own params on the tensor-parallel route (no
+    params handed to the server) cuts each value to its shard as it is
+    drawn: its params are bitwise its shards of the one-process init,
+    every leaf went through the placement's ``keep``, and the init's live
+    param bytes never reach the whole params'."""
+    for out in worlds["1x2"]:
+        got = out["serve_init"]
+        assert got["shards"]
+        assert got["kept"] == got["served"] < got["whole"]
+        assert got["peak"] < got["whole"], got
+
+
+@pytest.mark.parametrize("arch", W.TP_SERVE_GATHERED)
+def test_tp_serve_gathered_families_unchanged(worlds, arch):
+    """The state-space LM and the encoder-decoder on a 1x2 mesh take the
+    gathered serve (the reason given): whole params on every rank, tokens
+    and stamps bit for bit the one process's."""
+    for out in worlds["1x2"]:
+        got = out["serve_gathered"][arch]
+        route, why = got["got"]["model_compute"]
+        assert route == "gathered" and why == (
+            cfglib.get(arch).api(reduced=True).family + " family")
+        assert got["whole"]
+        for key in ("route", "tokens", "stamps", "counts"):
+            assert got["got"][key] == got["ref"][key], key
