@@ -4443,6 +4443,7 @@ def add_cross_rows(kernels: list, cross: dict) -> None:
 # would. A job that fails to end in time, or a process that dies, retires
 # the pool; the next phase starts another.
 POOL_RANKS = 2
+GLOO_DEVICES = "lo,lo,lo,lo"
 _POOL: list = []
 
 
@@ -4533,7 +4534,11 @@ class RankPool:
     def __init__(self):
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_pool_")
         self.jobs = 0
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        # Four gloo devices on the loopback (the ranks share one host):
+        # gloo runs the pieces of a large gather on them side by side.
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME",
+                                                     GLOO_DEVICES))
         sys.stdout.flush()
         self.procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--rank-worker",
@@ -4653,7 +4658,7 @@ MESH_SYNC_TOL = dict(loss=1e-6, param=1e-4, rel=2e-6)
 MESH_SYNC_LEG = MESH_LEGS[3]
 PLANTED = "sync adam, all_reduce dropped"
 COLLECTIVES = ("all_gather", "allgather", "all_reduce", "allreduce",
-               "broadcast", "reduce_scatter")
+               "broadcast", "reduce_scatter", "all_to_all", "alltoall")
 
 
 def mesh_run(dev, leg, params0, data, table, mesh=None, *, steps=STEPS,
@@ -4747,14 +4752,25 @@ def profile_collectives(engine, state, batches, k: int, sync, warm=True,
         def __getattr__(self, name):
             fn = getattr(self.dist, name)
             if name not in ("all_gather", "all_reduce", "broadcast",
-                            "reduce_scatter_tensor"):
+                            "all_to_all_single"):
                 return fn
 
             def timed(*a, **kw):
                 sync()
                 with record_function(f"mesh.{name}"):
-                    return fn(*a, **kw)
+                    work = fn(*a, **kw)
+                return work if work is None else Waited(work, name)
             return timed
+
+    class Waited:
+        """An async collective's handle whose wait is a range too."""
+
+        def __init__(self, work, name):
+            self.work, self.name = work, name
+
+        def wait(self):
+            with record_function(f"mesh.{self.name} wait"):
+                return self.work.wait()
 
     place = engine.placement
     place.dist = Timed(place.dist)
@@ -5094,11 +5110,19 @@ class NoGather:
         import torch.distributed as dist
         return getattr(dist, name)
 
-    def all_gather(self, parts, x, group=None):
+    def all_gather(self, parts, x, group=None, async_op=False):
         import torch.distributed as dist
         me = dist.get_group_rank(group, dist.get_rank())
         for i, part in enumerate(parts):
             part.copy_(x) if i == me else part.zero_()
+        return Done() if async_op else None
+
+
+class Done:
+    """A collective's handle that has nothing left to wait for."""
+
+    def wait(self):
+        return True
 
 
 def mesh_server(dev, spec: dict, mesh=None, params=None):
@@ -5651,6 +5675,27 @@ FSDP_UPDATE_BYTES = 14
 # reference's value (a bf16 param moves by far less than its ulp in a
 # step, so a gradient that differs in roundoff can only flip a rounding).
 FSDP_FLIP_SHARE = 1e-3
+# Last, the ranks serve the phase's deepseek-67b (FSDP_LEG["layers"] deep,
+# bf16, seed 0) at 2x1 from their data blocks (ROADMAP A.18.1): a Server
+# that inits its own params cuts each value to its block as it is drawn,
+# and prefill and decode gather one layer (or ``embed``, ``final_ln``,
+# ``head``) at a time as the model reads it, dropping it after use. The
+# stream: FSDP_SERVE["n"] greedy requests of FSDP_SERVE["prompt_len"]
+# tokens, FSDP_SERVE["new_tokens"] new tokens each, over as many slots (one
+# prefill call, new_tokens - 1 decode steps, each reading every param
+# once: ``transformer.decode_slots``). Held against the same stream served
+# by one process (the script's, before the ranks get the leg): tokens and
+# counts bit for bit, no model-axis gather, a rank's served bytes its data
+# blocks', its peak below its blocks plus twice the largest read plus the
+# cache and FSDP_SERVE_SLACK_GB (``all_gather_dim`` holds a read's parts
+# and their concatenation at once), the bytes allocated before each read
+# and after each step within the blocks plus the cache and
+# FSDP_SERVE_SLACK_GB (every read is dropped after use), and each decode
+# step's data-axis gathers one a data-sharded leaf. Then the same stream
+# with the data fetch's gather delivering nothing (``NoGather``, planted),
+# whose tokens must part.
+FSDP_SERVE = dict(n=2, prompt_len=32, new_tokens=4)
+FSDP_SERVE_SLACK_GB = 0.5
 
 
 def tree_stats(dev, got, ref, p0=None) -> dict:
@@ -5905,6 +5950,119 @@ def host_pinned_gb() -> float:
     return stats.get("allocated_bytes.current", 0) / 1e9
 
 
+def fsdp_serve_leg(dev, arch: str, mesh=None) -> dict:
+    """FSDP_SERVE's stream served greedy on the gather route by a Server
+    that inits ``arch`` from seed 0 (on ``mesh``, each rank's data blocks),
+    the launch counters zeroed just before the run and read just after:
+    its tokens, report counts and ms a decode step, the served and cache
+    GB, the model axis's whole gathers, the init's peak (``boot_peak_gb``)
+    and the serve's peak (``peak_gb``) above the start; on a
+    mesh also each decode step's data-axis gathers ``(name, GB)``, the GB
+    allocated above the start before each read (``(name, GB)``) and after
+    each step, the largest read's GB, the blocks' and the whole params' GB
+    by the specs, and the planted run's tokens (``NoGather``)."""
+    import torch
+    from repro_torch.serving import Server, ServingConfig
+    f = FSDP_SERVE
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = Server(ServingConfig(
+        arch=arch, reduced=False, slots=f["n"], prompt_len=f["prompt_len"],
+        max_seq=f["prompt_len"] + f["new_tokens"], page_tokens=8,
+        prefill_batch=f["n"], temperature=0.0, seed=0, paged="auto"),
+        device=dev, mesh=mesh)
+    reqs = lambda: serve_requests(server.api.vocab_real, f["n"],
+                                  (f["new_tokens"],) * 2,
+                                  prompt_len=f["prompt_len"])
+    pl = server.placement
+    sharded = pl is not None and pl.data_axis is not None
+    torch.cuda.synchronize(dev)
+    out = {"route": (server.paged_route, server._paged_why),
+           "served_gb": tree_gb(server.params),
+           "cache_gb": tree_gb((server.cache.pages, server.cache.resident)),
+           "boot_peak_gb": (torch.cuda.max_memory_allocated(dev) - base)
+           / 1e9}
+    torch.cuda.reset_peak_memory_stats(dev)
+    gb = lambda: (torch.cuda.memory_allocated(dev) - base) / 1e9
+    if sharded:
+        out.update(data_blocks_gb(pl, server.params))
+        steps, before, after = [], [], []
+        fetch, plan, axis = server._fetch, server.splan, pl.data_axis
+
+        def read(tree, name):
+            before.append((name, gb()))
+            return fetch(tree, name)
+
+        def step(*args):
+            axis.record = []
+            try:
+                return plan(*args)
+            finally:
+                steps.append([(name, nbytes / 1e9)
+                              for _, name, _, nbytes in axis.record])
+                axis.record = None
+                torch.cuda.synchronize(dev)
+                after.append(gb())
+        server._fetch, server.splan = read, step
+        out.update(reads=steps, before_read_gb=before, after_step_gb=after)
+    torch.cuda.synchronize(dev)
+    reset_counters()
+    rep = server.run(reqs())
+    out["launches"] = counters()
+    torch.cuda.synchronize(dev)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    out.update(
+        tokens={r.rid: r.tokens for r in rep.completed},
+        counts=(rep.decode_steps, rep.joins, rep.evicts, rep.prefill_calls),
+        ms_per_decode_step=1e3 * rep.phase_s["decode"] / rep.decode_steps,
+        whole_gathers=None if pl is None else pl.whole_gathers)
+    if sharded:
+        # A read: embed, one layer (its leaves' gathers), final_ln, head.
+        layers = server.api.cfg.num_layers
+        by_name = {}
+        for name, g in steps[0]:
+            by_name[name] = by_name.get(name, 0.0) + g
+        out["largest_read_gb"] = max(g / (layers if name == "layers" else 1)
+                                     for name, g in by_name.items())
+        server._fetch, server.splan = fetch, plan
+        collectives, pl.dist = pl.dist, NoGather()
+        try:
+            out["planted_tokens"] = {r.rid: r.tokens
+                                     for r in server.run(reqs()).completed}
+        finally:
+            pl.dist = collectives
+    del server
+    release_memory()
+    return out
+
+
+def data_blocks_gb(pl, params) -> dict:
+    """By the serve placement ``pl``'s specs, of served ``params`` (a dict
+    whose ``layers`` leaves stack the layers): the GB of a rank's blocks
+    (a leaf whose spec puts a dim that the data extent N divides on
+    ``data`` holds 1/N of its bytes), of the whole params, of the whole
+    data-sharded leaves (what a pass over every layer gathers), and the
+    gathers of such a pass (one a data-sharded leaf, a stacked leaf's one
+    a layer)."""
+    import torch
+    from repro_torch import treemath as tm
+    from repro_torch.sharding.rules import _names
+    out = dict(blocks_gb=0.0, whole_gb=0.0, sharded_gb=0.0, gathers=0)
+    leaves = [(x, key) for key in sorted(params)
+              for x in tm.tree_leaves(params[key])]
+    for (x, key), spec, shape in zip(leaves, pl.specs, pl.shapes):
+        gb = torch.Size(shape).numel() * x.element_size() / 1e9
+        on = [d for d, part in enumerate(spec) if "data" in _names(part)]
+        cut = bool(on) and shape[on[0]] % pl.n == 0
+        out["whole_gb"] += gb
+        out["blocks_gb"] += gb / pl.n if cut else gb
+        if cut:
+            out["sharded_gb"] += gb
+            out["gathers"] += shape[0] if key == "layers" else 1
+    return out
+
+
 def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
                    device: str = "cuda") -> int:
     """``--fsdp-mesh-rank R WORLD PORT DIR [DEVICE]``: one rank of phase
@@ -6085,6 +6243,11 @@ def fsdp_mesh_rank(rank: int, world: int, port: int, out_dir: str,
         out["mesh_s"] = mesh_s + time.perf_counter() - t1
         del run
         save()
+        t1 = time.perf_counter()
+        say("2x1 serve")
+        out["2x1 serve"] = fsdp_serve_leg(dev, arch, mesh21)
+        out["serve_s"] = time.perf_counter() - t1
+        save()
     except Exception as e:      # noqa: BLE001 (reported, then raised)
         out["error"] = f"{type(e).__name__}: {e}"
         save()
@@ -6111,6 +6274,7 @@ def fsdp_mesh_path(dev) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     failures, out = [], {}
+    serve_ref = fsdp_serve_reference(dev)
     with tempfile.TemporaryDirectory() as tmp:
         done = run_ranks("--fsdp-mesh-rank", FSDP_RANKS, tmp, dev.type,
                          timeout=600)
@@ -6246,14 +6410,104 @@ def fsdp_mesh_path(dev) -> dict:
                 row["memory"] = memory_check(
                     leg, got["2x1 sync"], f"{label} rank {r}", failures)
             out[f"{label} rank {r}"] = row
+    out["one process serve"] = {k: serve_ref[k] for k in (
+        "served_gb", "cache_gb", "boot_peak_gb", "peak_gb",
+        "ms_per_decode_step", "counts")}
+    for r, got in enumerate(ranks):
+        out[f"2x1 serve rank {r}"] = check_fsdp_serve(
+            got.get("2x1 serve"), serve_ref, r, failures)
     for r, got in enumerate(ranks):
         print(f"fsdp mesh rank {r}: reference "
               f"{got.get('reference_s', 0.0):.1f} s, mesh legs "
-              f"{got.get('mesh_s', 0.0):.1f} s")
+              f"{got.get('mesh_s', 0.0):.1f} s, serve "
+              f"{got.get('serve_s', 0.0):.1f} s")
     print(f"fsdp mesh phase: {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError("fsdp mesh phase: " + "; ".join(failures))
     return out
+
+
+def fsdp_serve_reference(dev) -> dict:
+    """The FSDP serve's one-process run (``fsdp_serve_leg`` with no mesh),
+    here before the ranks get the leg, under the ranks' settings
+    (deterministic algorithms, no TF32)."""
+    import torch
+    settings = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        ref = fsdp_serve_leg(dev, cut_arch(FSDP_ARCH, FSDP_LEG["layers"]))
+    finally:
+        torch.use_deterministic_algorithms(settings[0],
+                                           warn_only=settings[1])
+        torch.backends.cuda.matmul.allow_tf32 = settings[2]
+    print(f"fsdp serve one process: {ref['served_gb']:.3f} GB served, "
+          f"{ref['ms_per_decode_step']!r} ms a decode step, init peak "
+          f"{ref['boot_peak_gb']:.3f} GB, serve peak "
+          f"{ref['peak_gb']:.3f} GB, counts {ref['counts']}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ref
+
+
+def check_fsdp_serve(leg, ref: dict, r: int, failures: list) -> dict:
+    """Hold rank ``r``'s 2x1 FSDP serve (``fsdp_serve_leg``) against the
+    one-process run ``ref`` (FSDP_SERVE's checks); prints its readings and
+    returns them."""
+    label = f"fsdp 2x1 serve rank {r}"
+    if leg is None:
+        failures.append(f"{label}: no result")
+        return {}
+    slack = FSDP_SERVE_SLACK_GB
+    rest = leg["served_gb"] + leg["cache_gb"] + slack
+    peak_limit = rest + 2 * leg["largest_read_gb"]
+    steps = leg["reads"]
+    step_gb = [sum(g for _, g in reads) for reads in steps]
+    held = max([g for _, g in leg["before_read_gb"]] + leg["after_step_gb"])
+    row = {k: leg[k] for k in (
+        "served_gb", "blocks_gb", "whole_gb", "cache_gb", "boot_peak_gb",
+        "peak_gb",
+        "largest_read_gb", "ms_per_decode_step", "counts", "whole_gathers")}
+    row.update(gathered_gb_a_step=step_gb, held_between_reads_gb=held,
+               peak_limit_gb=peak_limit)
+    same = leg["tokens"] == ref["tokens"]
+    parted = leg["planted_tokens"] != ref["tokens"]
+    print(f"{label}: tokens {'equal' if same else 'DIFFER from'} "
+          f"the one process's; {leg['served_gb']:.3f} of "
+          f"{leg['whole_gb']:.3f} GB served (its blocks "
+          f"{leg['blocks_gb']:.3f}), cache {leg['cache_gb']:.4f} GB; "
+          f"{leg['ms_per_decode_step']!r} ms a decode step (one process "
+          f"{ref['ms_per_decode_step']!r}); {step_gb} GB gathered a decode "
+          f"step ({[len(x) for x in steps]} gathers, a pass "
+          f"{leg['gathers']}, {leg['sharded_gb']:.3f} GB); init peak "
+          f"{leg['boot_peak_gb']:.3f} GB (one process "
+          f"{ref['boot_peak_gb']:.3f}); serve peak "
+          f"{leg['peak_gb']:.3f} GB (limit {peak_limit:.3f}: the largest "
+          f"read {leg['largest_read_gb']:.3f} twice); allocated before a "
+          f"read or after a step at most {held:.3f} GB (limit "
+          f"{rest:.3f}); whole gathers {leg['whole_gathers']}; planted "
+          f"tokens {'part' if parted else 'EQUAL'}")
+    checks = {
+        "tokens": same,
+        "counts": leg["counts"] == ref["counts"],
+        "route": leg["route"] == ref["route"] == ("gather", "FSDP placement"),
+        "launches": leg["launches"] == expect(1),
+        "whole gathers": leg["whole_gathers"] == 0,
+        "served blocks": abs(leg["served_gb"] - leg["blocks_gb"]) < 1e-9
+        and leg["served_gb"] < leg["whole_gb"],
+        "peak": leg["peak_gb"] <= peak_limit,
+        "reads dropped": held <= rest,
+        "gathers a step": len(steps) == leg["counts"][0] and all(
+            len(reads) == leg["gathers"]
+            and abs(g - leg["sharded_gb"]) < 1e-6
+            for reads, g in zip(steps, step_gb)),
+        "planted": parted,
+    }
+    failures.extend(f"{label}: {k} ({json.dumps(row, default=str)})"
+                    for k, ok in checks.items() if not ok)
+    return row
 
 
 def memory_check(leg: dict, one_layer: dict, label: str,

@@ -49,6 +49,11 @@ class ModelAPI:
     # in-place paged decode against a serving.cache.PagedKV page pool.
     # None = no paged path (the serve planner takes the gather route).
     decode_paged: Optional[Callable] = None
+    # (params, tokens [[1,1] a slot], caches [a slot], positions [int a
+    # slot]) -> ([logits a slot], [cache a slot]): ``decode`` of every
+    # slot, each param read once for all of them. None = one ``decode``
+    # call a slot.
+    decode_slots: Optional[Callable] = None
 
 
 def _token_spec(shape: InputShape):
@@ -83,6 +88,8 @@ def transformer_api(cfg) -> ModelAPI:
             params, token, cache, pos, cfg),
         decode_paged=lambda params, token, cache, pos, kv:
             tr.decode_step_paged(params, token, cache, pos, kv, cfg),
+        decode_slots=lambda params, tokens, caches, positions:
+            tr.decode_slots(params, tokens, caches, positions, cfg),
         init_cache=lambda b, s, device=None: tr.init_cache(cfg, b, s,
                                                            device=device),
         batch_spec=batch_spec,

@@ -58,8 +58,11 @@ server.py``): the params are stored as the serve plan's shards, every slot
 lives on every rank, and rank 0 takes the host decisions every rank
 applies. On a model axis where ``tensor_parallel_verdict`` holds the
 server computes on the shards, as the engine's loss does (``ModelParallel``
-over the model group); anywhere else it makes them whole once a load or
-refresh.
+over the model group); anywhere else it makes the model dims whole once a
+load or refresh. An FSDP arch's data blocks stay blocks: prefill and
+decode read them through ``ServePlacement.fetch``, which gathers one layer
+(or ``embed``, ``head``, ``final_ln``) at a time as the model reads it, as
+the batch-split training steps do, so no rank holds the served copy whole.
 """
 from __future__ import annotations
 
@@ -91,12 +94,20 @@ def map_specs(fn, tree: Pytree, specs: list, shapes: list) -> Pytree:
         fn(x, spec, shape) for x, spec, shape in zip(leaves, specs, shapes)])
 
 
+# A part larger than this is gathered as flat pieces of this many bytes,
+# all in flight at once: gloo stages each through pinned host memory and
+# runs them on its worker threads (and its devices, ``GLOO_SOCKET_IFNAME``)
+# side by side, ~1.3x the rate of one whole gather on one device and ~1.8x
+# on two or four (PERF.md, PR 27).
+GATHER_PIECE_BYTES = 1 << 26
+
+
 def all_gather_dim(dist, x: torch.Tensor, d: int, full: int, n: int,
                    group) -> torch.Tensor:
     """Whole dim ``d`` (``full`` long) from each of the ``n`` ranks of
-    ``group``'s ``torch.chunk`` part of it, by one ``all_gather`` in group
-    order. Parts are padded to the chunk size: the last may be short or
-    empty."""
+    ``group``'s ``torch.chunk`` part of it, by ``all_gather`` in group
+    order (in flat pieces of GATHER_PIECE_BYTES, issued together). Parts
+    are padded to the chunk size: the last may be short or empty."""
     c = -(-full // n)
     if x.shape[d] < c:
         pad = list(x.shape)
@@ -104,7 +115,12 @@ def all_gather_dim(dist, x: torch.Tensor, d: int, full: int, n: int,
         x = torch.cat([x, x.new_zeros(pad)], dim=d)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
+    flat, size = x.view(-1), max(1, GATHER_PIECE_BYTES // x.element_size())
+    works = [dist.all_gather([p.view(-1)[lo:lo + size] for p in parts],
+                             flat[lo:lo + size], group=group, async_op=True)
+             for lo in range(0, flat.numel(), size)]
+    for work in works:
+        work.wait()
     out = torch.cat(parts, dim=d)
     return out if out.shape[d] == full else out.narrow(d, 0, full).contiguous()
 
@@ -117,16 +133,84 @@ def chunk_span(full: int, n: int, rank: int) -> tuple:
     return start, min(c, full - start)
 
 
+def leaf_dims(spec: tuple, shape: tuple, n: int, m: int) -> tuple:
+    """``(data dim or None, model dim or None)`` of a leaf of ``shape``
+    placed by ``spec`` on ``n`` data and ``m`` model ranks: a data dim only
+    where ``n`` > 1 divides it (the even-division fallback keeps it whole),
+    a model dim only where ``m`` > 1."""
+    def dim_on(name):
+        dims = [d for d, part in enumerate(spec)
+                if name in rules_lib._names(part)]
+        return dims[0] if dims else None
+    dd = dim_on("data") if n > 1 else None
+    if dd is not None and shape[dd] % n:
+        dd = None
+    return dd, dim_on("model") if m > 1 else None
+
+
+def block(x: torch.Tensor, dims: tuple, data: tuple,
+          model: Optional[tuple]) -> torch.Tensor:
+    """This rank's block of a whole value ``x`` (a view): block ``rank`` of
+    ``n`` of its data dim (``data = (n, rank)``) and ``torch.chunk``'s part
+    ``rank`` of ``m`` of its model dim (``model = (m, rank)``, or None to
+    keep it whole)."""
+    dd, md = dims
+    if dd is not None:
+        c = x.shape[dd] // data[0]
+        x = x.narrow(dd, data[1] * c, c)
+    if md is not None and model is not None:
+        x = x.narrow(md, *chunk_span(x.shape[md], *model))
+    return x
+
+
+def top_starts(params: Pytree) -> dict:
+    """``{top-level key: index of its first leaf}`` in the leaf order."""
+    starts, at = {}, 0
+    if isinstance(params, dict):
+        for key in sorted(params):
+            starts[key] = at
+            at += len(tm.tree_leaves(params[key]))
+    return starts
+
+
+def read_subtree(tree: Pytree, name: str, starts: dict, dims: list,
+                 shapes: list, gather) -> Pytree:
+    """A model's read of ``params[name]`` (one layer's slice of a stacked
+    ``[L, ...]`` subtree, or a whole top-level leaf): each data-sharded
+    leaf replaced by ``gather(x, d, full)``, its data dim ``d`` made
+    ``full`` long; ``starts`` (``top_starts``), ``dims`` (``leaf_dims`` a
+    leaf) and ``shapes`` (the whole leaves') place the subtree's leaves in
+    the params' (the placements' ``fetch``)."""
+    first = starts[name]
+    leaves, treedef = tm.tree_flatten(tree)
+    out = []
+    for i, x in enumerate(leaves):
+        dd = dims[first + i][0]
+        shape = shapes[first + i]
+        if dd is not None:
+            cut = len(shape) - x.dim()       # 1 for a layer's slice
+            x = gather(x, dd - cut, shape[dd])
+        out.append(x)
+    return tm.tree_unflatten(treedef, out)
+
+
 def reduce_scatter_dim(dist, g: torch.Tensor, d: int, n: int,
                        group) -> torch.Tensor:
     """This rank's chunk of dim ``d`` of ``g`` summed over the ``n`` ranks
-    of ``group`` (c10d's ``reduce_scatter_tensor``, which gloo runs on CUDA
-    tensors too, fp32 and bf16, with torch 2.11). ``n`` divides the dim.
-    The sum stays in ``g``'s dtype: over two ranks it is one addition, so
-    it rounds once, as a sum in fp32 cast back would."""
+    of ``group``: one ``all_to_all_single`` hands each rank every rank's
+    chunk of it (``n - 1`` chunks out and in), summed here in rank order.
+    gloo runs c10d's ``reduce_scatter_tensor`` as an ``all_reduce`` of the
+    whole tensor, which over two ranks moves twice those bytes through the
+    host (PERF.md). ``n`` divides the dim. The sum stays in ``g``'s dtype:
+    over two ranks it is one addition, so it rounds once, as a sum in fp32
+    cast back would."""
     moved = g.movedim(d, 0).contiguous()
-    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
-    dist.reduce_scatter_tensor(out, moved, group=group)
+    parts = torch.empty_like(moved)
+    dist.all_to_all_single(parts, moved, group=group)
+    parts = parts.view((n, moved.shape[0] // n) + tuple(moved.shape[1:]))
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
     return out.movedim(0, d).contiguous()
 
 
@@ -432,11 +516,7 @@ class MeshPlacement:
         self.full_shapes = [tuple(x.shape) for x in tm.tree_leaves(params)]
         if not self.sharded:
             return
-        self._first, at = {}, 0
-        if isinstance(params, dict):
-            for key in sorted(params):
-                self._first[key] = at
-                at += len(tm.tree_leaves(params[key]))
+        self._first = top_starts(params)
         specs = rules_lib.axes_leaves(self.specs)
         if len(specs) != len(self.full_shapes):
             raise ValueError(f"params of {len(self.full_shapes)} leaves, "
@@ -445,17 +525,8 @@ class MeshPlacement:
                       for spec, shape in zip(specs, self.full_shapes)]
 
     def _leaf_dims(self, spec: tuple, shape: tuple) -> tuple:
-        """``(data dim or None, model dim or None)`` of a leaf of ``shape``
-        placed by ``spec``: data only with ``fsdp`` and where the extent
-        divides the dim (the even-division fallback keeps it whole)."""
-        def dim_on(name):
-            dims = [d for d, part in enumerate(spec)
-                    if name in rules_lib._names(part)]
-            return dims[0] if dims else None
-        dd = dim_on("data") if self.fsdp else None
-        if dd is not None and shape[dd] % self.n:
-            dd = None
-        return dd, dim_on("model") if self.m > 1 else None
+        """``leaf_dims``: data only with ``fsdp``."""
+        return leaf_dims(spec, shape, self.n if self.fsdp else 1, self.m)
 
     def _map(self, fn, tree: Pytree, lead: int = 0) -> Pytree:
         """``fn(leaf, (data dim, model dim), whole shape)`` over a
@@ -470,18 +541,12 @@ class MeshPlacement:
                shape) for x, dims, shape in zip(leaves, self._dims,
                                                 self.full_shapes)])
 
-    def _cut(self, x, dims, shape):
-        """This rank's block of a whole leaf ``x`` of ``shape``: its block
-        of the data dim and its ``torch.chunk`` part of the model dim (a
-        view)."""
-        dd, md = dims
-        if dd is not None:
-            c = shape[dd] // self.n
-            x = x.narrow(dd, self.data_rank * c, c)
-        if md is not None:
-            x = x.narrow(md, *chunk_span(shape[md], self.m,
-                                         self.model_axis.rank))
-        return x
+    def _cut(self, x, dims):
+        """This rank's block of a whole leaf ``x``: its block of the data
+        dim and its ``torch.chunk`` part of the model dim (a view)."""
+        return block(x, dims, (self.n, self.data_rank),
+                     None if self.model_axis is None
+                     else (self.m, self.model_axis.rank))
 
     def shard_params(self, params: Pytree) -> Pytree:
         """This rank's shards of whole params (no collective: every rank
@@ -493,7 +558,7 @@ class MeshPlacement:
         def one(x, dims, shape):
             if tuple(x.shape) != tuple(shape):
                 return x
-            return self._cut(x, dims, shape).contiguous()
+            return self._cut(x, dims).contiguous()
         return self._map(one, params)
 
     def keep(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
@@ -506,7 +571,7 @@ class MeshPlacement:
         dims = tuple(None if d is None else d + lead for d in self._leaf_dims(
             rules_lib.spec_for(axes, self.mesh, self.rules),
             tuple(x.shape[lead:])))
-        out = self._cut(x, dims, tuple(x.shape))
+        out = self._cut(x, dims)
         return out.clone() if out.numel() < x.numel() else out
 
     def whole_like(self, params: Pytree) -> Pytree:
@@ -574,21 +639,10 @@ class MeshPlacement:
         axis, their backward reduce-scattering the gradient
         (``GatherShards``, "sum"). Installed by the engine's loss
         (``rules.use_fetch``)."""
-        first = self._first[name]
-        leaves, treedef = tm.tree_flatten(tree)
-        out = []
-        for i, x in enumerate(leaves):
-            dd = self._dims[first + i][0]
-            shape = self.full_shapes[first + i]
-            if dd is not None:
-                cut = len(shape) - x.dim()       # 1 for a layer's slice
-                if cut:
-                    dd -= cut
-                    shape = shape[cut:]
-                x = GatherShards.apply(x, self.data_axis, dd, shape[dd],
-                                       "sum", name)
-            out.append(x)
-        return tm.tree_unflatten(treedef, out)
+        return read_subtree(
+            tree, name, self._first, self._dims, self.full_shapes,
+            lambda x, d, full: GatherShards.apply(x, self.data_axis, d, full,
+                                                  "sum", name))
 
     def public(self, params: Pytree) -> Pytree:
         """Params as the caller sees them: DTensors over the whole
@@ -727,23 +781,31 @@ class ServePlacement:
       ``blocks()``, the placements the server restores with, keeps each a
       plain tensor.
     * ``serve(shards)``: the params the server's steps read, once a load
-      or refresh. Where the model axis computes tensor-parallel
-      (``model_compute``, ``tensor_parallel_verdict`` on ``api``) they are
-      the shards themselves, as local tensors, and ``model_parallel`` (a
-      :class:`ModelParallel` over the model group) is the context the
-      server runs its steps under; an FSDP arch's data axis is still made
-      whole. Anywhere else (``"gathered"``, ``model_compute_fallback`` the
-      reason) they are ``whole(shards)``: every leaf made whole by an
-      ``all_gather`` over each mesh axis its spec names (c10d's, not
-      ``DTensor.full_tensor``, whose functional collective segfaults over
-      gloo on CUDA tensors with torch 2.11; PERF.md), so the steps call no
-      collective and every rank holds the whole served copy.
-      ``whole_gathers`` counts the model-axis gathers ``whole`` ran.
+      or refresh. An FSDP arch's data blocks stay this rank's blocks
+      (``data_axis`` is then its data group; a leaf whose dim the extent
+      does not divide is whole). The model axis: where it computes
+      tensor-parallel (``model_compute``, ``tensor_parallel_verdict`` on
+      ``api``) the shards stay shards, as local tensors, and
+      ``model_parallel`` (a :class:`ModelParallel` over the model group) is
+      the context the server runs its steps under. Anywhere else
+      (``"gathered"``, ``model_compute_fallback`` the reason) each
+      model-sharded dim is made whole by an ``all_gather`` over the model
+      group (c10d's, not ``DTensor.full_tensor``, whose functional
+      collective segfaults over gloo on CUDA tensors with torch 2.11;
+      PERF.md); ``whole_gathers`` counts them. ``whole(shards)`` makes
+      every dim whole.
+    * ``fetch(tree, name)``: the model's read of ``params[name]`` in a
+      step (one layer's slice of a stacked subtree, or a top-level leaf),
+      its data blocks gathered whole over the data group, outside autograd,
+      and dropped by the model after use. The server installs it
+      (``rules.use_fetch``) where ``data_axis`` is set; ``data_axis.record``
+      collects the gathers.
     * ``from_whole(params)``: ``serve`` of params every rank holds whole,
       with no collective; ``keep``, the initialiser's hook
       (``models.layers.use_keep``, placed by ``rules``), cuts each value to
       what ``serve`` keeps of it as it is drawn, so a rank that inits its
-      own params never holds them whole.
+      own params never holds what it does not serve. ``sharded``: whether
+      they cut anything.
     * ``decide(values)``: rank 0's host decisions (a list of numbers; None
       goes as NaN and comes back as None), broadcast to every rank, and
       ``all_ok(flag)``: whether every rank's flag holds. Any decision a
@@ -772,6 +834,7 @@ class ServePlacement:
         self.whole_gathers = 0
         self.model_compute, self.model_compute_fallback = None, ""
         self.model_parallel = None
+        self.n = rules_lib.data_extent(mesh)
         m = rules_lib.model_extent(mesh)
         if m > 1:
             self.model_compute, self.model_compute_fallback = model_compute(
@@ -780,6 +843,15 @@ class ServePlacement:
                 self.model_parallel = ModelParallel(Axis(
                     dist, "model", mesh["model"].get_group(), m,
                     mesh.get_local_rank("model")))
+        self._dims = [leaf_dims(spec, shape, self.n, m)
+                      for spec, shape in zip(self.specs, self.shapes)]
+        self._starts = top_starts(params_shapes)
+        self.data_axis = None
+        if any(dd is not None for dd, _ in self._dims):
+            self.data_axis = Axis(dist, "data", mesh.get_group("data"),
+                                  self.n, mesh.get_local_rank("data"))
+        self.sharded = (self.data_axis is not None
+                        or self.model_parallel is not None)
 
     def shard(self, params: Pytree) -> Pytree:
         return map_specs(lambda x, spec, _shape: rules_lib.NamedSharding(
@@ -797,32 +869,44 @@ class ServePlacement:
         return map_specs(self._whole, shards, self.specs, self.shapes)
 
     def serve(self, shards: Pytree) -> Pytree:
-        if self.model_parallel is None:
-            return self.whole(shards)
+        axes = () if self.model_parallel is not None else ("model",)
         return map_specs(lambda x, spec, shape: self._whole(
-            x, spec, shape, axes=("data",)), shards, self.specs, self.shapes)
+            x, spec, shape, axes=axes), shards, self.specs, self.shapes)
 
     def from_whole(self, params: Pytree) -> Pytree:
-        if self.model_parallel is None:
+        if not self.sharded:
             return params
-        return map_specs(lambda x, spec, _shape: self._model_block(x, spec),
-                         params, self.specs, self.shapes)
+        leaves, treedef = tm.tree_flatten(params)
+        return tm.tree_unflatten(treedef, [
+            self._block(x, dims) for x, dims in zip(leaves, self._dims)])
 
     def keep(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
         lead = x.dim() - len(axes)
-        spec = (None,) * lead + rules_lib.spec_for(axes, self.mesh, self.rules)
-        return self._model_block(x, spec)
+        dims = leaf_dims(rules_lib.spec_for(axes, self.mesh, self.rules),
+                         tuple(x.shape[lead:]), self.n,
+                         rules_lib.model_extent(self.mesh))
+        return self._block(x, tuple(None if d is None else d + lead
+                                    for d in dims))
 
-    def _model_block(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """This rank's ``torch.chunk`` part of the dim of ``x`` that
-        ``spec`` places on the model axis, owning its storage (``x`` on the
-        gathered route, or where no dim is)."""
-        dims = [d for d, part in enumerate(spec)
-                if "model" in rules_lib._names(part)]
-        if self.model_parallel is None or not dims:
-            return x
-        return x.narrow(dims[0], *self.model_parallel.span(
-            x.shape[dims[0]])).clone()
+    def _block(self, x: torch.Tensor, dims: tuple) -> torch.Tensor:
+        """What ``serve`` keeps of a whole value ``x``: its data block and,
+        on the tensor-parallel route, its ``torch.chunk`` part of the model
+        dim, owning its storage (``x`` itself where nothing is cut)."""
+        mp = self.model_parallel
+        out = block(x, dims, (self.n, 0 if self.data_axis is None
+                              else self.data_axis.rank),
+                    None if mp is None else (mp.m, mp.rank))
+        return out.clone() if out.numel() < x.numel() else out
+
+    def fetch(self, tree: Pytree, name: str) -> Pytree:
+        def gather(x, d, full):
+            with torch.no_grad():
+                out = all_gather_dim(self.dist, x, d, full, self.n,
+                                     self.data_axis.group)
+            self.data_axis.note("gather", name, out)
+            return out
+        return read_subtree(tree, name, self._starts, self._dims,
+                            self.shapes, gather)
 
     def _whole(self, x, spec, shape, axes=("model", "data")):
         local = x.to_local() if hasattr(x, "to_local") else x

@@ -509,8 +509,10 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
     ``pages`` and ``resident`` are updated in place.
 
     * **gather** (the reference): page-table gather -> each slot's batch-1
-      ``api.decode`` at its own position (a loop over slots: the JAX
-      package's ``vmap``) -> cursor-addressed whole-page scatter.
+      ``api.decode`` at its own position (the JAX package's ``vmap``; a
+      family's ``decode_slots`` steps every slot through a layer before it
+      reads the next, each slot bit for bit its own call, else a loop over
+      slots) -> cursor-addressed whole-page scatter.
     * **paged**: the K/V ring stays put; ``api.decode_paged`` reads it in
       place through the page-table attention kernel and the step writes ONE
       [W] row per slot. Null-page table entries are masked in the kernel,
@@ -537,15 +539,21 @@ def plan_serve_step(arch: Union[str, ArchDef], shape: ShapeLike, mesh=None,
     route, route_why = resolve_serve_paged(api, layout, arch, mesh, paged)
     dispatch.note("serve_decode", route, route_why)
 
+    def each_slot(params, toks, caches, positions):
+        out = [api.decode(params, t, c, p)
+               for t, c, p in zip(toks, caches, positions)]
+        return [lg for lg, _ in out], [nc for _, nc in out]
+    decode_slots = api.decode_slots or each_slot
+
     def serve_step(params, pages, resident, tables, tokens, pos, mask, gen,
                    temp):
         cache = layout.gather(pages, resident, tables)   # [S, ...] leaves
-        logits, new_caches = [], []
-        for i, p in enumerate(pos.tolist()):
-            lg, nc = api.decode(params, tokens[i].reshape(1, 1),
-                                tm.tree_map(lambda x: x[i], cache), p)
-            logits.append(lg[0, -1].float())
-            new_caches.append(nc)
+        at = range(pos.shape[0])
+        logits, new_caches = decode_slots(
+            params, [tokens[i].reshape(1, 1) for i in at],
+            [tm.tree_map(lambda x, i=i: x[i], cache) for i in at],
+            pos.tolist())
+        logits = [lg[0, -1].float() for lg in logits]
         nxt = _pick(whole_logits(torch.stack(logits), api), tokens, mask,
                     gen, temp)
         pages, resident = layout.scatter_token(

@@ -25,11 +25,14 @@ reference's parameter and cache layouts kept as they are so that
 layer in ``jax.checkpoint``): it changes no number, only the memory a
 training step holds; each cross layer is recomputed as one unit, as the
 JAX package checkpoints its ``run_cross``. The MoE FFN (``models/moe.py``)
-groups its tokens by the ambient mesh. ``forward`` reads each layer's
-params (and ``embed``, ``head``, ``final_ln``) through the ambient fetch
-(``sharding.rules.use_fetch``): the identity, or on a mesh an FSDP arch's
-gather of that layer from its data-axis shards, inside the remat body so
-the backward pass gathers it again.
+groups its tokens by the ambient mesh. ``forward`` and the decode steps
+read each layer's params (and ``embed``, ``head``, ``final_ln``) through
+the ambient fetch (``sharding.rules.use_fetch``): the identity, or on a
+mesh an FSDP arch's gather of that layer from its data-axis shards (in
+``forward`` inside the remat body, so the backward pass gathers it again),
+dropped once the layer has run. :func:`decode_slots` steps several slots
+through each layer before it reads the next, so a serve step reads each
+param once.
 
 Tensor-parallel compute (the JAX package's ``cfg.tp`` layouts, which GSPMD
 partitions there): under ``sharding.rules.use_model_parallel`` (installed
@@ -686,6 +689,11 @@ def forward(params, tokens, cfg: TransformerConfig, cross_feats=None,
     return logits, aux, cache
 
 
+def _given(tree, _name: str):
+    """The read of params already fetched."""
+    return tree
+
+
 def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
     """One-token decode. token [B,1] int; ``pos`` the shared absolute
     position (an int). The cross layers read the prefilled ``xk``/``xv``,
@@ -693,29 +701,51 @@ def decode_step(params, token, cache, pos: int, cfg: TransformerConfig):
     Under an ambient model-parallel context it computes on this rank's
     shards, its cache holds this rank's kv heads and the logits are this
     rank's vocab columns (``forward``'s)."""
-    pos = int(pos)
+    logits, caches = decode_slots(params, [token], [cache], [pos], cfg)
+    return logits[0], caches[0]
+
+
+def decode_slots(params, tokens, caches, positions, cfg: TransformerConfig):
+    """:func:`decode_step` over several slots, slot ``j`` its own
+    ``tokens[j]`` [B,1], ``caches[j]`` and ``positions[j]`` (an int), each
+    param read once through the ambient fetch for all of them: every slot
+    steps through a layer before the next layer is read, and a read is
+    dropped once its layer has run. Each slot's arithmetic is
+    ``decode_step``'s alone, so its logits and cache are bit for bit those
+    of a call of its own. Returns ([logits [B,1,V]], [new_cache]), one a
+    slot."""
     mp = rules_lib.ambient_model_parallel()
-    h = _embed(params, token, cfg, rules_lib.ambient_fetch(), mp)
-    nk, nv, nspos = [], [], []
+    fetch = rules_lib.ambient_fetch()
+    pos = [int(p) for p in positions]
+    read = {"embed": fetch(params["embed"], "embed")}
+    hs = [_embed(read, token, cfg, _given, mp) for token in tokens]
+    del read
+    new = [{"k": [], "v": [], "slot_pos": []} for _ in caches]
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        attn_out, (ck, cv, spos) = _self_attention_decode(
-            lp["attn"], a_in, cache["k"][i], cache["v"][i],
-            cache["slot_pos"][i], pos, cfg)
-        h = h + attn_out
-        f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + _ffn(lp, f_in, cfg)[0]
-        nk.append(ck)
-        nv.append(cv)
-        nspos.append(spos)
+        lp = fetch(_layer(params, i), "layers")
+        for j, cache in enumerate(caches):
+            h = hs[j]
+            a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            attn_out, (ck, cv, spos) = _self_attention_decode(
+                lp["attn"], a_in, cache["k"][i], cache["v"][i],
+                cache["slot_pos"][i], pos[j], cfg)
+            h = h + attn_out
+            f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+            hs[j] = h + _ffn(lp, f_in, cfg)[0]
+            for key, x in zip(("k", "v", "slot_pos"), (ck, cv, spos)):
+                new[j][key].append(x)
+        del lp
         g = _cross_after(cfg, i)
         if g is not None:
-            h = _cross_decode_apply(h, _layer(params, g, "cross_layers"),
-                                    cache["xk"][g], cache["xv"][g], cfg)
-    new_cache = dict(cache, k=torch.stack(nk), v=torch.stack(nv),
-                     slot_pos=torch.stack(nspos))
-    return _logits(params, h, cfg, mp=mp), new_cache
+            xp = fetch(_layer(params, g, "cross_layers"), "cross_layers")
+            for j, cache in enumerate(caches):
+                hs[j] = _cross_decode_apply(hs[j], xp, cache["xk"][g],
+                                            cache["xv"][g], cfg)
+            del xp
+    read = {k: fetch(params[k], k) for k in ("final_ln", "head")}
+    logits = [_logits(read, h, cfg, _given, mp) for h in hs]
+    return logits, [dict(cache, **{k: torch.stack(v) for k, v in n.items()})
+                    for cache, n in zip(caches, new)]
 
 
 def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
@@ -738,7 +768,8 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     holds."""
     s = token.shape[0]
     mp = rules_lib.ambient_model_parallel()
-    h = _embed(params, token, cfg, rules_lib.ambient_fetch(), mp)
+    fetch = rules_lib.ambient_fetch()
+    h = _embed(params, token, cfg, fetch, mp)
     cos, sin = L.rotary(cfg.rope_theta, pos, cfg.head_dim)   # [S, hd/2]
     cos, sin = cos[:, None], sin[:, None]                    # [S, 1, hd/2]
     window = cfg.swa_window or 0
@@ -747,7 +778,7 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
         xv_s = torch.movedim(cache["xv"], 0, 1)[:, :, 0]
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+        lp = fetch(_layer(params, i), "layers")
         a_in = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
         q, k, v = (_project_qkv(lp["attn"], a_in, a_in, cfg) if mp is None
                    else _project_tp(lp["attn"], a_in, cfg, mp))
@@ -761,12 +792,14 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
                  else _out_tp(out, lp["attn"], cfg, mp))
         f_in = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + _ffn(lp, f_in, cfg)[0]
+        del lp
         ks.append(kc)
         vs.append(vc)
         g = _cross_after(cfg, i)
         if g is not None:
-            h = _cross_decode_apply(h, _layer(params, g, "cross_layers"),
-                                    xk_s[g], xv_s[g], cfg)
+            h = _cross_decode_apply(
+                h, fetch(_layer(params, g, "cross_layers"), "cross_layers"),
+                xk_s[g], xv_s[g], cfg)
     new_cache = {
         "k": torch.stack(ks, dim=1)[:, :, None, None],
         "v": torch.stack(vs, dim=1)[:, :, None, None],
@@ -775,7 +808,7 @@ def decode_step_paged(params, token, cache, pos, kv, cfg: TransformerConfig):
     }
     if cfg.num_cross_layers:
         new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
-    return _logits(params, h, cfg, mp=mp), new_cache
+    return _logits(params, h, cfg, fetch, mp), new_cache
 
 
 # --------------------------------------------------------------- loss ------

@@ -35,9 +35,13 @@ dense and MoE) the server serves those shards as they are: prefill and
 both decode routes run under the placement's model-parallel context
 (``models/transformer.py``), each rank's page pool holds the kv heads it
 attends with (``serving/cache.py``) and the logits are gathered whole
-before a token is picked. Elsewhere (``"gathered"``) the shards are made
-whole once a load or refresh, so the decode and prefill steps call no
-collective. The ranks stay in lockstep because rank 0 takes
+before a token is picked. Elsewhere (``"gathered"``) the model-axis
+shards are made whole once a load or refresh. An FSDP arch's data-axis
+blocks (``embed`` on data) stay blocks, at boot, load and refresh alike:
+prefill and decode read the params through the placement's ``fetch``
+(``rules.use_fetch``), which gathers one layer at a time over the data
+group as the model reads it, and the model drops it after use, so no rank
+holds the served copy whole. The ranks stay in lockstep because rank 0 takes
 every host decision (the clock's ``now``, the snapshot step to load, the
 staleness stamps, the measured times) and every rank applies rank 0's:
 one host broadcast between decode steps, one a prefill call, an
@@ -47,6 +51,7 @@ returns the same ``ServeReport``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -214,9 +219,13 @@ class Server:
                 self.api.init(0, device="meta")[0], api=self.api,
                 rules=rules_lib.rules_for_arch(self.arch, dshape, self.mesh))
         # The tensor-parallel route's context (None: whole params); the
-        # cache layout is this rank's under it.
+        # cache layout is this rank's under it. The read of the params'
+        # data blocks (None: they are whole).
         self.model_parallel = (None if self.placement is None
                                else self.placement.model_parallel)
+        self._fetch = (None if self.placement is None
+                       or self.placement.data_axis is None
+                       else self.placement.fetch)
         with self._on_shards():
             self.layout = build_layout(self.api, cfg.max_seq,
                                        cfg.page_tokens, device=self.device)
@@ -236,10 +245,11 @@ class Server:
         self._prefill_plans = {}
 
         if params is None:
-            # On the tensor-parallel route each value is cut to this rank's
-            # shard as it is drawn: the rank never holds the whole params.
-            with layers.use_keep(None if self.model_parallel is None
-                                 else self.placement.keep):
+            # Each value is cut to what this rank serves as it is drawn:
+            # the rank never holds the whole params.
+            with layers.use_keep(self.placement.keep if self.placement
+                                 is not None and self.placement.sharded
+                                 else None):
                 self.params, _ = self.api.init(cfg.seed, device=self.device)
         else:
             self.params = (params if self.placement is None
@@ -270,10 +280,14 @@ class Server:
         return (self.placement.model_compute,
                 self.placement.model_compute_fallback)
 
+    @contextlib.contextmanager
     def _on_shards(self):
         """The context the steps run under: the placement's model-parallel
-        one on the tensor-parallel route (a no-op elsewhere)."""
-        return rules_lib.use_model_parallel(self.model_parallel)
+        one on the tensor-parallel route, and its ``fetch`` where it keeps
+        data blocks (no-ops elsewhere)."""
+        with rules_lib.use_model_parallel(self.model_parallel), \
+                rules_lib.use_fetch(self._fetch):
+            yield
 
     # -- params plumbing -----------------------------------------------------
 
@@ -295,9 +309,9 @@ class Server:
             self.placement.decide(values)
 
     def _served(self, shards: Pytree) -> Pytree:
-        """What the steps read of restored ``shards``: the shards on the
-        tensor-parallel route, else whole params (``ServePlacement.serve``).
-        """
+        """What the steps read of restored ``shards``: the data blocks, and
+        the model shards on the tensor-parallel route, else the model dims
+        whole (``ServePlacement.serve``)."""
         return shards if self.placement is None else \
             self.placement.serve(shards)
 

@@ -375,6 +375,12 @@ SERVE_CASES = {
                                                     temperature=0.7)),
     "deepseek-67b-auto": ("deepseek-67b", dict(paged="auto")),
 }
+# Served at 2x1 alone: the MoE FSDP arch, and deepseek-67b with a data-axis
+# gather that delivers nothing (``chip_smoke.NoGather``, planted).
+FSDP_SERVE_CASES = {
+    "kimi-k2-1t-a32b-auto": ("kimi-k2-1t-a32b", dict(paged="auto")),
+    "deepseek-67b-planted": ("deepseek-67b", dict(paged="auto")),
+}
 # The refresh case boots from snapshot 1, serves a warm-up request (2 decode
 # steps), publishes snapshot 2 and polls every REFRESH_EVERY decode steps,
 # so the swap lands at decode step 4, two steps into the served stream.
@@ -413,12 +419,43 @@ def _serve_requests(server, gens=SERVE_GENS, seed=3):
     return reqs
 
 
+def _step_reads(server) -> list:
+    """Each decode step's data-axis gathers, ``[(name, shape)]`` a step,
+    filled as the server runs (its step plan wrapped)."""
+    axis, plan, steps = server.placement.data_axis, server.splan, []
+
+    def step(*args):
+        axis.record = []
+        try:
+            return plan(*args)
+        finally:
+            steps.append([(name, shape) for _, name, shape, _ in axis.record])
+            axis.record = None
+    server.splan = step
+    return steps
+
+
 def serve_case(name: str, mesh=None) -> dict:
+    """``name``'s stream served (on ``mesh``): ``_served`` of it and, where
+    the placement keeps data blocks, each decode step's data-axis gathers
+    (``reads``), the served bytes (``served_bytes``) and the model axis's
+    whole gathers. ``-planted``: the data fetch's gather delivers
+    nothing."""
+    from chip_smoke import NoGather
     from repro_torch.serving import Server, ServingConfig
-    arch, kw = SERVE_CASES[name]
+    arch, kw = {**SERVE_CASES, **FSDP_SERVE_CASES}[name]
     server = Server(ServingConfig(arch=arch, **SERVE, **kw), device="cpu",
                     mesh=mesh)
-    return _recorded_run(server, _serve_requests(server))
+    pl = server.placement
+    reads = None if pl is None or pl.data_axis is None else \
+        _step_reads(server)
+    if name.endswith("-planted"):
+        pl.dist = NoGather()
+    out = _recorded_run(server, _serve_requests(server))
+    if reads is not None:
+        out.update(reads=reads, bytes=served_bytes(server),
+                   whole_gathers=pl.whole_gathers)
+    return out
 
 
 def _publish(server, ckpt_dir: str, step: int) -> None:
@@ -430,21 +467,72 @@ def _publish(server, ckpt_dir: str, step: int) -> None:
                   extra={"published_at": time.time()})
 
 
-def refresh_case(ckpt_dir: str, mesh=None) -> dict:
+def refresh_case(ckpt_dir: str, mesh=None, arch: str = "deepseek-7b",
+                 paged: str = "on") -> dict:
     """Boot from snapshot 1, a warm-up request, then snapshot 2 swapped in
     at decode step REFRESH_EVERY, mid-serve. Rank 0 alone writes and polls;
-    the other ranks load the step it broadcasts."""
+    the other ranks load the step it broadcasts. Also the decode step each
+    swap landed on, the model axis's whole gathers and whether the served
+    params are then bitwise ``from_whole`` of snapshot 2 (this rank's
+    blocks)."""
     from repro_torch.serving import Server, ServingConfig
-    server = Server(ServingConfig(arch="deepseek-7b", paged="on", **SERVE),
+    server = Server(ServingConfig(arch=arch, paged=paged, **SERVE),
                     device="cpu", mesh=mesh)
     _publish(server, ckpt_dir, 1)
     boot = server.restore_params(ckpt_dir)
     server.run(_serve_requests(server, gens=(3,), seed=4))
     _publish(server, ckpt_dir, 2)
-    server.make_refresher(ckpt_dir, every_steps=REFRESH_EVERY, base_step=boot)
+    refresher = server.make_refresher(ckpt_dir, every_steps=REFRESH_EVERY,
+                                      base_step=boot)
+    swaps, swap = [], refresher.swap
+    refresher.swap = lambda step, extra: (
+        swaps.append(server.decode_steps), swap(step, extra))
     out = _recorded_run(server, _serve_requests(server))
     out["boot"], out["step"] = boot, server.refresher.current_step
+    out["swaps"] = swaps
+    pl = server.placement
+    if pl is not None:
+        want = pl.from_whole(server.api.init(2, device="cpu")[0])
+        out["served_2"] = all(torch.equal(a, b) for a, b in zip(
+            tm.tree_leaves(server.params), tm.tree_leaves(want)))
+        out["whole_gathers"] = pl.whole_gathers
     return out
+
+
+def fsdp_serve_init_case(mesh) -> dict:
+    """Reduced deepseek-67b inited by the server itself on ``mesh`` (no
+    params handed in): whether its params are bitwise ``from_whole`` of
+    the one-process init, the shapes of the values the placement's
+    ``keep`` was handed, the bytes it kept and the served params'
+    (``served_bytes``), and the init's largest live param bytes (kept so
+    far plus the value being drawn) against the whole params'."""
+    from repro_torch.engine.placement import ServePlacement
+    from repro_torch.serving import Server, ServingConfig
+    live = {"kept": 0, "peak": 0, "drawn": []}
+    keep = ServePlacement.keep
+
+    def counted(self, x, axes):
+        out = keep(self, x, axes)
+        if x.device.type != "meta":     # a constant's shape, no values
+            live["drawn"].append(tuple(x.shape))
+            live["peak"] = max(live["peak"],
+                               live["kept"] + x.numel() * x.element_size())
+            live["kept"] += out.numel() * out.element_size()
+        return out
+    ServePlacement.keep = counted
+    try:
+        server = Server(ServingConfig(arch="deepseek-67b", **SERVE),
+                        device="cpu", mesh=mesh)
+    finally:
+        ServePlacement.keep = keep
+    whole = server.api.init(server.cfg.seed, device="cpu")[0]
+    want = server.placement.from_whole(whole)
+    return {"blocks": all(torch.equal(a, b) for a, b in zip(
+                tm.tree_leaves(server.params), tm.tree_leaves(want))),
+            "drawn": live["drawn"], "kept": live["kept"],
+            "peak": live["peak"], "bytes": served_bytes(server),
+            "whole": sum(x.numel() * x.element_size()
+                         for x in tm.tree_leaves(whole))}
 
 
 def serve_restore_case(mesh, ckpt_dir: str) -> dict:
@@ -497,6 +585,37 @@ def model_axis_run(mesh, **kw) -> dict:
             "sparsity": float(m.get("sparsity", 0.0))}
 
 
+def collectives_case(world: int) -> dict:
+    """``placement.all_gather_dim`` in pieces of 40 bytes (uneven parts,
+    each dim) against the whole tensor every rank drew, and
+    ``reduce_scatter_dim`` (the exchange) against this rank's chunk of the
+    ranks' tensors summed in rank order."""
+    import torch.distributed as dist
+    from repro_torch.engine import placement as pl
+    rank, piece = dist.get_rank(), pl.GATHER_PIECE_BYTES
+    gen = torch.Generator().manual_seed(0)
+    pl.GATHER_PIECE_BYTES = 40
+    try:
+        gathers = []
+        for shape, d in (((7, 5), 0), ((4, 9, 3), 1), ((5,), 0),
+                         ((3, 8), 1), ((1, 6), 0)):
+            whole = torch.randn(shape, generator=gen)
+            part = whole.narrow(d, *pl.chunk_span(shape[d], world, rank))
+            gathers.append(torch.equal(
+                pl.all_gather_dim(dist, part, d, shape[d], world, None),
+                whole))
+    finally:
+        pl.GATHER_PIECE_BYTES = piece
+    grads = [torch.randn((3, 4 * world, 5), generator=gen)
+             for _ in range(world)]
+    want = grads[0]
+    for g in grads[1:]:
+        want = want + g
+    got = pl.reduce_scatter_dim(dist, grads[rank], 1, world, None)
+    return {"gathers": gathers,
+            "reduce_scatter": torch.equal(got, want.narrow(1, 4 * rank, 4))}
+
+
 def _raised(build) -> str:
     try:
         build()
@@ -514,7 +633,7 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
-        out = {"raises": {}}
+        out = {"raises": {}, "collectives": collectives_case(world)}
         mesh = make_host_mesh(world, 1, device="cpu")
         out["raises"]["fsdp-compress"] = _raised(
             lambda: planlib.make_train_engine(
@@ -561,6 +680,12 @@ def rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
             got["refresh"] = refresh_case(sub, smesh)
             if model > 1:
                 got["restore"] = serve_restore_case(smesh, sub)
+            if label == "2x1":
+                got.update({name: serve_case(name, smesh)
+                            for name in FSDP_SERVE_CASES})
+                got["refresh-67b"] = refresh_case(
+                    sub + "-67b", smesh, "deepseek-67b", "auto")
+                got["fsdp-init"] = fsdp_serve_init_case(smesh)
             out["serve"][label] = got
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -810,10 +935,17 @@ TP_SERVE_GATHERED = ("mamba2-1.3b", "whisper-base")
 TP_SERVE_GENS = (3, 6, 3)
 
 
+# At 2x2 also the FSDP arch (reduced deepseek-67b, mixed attention at
+# tp = 2) on its data blocks and model shards; the FSDP placement vetoes
+# the paged route.
+TP_SERVE_FSDP = ("deepseek-67b", "gather", "greedy")
+
+
 def tp_serve_cases(label: str) -> list:
     archs = TP_ARCHS.values() if label == "1x2" else ("deepseek-7b",)
     return [(arch, route, temp) for arch in archs for route in TP_SERVE_ROUTES
-            for temp in TP_SERVE_TEMPS]
+            for temp in TP_SERVE_TEMPS] + (
+        [TP_SERVE_FSDP] if label == "2x2" else [])
 
 
 def tp_server(arch: str, route: str, temp: str, mesh, overrides=None):
@@ -825,18 +957,23 @@ def tp_server(arch: str, route: str, temp: str, mesh, overrides=None):
 
 
 def served_bytes(server) -> tuple:
-    """(bytes of the params the server serves, bytes of this rank's model
-    shards of them, whether each leaf has its shard's shape)."""
+    """(bytes of the params the server serves, bytes of this rank's blocks
+    of them, whether each leaf has its block's shape). A rank's block of a
+    leaf: 1/N of each dim its spec puts on the data axis (N the extent,
+    where N divides the dim) and, on the tensor-parallel route, its
+    ``torch.chunk`` part of the dim on the model axis."""
     pl = server.placement
-    m, have = rules_lib.model_extent(server.mesh), 0
+    n, mp, have = rules_lib.data_extent(server.mesh), pl.model_parallel, 0
     want, shapes_ok = 0, True
     for x, spec, shape in zip(tm.tree_leaves(server.params), pl.specs,
                               pl.shapes):
         cut = list(shape)
         for d, part in enumerate(spec):
-            if "model" in rules_lib._names(part):
-                cut[d] = pl.model_parallel.span(shape[d])[1] if m > 1 \
-                    else shape[d]
+            names = rules_lib._names(part)
+            if "data" in names and shape[d] % n == 0:
+                cut[d] = shape[d] // n
+            if "model" in names and mp is not None:
+                cut[d] = mp.span(shape[d])[1]
         have += x.numel() * x.element_size()
         want += int(np.prod(cut)) * x.element_size()
         shapes_ok &= tuple(x.shape) == tuple(cut)

@@ -205,6 +205,17 @@ def test_what_a_mesh_does_not_run_names_its_item(worlds):
         assert out["model-runs"]["model-kernels"]["delivery"] == "packed"
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_collectives_gather_pieces_and_exchange(worlds, world):
+    """A gather issued in many flat pieces gives every rank the whole
+    tensor (uneven ``torch.chunk`` parts, any dim); the reduce-scatter's
+    exchange gives each rank its chunk of the ranks' sum in rank order,
+    bit for bit."""
+    for out in worlds[world]:
+        assert all(out["collectives"]["gathers"])
+        assert out["collectives"]["reduce_scatter"]
+
+
 def _cli_rows_under_torchrun(arch: str) -> None:
     """``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 2x1
     --cpu --arch ARCH``: rank 0 prints the in-process run's rows."""
@@ -369,7 +380,11 @@ SERVE_MESHES = {"2x1": 2, "1x2": 2, "2x2": 4}
 @pytest.fixture(scope="module")
 def serve_one_process(tmp_path_factory):
     out = {name: W.serve_case(name) for name in W.SERVE_CASES}
+    out["kimi-k2-1t-a32b-auto"] = W.serve_case("kimi-k2-1t-a32b-auto")
     out["refresh"] = W.refresh_case(str(tmp_path_factory.mktemp("refresh")))
+    out["refresh-67b"] = W.refresh_case(
+        str(tmp_path_factory.mktemp("refresh-67b")), None, "deepseek-67b",
+        "auto")
     return out
 
 
@@ -444,6 +459,102 @@ def test_mesh_serve_equals_one_process(worlds, serve_one_process, label,
         # Stamps run 1 step behind until the swap, then 0.
         stamps = [b for st in ref["stamps"].values() for b, _ in st]
         assert 0 in stamps and 1 in stamps
+
+
+def _data_sharded(arch: str, n: int) -> dict:
+    """{top-level key: leaves whose ``embed`` dim (the FSDP rule's data
+    axis) ``n`` divides} of the reduced ``arch``."""
+    from repro_torch import configs as cfglib
+    from repro_torch.sharding.rules import axes_leaves
+    params, axes = cfglib.get(arch).api(reduced=True).init(0, device="meta")
+    return {key: sum(1 for x, ax in zip(tm.tree_leaves(params[key]),
+                                        axes_leaves(axes[key]))
+                     if "embed" in ax and x.shape[ax.index("embed")] % n == 0)
+            for key in params}
+
+
+@pytest.mark.parametrize("label", ["2x1", "2x2"])
+def test_fsdp_serve_reads_one_layer_at_a_time(worlds, label):
+    """Reduced deepseek-67b (``embed`` on data) served on its data blocks:
+    a rank's served params are its blocks (half of every ``embed`` dim, the
+    model dims whole on 2x2's gathered route, whose one kv head the model
+    axis cannot split); each decode step gathers every data-sharded leaf
+    once, in the order the model reads them (``embed``, one layer's slice
+    at a time, ``final_ln``, ``head``), and never a stacked ``[L, ...]``
+    leaf whole; no model-axis gather runs during the serve."""
+    from collections import Counter
+    from repro_torch import configs as cfglib
+    api = cfglib.get("deepseek-67b").api(reduced=True)
+    params, _ = api.init(0, device="meta")
+    stacked = {tuple(x.shape) for x in tm.tree_leaves(params["layers"])}
+    k = _data_sharded("deepseek-67b", W.FSDP_MESHES[label][0])
+    layers = api.cfg.num_layers
+    want = ["embed"] + ["layers"] * (layers * k["layers"]) + [
+        "final_ln", "head"]
+    for got in _serve_ranks(worlds, label):
+        got = got["deepseek-67b-auto"]
+        have, served, shapes_ok = got["bytes"]
+        assert shapes_ok and have == served
+        assert got["whole_gathers"] == 0
+        assert len(got["reads"]) == got["counts"][0]
+        for step in got["reads"]:
+            names = [name for name, _ in step]
+            assert Counter(names) == Counter(want)
+            assert names[0] == "embed" and names[-2:] == ["final_ln", "head"]
+            assert not {shape for name, shape in step
+                        if name == "layers"} & stacked
+
+
+@pytest.mark.parametrize("case", ["kimi-k2-1t-a32b-auto", "refresh-67b"])
+def test_fsdp_serve_2x1_equals_one_process(worlds, serve_one_process, case):
+    """Reduced kimi-k2 (MoE) and deepseek-67b (booted from snapshot 1,
+    snapshot 2 swapped in mid-serve) on their data blocks at 2x1: tokens,
+    staleness steps and counts bit for bit the one process's, the swap on
+    its decode step, the params after it bitwise this rank's blocks of
+    snapshot 2, and no whole gather."""
+    ref = serve_one_process[case]
+    for got in _serve_ranks(worlds, "2x1"):
+        got = got[case]
+        assert got["route"] == ref["route"] == ("gather", "FSDP placement")
+        assert got["tokens"] == ref["tokens"]
+        assert got["counts"] == ref["counts"]
+        assert {rid: [b for b, _ in st] for rid, st in got["stamps"].items()} \
+            == {rid: [b for b, _ in st] for rid, st in ref["stamps"].items()}
+        if case == "refresh-67b":
+            assert got["swaps"] == ref["swaps"] and len(got["swaps"]) == 1
+            assert (got["boot"], got["step"]) == (1, 2)
+            assert got["served_2"] and got["whole_gathers"] == 0
+
+
+def test_fsdp_serve_init_holds_only_blocks(worlds):
+    """A rank that inits its own deepseek-67b params at 2x1 (no params
+    handed to the server) cuts each value to its data block as it is
+    drawn: its params are bitwise its blocks of the one-process init, every
+    value went through the placement's ``keep`` one layer's slice at a
+    time (never a stacked ``[L, ...]`` leaf whole), and the init's live
+    param bytes stay below the whole params'."""
+    from repro_torch import configs as cfglib
+    params, _ = cfglib.get("deepseek-67b").api(reduced=True).init(
+        0, device="meta")
+    stacked = {tuple(x.shape) for x in tm.tree_leaves(params["layers"])}
+    for out in _serve_ranks(worlds, "2x1"):
+        got = out["fsdp-init"]
+        have, served, shapes_ok = got["bytes"]
+        assert got["blocks"] and shapes_ok and have == served
+        assert not set(got["drawn"]) & stacked
+        assert got["kept"] <= have < got["whole"]
+        assert got["peak"] < got["whole"], got
+
+
+def test_fsdp_serve_dropped_gather_is_a_planted_fault(worlds,
+                                                      serve_one_process):
+    """With the data fetch's gather delivering nothing (every other rank's
+    block zeros, ``chip_smoke.NoGather``) the 2x1 deepseek-67b tokens part
+    from the one process's."""
+    ref = serve_one_process["deepseek-67b-auto"]["tokens"]
+    for out in _serve_ranks(worlds, "2x1"):
+        got = out["deepseek-67b-planted"]["tokens"]
+        assert got.keys() == ref.keys() and got != ref
 
 
 def test_mesh_serve_routes_follow_the_veto(worlds):

@@ -227,6 +227,23 @@ def test_served_tokens_equal_jax(params, paged):
     assert (tsrv.cache.tables == tsrv.cache.null_page).all()
 
 
+def test_fsdp_arch_served_tokens_equal_jax():
+    """Reduced deepseek-67b, an FSDP arch (``embed`` on data on a mesh;
+    its placement vetoes the paged route in both packages, so both serve
+    it on the gather route): the port's greedy tokens and counts equal the
+    JAX server's on the same params. ``test_torch_mesh_engine.py`` holds
+    the port's 2x1 serve on its data blocks to this one process bit for
+    bit."""
+    arch = "deepseek-67b"
+    jp, _ = jcfg.get(arch).api(reduced=True).init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    jsrv, jrep, tsrv, trep = _serve_pair((jp, tp), "auto", arch=arch)
+    assert tsrv.paged_route == jsrv.paged_route == "gather"
+    assert _tokens(trep) == _tokens(jrep)
+    for f in ("decode_steps", "joins", "evicts", "prefill_calls"):
+        assert getattr(trep, f) == getattr(jrep, f), f
+
+
 def test_logits_along_jax_trajectory_have_margin(apis, params):
     """Each served request replayed through both packages' prefill + decode
     on JAX's served tokens: logits agree within REL and the JAX top-2
